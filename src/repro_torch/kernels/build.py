@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes``. The
+build runs at first use, from the sources in this checkout only, into
+``build/kernels/`` at the repository root (git-ignored). A library is
+named by the hash of its source and flags, so an edited source rebuilds
+and an unchanged one loads what is there. All sources compile in
+parallel, one ``nvcc`` each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}   # loaded libraries, one per source
+
+
+class Built(NamedTuple):
+    path: Path        # the shared library
+    seconds: float    # nvcc's wall time; 0.0 when an up-to-date library was found
+    log: str          # nvcc's output (ptxas -v: registers, spills); "" when found
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Built]:
+    """Compile the named sources (all of csrc/ by default) that have no
+    up-to-date library yet, in parallel. Returns {name: Built}."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    if names is not None:
+        srcs = [s for s in srcs if s.stem in names]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, []
+    for src in srcs:
+        target = _target(src)
+        out[src.stem] = Built(target, 0.0, "")
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, target, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for src, target, tmp, t0, proc in procs:
+        log, _ = proc.communicate()
+        out[src.stem] = Built(target, time.perf_counter() - t0, log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if need be."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all([name])[name].path))
+        _LIBS[name] = lib
+    return lib

@@ -16,6 +16,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running test (multi-process / simulated-mesh); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one")
 
 
 @pytest.fixture(autouse=True, scope="module")

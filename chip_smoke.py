@@ -9,14 +9,16 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
 
   1. the B1 kernel (polysketch_causal) against its plain PyTorch version
      through ops.polysketch_attention, over the grid of the reference's
-     kernel tests and at the slice's shape;
+     kernel tests, at the slice's shape, and in the two calls each layer
+     of a full-width 2040-token prefill makes (a 1024 block returning its
+     state, then the 1016-token tail seeded with it);
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
      tokens + 16 new ones (the decode fold at position 2047 runs), with
      the kernel's launches counted over exactly that run;
   3. self-checks: a prefill resumed at a block boundary equals a cold one
-     bit for bit; a train-mode forward at full width through the kernel
-     agrees with the plain path; SMOKE greedy tokens on the card equal
-     those on the CPU;
+     bit for bit; a train-mode forward at full width launches the kernel
+     once per layer and agrees with the plain path; SMOKE greedy tokens
+     on the card equal those on the CPU;
   4. the kernel's time at the slice's shape beside its plain version's
      and its bound.
 
@@ -157,7 +159,28 @@ def phase_kernel_grid():
     check("f32 slice shape bh=4*12 n=2048 r=32 h=64 b=1024 (out)", e, F32_TOL)
     check("f32 slice shape, returned state (relative to max|z|)",
           err(z, pz) / pz.abs().max().item(), F32_TOL)
-    return max(worst, e)
+    worst = max(worst, e)
+
+    # The two calls a full-width prefill of 2040 tokens makes per layer:
+    # one full block that returns its state, then the 1016-token tail as a
+    # block of its own length (partial tiles), seeded with that state.
+    head = [x[..., :1024, :] for x in inputs]
+    tail = [x[..., 1024:2040, :] for x in inputs]
+    kw = dict(degree=4, scale=1.0 / 64, return_state=True)
+    o1, z1 = ops.polysketch_attention(*head, block_size=1024, **kw)
+    p1, pz1 = ops.polysketch_attention(*head, block_size=1024, impl="torch", **kw)
+    o2, z2 = ops.polysketch_attention(*tail, block_size=1016, z0=z1, **kw)
+    p2, pz2 = ops.polysketch_attention(*tail, block_size=1016, z0=z1,
+                                       impl="torch", **kw)
+    torch.cuda.synchronize()
+    for name, (o, po, z, pz) in (("block n=b=1024", (o1, p1, z1, pz1)),
+                                 ("tail n=b=1016 + z0", (o2, p2, z2, pz2))):
+        e = err(o, po)
+        check(f"f32 prefill {name}, bh=48 r=32 h=64 (out)", e, F32_TOL)
+        check(f"f32 prefill {name}, bh=48 (state, rel.)",
+              err(z, pz) / pz.abs().max().item(), F32_TOL)
+        worst = max(worst, e)
+    return worst
 
 
 def slice_inputs():
@@ -256,11 +279,19 @@ def phase_self_checks(model, prompts):
     x = torch.from_numpy(np.random.default_rng(1).integers(
         0, model.cfg.vocab_size, size=(2, 2048))).cuda()
     with torch.inference_mode():
+        pc.polysketch_causal_cuda.launches = 0
         got, _ = model.lm(x, mode="train")
+        launches = pc.polysketch_causal_cuda.launches
         plain = functools.partial(ops.polysketch_attention, impl="torch")
         with mock.patch.object(ops, "polysketch_attention", plain):
             want, _ = model.lm(x, mode="train")
     torch.cuda.synchronize()
+    log(f"  train forward B=2 S=2048: B1 launches {launches} "
+        f"(one per layer: {model.cfg.n_layers}); plain run: "
+        f"{pc.polysketch_causal_cuda.launches - launches}")
+    if launches != model.cfg.n_layers or pc.polysketch_causal_cuda.launches != launches:
+        raise AssertionError("the train forward did not run B1 once per layer, "
+                             "or the plain run launched it")
     rel = err(got, want) / want.abs().max().item()
     check("train forward B=2 S=2048 full width: kernel vs plain (rel. logits)",
           rel, F32_TOL)

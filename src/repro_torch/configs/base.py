@@ -1,9 +1,13 @@
 """Architecture configuration for the PyTorch port.
 
 The port's own copy of ``ArchConfig`` (the JAX package's
-``repro/configs/base.py``): the same fields and defaults, so one config
-value means the same model in both packages. The port imports nothing
-from the JAX package.
+``repro/configs/base.py``), cut to the fields the port reads, with the
+reference's names and defaults: one value means the same model in both
+packages. A field the port does not serve is not here, so setting it
+raises (``replace`` takes no unknown field); family, block pattern, FFN
+and attention kinds other than the dense polysketch ones are rejected by
+``models.transformer.check_supported``. The port imports nothing from
+the JAX package.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # dense|moe|ssm|hybrid|vlm|audio
+    family: str                    # the port serves "dense"
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,57 +28,25 @@ class ArchConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
 
     # block structure: cycle of mixer kinds over layers
-    block_pattern: tuple[str, ...] = ("attn",)   # attn|local_attn|rglru|ssd
+    block_pattern: tuple[str, ...] = ("attn",)
 
     # attention mechanism for "attn" mixers (the paper's knob)
-    attention: str = "polysketch"  # softmax|polynomial|polysketch
+    attention: str = "polysketch"
     poly_degree: int = 4
     sketch_size: int = 32
     learned_sketch: bool = True
     local_exact: bool = True
     lt_block_size: int = 256
-    qk_norm: bool = False          # per-head RMS q/k-norm (qwen3 recipe)
-    sliding_window: int = 2048     # for local_attn mixers
+    qk_norm: bool = False          # per-head RMS q/k-norm (not ported)
     use_rope: bool = True
     rope_theta: float = 10000.0
 
-    # ffn
-    ffn: str = "glu"               # glu|moe
-    n_experts: int = 0
-    moe_top_k: int = 0
-    moe_period: int = 1            # MoE every k-th layer (llama4: 2)
-    capacity_factor: float = 1.25
-    moe_dispatch_groups: int = 1   # DP-shard-aligned dispatch groups (EP)
+    ffn: str = "glu"
 
-    # ssm (mamba2)
-    ssm_state: int = 128
-    ssm_expand: int = 2
-    ssm_head_dim: int = 64
-    ssm_conv: int = 4
-
-    # rglru (recurrentgemma)
-    rglru_width: int = 0           # 0 -> d_model
-    rglru_c: float = 8.0
-
-    # encoder-decoder (whisper)
-    encoder_layers: int = 0
-    encoder_len: int = 1500
-    cross_attention: bool = False
-
-    # vlm
-    n_image_tokens: int = 0
-
-    # numerics / training
-    param_dtype: str = "float32"
+    # numerics
     compute_dtype: str = "float32"
-    remat: str = "none"            # none|dots|full
-    unroll_layers: bool = False    # Python-loop layers instead of lax.scan (cost probes)
     tie_embeddings: bool = True
     norm: str = "rmsnorm"          # rmsnorm|layernorm
-
-    # router aux loss weights (MoE)
-    router_aux_weight: float = 0.01
-    router_z_weight: float = 0.001
 
     @property
     def resolved_head_dim(self) -> int:
@@ -87,14 +59,3 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
-
-    @property
-    def pattern_layers(self) -> int:
-        """Layers per pattern group."""
-        return len(self.block_pattern)
-
-    @property
-    def n_groups(self) -> int:
-        assert self.n_layers % self.pattern_layers == 0, \
-            (self.name, self.n_layers, self.block_pattern)
-        return self.n_layers // self.pattern_layers

@@ -50,9 +50,8 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
     qm: (B, Hq, r)  sketched query (input pre-scaled by sqrt(scale))
     km: (B, Hkv, r) sketched key
     q:  (B, Hq, h)  post-LN query;  k, v: (B, Hkv, h)
-    Returns (out (B, Hq, h), new_cache). The buffers of `cache` are
-    written in place (the token's slot), which saves copying them every
-    token; the caller keeps only the returned cache.
+    Returns (out (B, Hq, h), new_cache). `cache` is left as it was, as in
+    the reference: the token goes into copies of its buffers.
     """
     bsz, hq, hd = q.shape
     hkv = k.shape[1]
@@ -61,7 +60,7 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
     fill = cache.pos % blk  # slot for the incoming token
 
     f32 = torch.float32
-    kbuf, vbuf, mbuf = cache.kbuf, cache.vbuf, cache.mbuf
+    kbuf, vbuf, mbuf = cache.kbuf.clone(), cache.vbuf.clone(), cache.mbuf.clone()
     kbuf[:, :, fill] = k.to(kbuf.dtype)
     vbuf[:, :, fill] = v.to(vbuf.dtype)
     mbuf[:, :, fill] = km.to(f32)
@@ -100,48 +99,40 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
 
 def polysketch_prefill(cache: PolysketchCache, qm, km, q, k, v, *,
                        degree: int, scale: float, local_exact: bool = True):
-    """Fill a PolysketchCache from a prompt segment (B, H*, S, .) in one shot.
+    """Prefill one segment (B, H*, S, .) of a prompt into a PolysketchCache.
 
-    The complete blocks go through the kernel (ops.polysketch_attention)
-    seeded with cache.z, which returns the folded state; the partial tail
-    goes through the kernel as one block of its own length, attending
-    locally and through z, and is NOT folded (it lives in the buffer until
-    decode completes the block). Returns (outputs (B, Hq, S, h), cache).
-
-    Resume contract: `cache` may carry a block-aligned state (pos % blk ==
-    0, empty buffers); the segment then attends through cache.z as if the
-    folded tokens were part of this call. The kernel adds blocks to the
-    state in order from z0, so a prefill resumed from such a state is
-    bit-identical to a cold prefill of the whole prompt.
+    The segment starts on the block grid (cache.pos % blk == 0, empty
+    buffers) and is at most one block long; core.state.DecodeState cuts a
+    prompt so. It attends through cache.z as if the folded tokens were
+    part of this call, in one kernel launch (ops.polysketch_attention):
+    - a full block (S == blk) is folded: the kernel returns the new state,
+      added to z0 in order, so a prefill resumed at a block boundary is
+      bit-identical to a cold prefill of the whole prompt;
+    - a shorter segment is the prompt's tail. It runs as one block of its
+      own length and is NOT folded: it lives in the buffers until decode
+      completes the block.
+    Returns (outputs (B, Hq, S, h), cache). `cache` is left as it was.
     """
     bsz, hkv, s, hd = k.shape
-    hq = q.shape[1]
+    g = q.shape[1] // hkv
     blk = cache.kbuf.shape[2]
-    g = hq // hkv
+    if cache.pos % blk or s > blk:
+        raise ValueError(f"a prefill segment starts on the block grid and "
+                         f"spans at most one block of {blk}; got pos "
+                         f"{cache.pos}, length {s}")
     f32 = torch.float32
-    n_full = (s // blk) * blk
-    z = cache.z.to(f32)
-    kw = dict(degree=degree, scale=scale, local_exact=local_exact)
-    outs = []
-    if n_full:
-        out_f, z_r = ops.polysketch_attention(
-            qm[:, :, :n_full], km[:, :, :n_full], q[:, :, :n_full],
-            k[:, :, :n_full], v[:, :, :n_full], block_size=blk, z0=z,
-            return_state=True, **kw)
-        outs.append(out_f)
-        # all g query-head copies of a kv head folded identical blocks from
-        # an identical z0, so any copy is the per-kv-head state
-        z = z_r.reshape(bsz, hkv, g, *z_r.shape[2:])[:, :, 0]
-    if s > n_full:
-        outs.append(ops.polysketch_attention(
-            qm[:, :, n_full:], km[:, :, n_full:], q[:, :, n_full:],
-            k[:, :, n_full:], v[:, :, n_full:], block_size=s - n_full, z0=z,
-            **kw))
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
-    tail = s - n_full
+    out = ops.polysketch_attention(
+        qm, km, q, k, v, degree=degree, scale=scale, local_exact=local_exact,
+        block_size=s, z0=cache.z, return_state=s == blk)
+    if s == blk:
+        out, z_r = out
+        # all g query-head copies of a kv head folded one block from one
+        # z0, so any copy is the per-kv-head state
+        z = z_r.reshape(bsz, hkv, g, *z_r.shape[2:])[:, :, 0].contiguous()
+        return out, cache._replace(z=z, pos=cache.pos + s)
     kbuf, vbuf, mbuf = cache.kbuf.clone(), cache.vbuf.clone(), cache.mbuf.clone()
-    kbuf[:, :, :tail] = k[:, :, n_full:].to(kbuf.dtype)
-    vbuf[:, :, :tail] = v[:, :, n_full:].to(vbuf.dtype)
-    mbuf[:, :, :tail] = km[:, :, n_full:].to(f32)
-    return out, PolysketchCache(z=z.contiguous(), kbuf=kbuf, vbuf=vbuf,
-                                mbuf=mbuf, pos=cache.pos + s)
+    kbuf[:, :, :s] = k.to(kbuf.dtype)
+    vbuf[:, :, :s] = v.to(vbuf.dtype)
+    mbuf[:, :, :s] = km.to(f32)
+    return out, cache._replace(kbuf=kbuf, vbuf=vbuf, mbuf=mbuf,
+                               pos=cache.pos + s)

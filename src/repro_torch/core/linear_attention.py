@@ -3,7 +3,9 @@
 Port of the JAX package's ``core/linear_attention.py``: the paper-faithful
 block algorithm on the combined (r^2, h+1) prefix state. It is the plain
 reference of what the port's CUDA kernel computes
-(``kernels/polysketch_causal.py``); the tests hold both to it.
+(``kernels/polysketch_causal.py``). tests/test_torch_core.py holds it to
+the JAX package; tests/test_torch_kernels.py holds the kernel's own
+plain version (factored state) to it, z0 and returned state included.
 
 Contract (single head; batched via leading dims):
   out_i = [ sum_{j<=i} w_ij v_j ] / (1 + sum_{j<=i} w_ij)

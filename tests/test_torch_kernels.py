@@ -115,6 +115,26 @@ def test_plain_version_matches_oracle_on_factored_state():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("local_exact", [True, False])
+@pytest.mark.parametrize("with_z0", [False, True])
+def test_plain_version_matches_block_linear_attention(local_exact, with_z0):
+    """ops.polysketch_attention's plain version (factored state) against
+    the combined-state block algorithm, output and returned state, seeded
+    from a z0 or not."""
+    from repro_torch.core.linear_attention import block_causal_linear_attention
+    qm, km, q, k, v = _torch(_inputs(4, 2, 3, 3, 48, 8, 4), "float32")
+    z0 = None
+    if with_z0:
+        z0 = torch.from_numpy(np.abs(np.random.default_rng(5).standard_normal(
+            (2, 3, 16, 9)).astype(np.float32)) * 0.1)
+    kw = dict(degree=4, scale=1.0 / 8, block_size=16, local_exact=local_exact,
+              z0=z0, return_state=True)
+    got, gz = tops.polysketch_attention(qm, km, q, k, v, **kw)
+    want, wz = block_causal_linear_attention(qm, km, v, q, k, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_f32(gz), _f32(wz), atol=1e-4, rtol=1e-5)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never runs a CPU tensor (no silent fallback), and
     ops takes no implementation name it does not know."""

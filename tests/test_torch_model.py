@@ -117,6 +117,34 @@ def test_resumed_prefill_is_bit_identical_to_cold(pair):
             assert torch.equal(x, y)
 
 
+def test_decode_step_leaves_its_input_cache_unchanged(pair):
+    """Caches are values, as in the reference: a decode step (here one that
+    folds a block) returns a new cache and leaves the one it was given as
+    it was, so stepping from it again gives the same logits."""
+    _, _, tm = pair
+    _, cache = tm.state.prefill(torch.from_numpy(_tokens(6, (2, 15))))
+    before = [[x.clone() for x in c[:4]] for c in cache]
+    nxt = torch.from_numpy(np.array([[5], [77]]))
+    first, _ = tm.state.decode_step(nxt, 15, cache)
+    for c, b in zip(cache, before):
+        assert c.pos == 15
+        assert all(torch.equal(x, y) for x, y in zip(c[:4], b))
+    again, _ = tm.state.decode_step(nxt, 15, cache)
+    assert torch.equal(first, again)
+
+
+def test_prefill_segment_lies_in_one_block():
+    from repro_torch.core.decode import init_polysketch_cache, polysketch_prefill
+    cache = init_polysketch_cache(1, 1, 8, 4, 16)
+    m, x = torch.zeros(1, 1, 17, 4), torch.zeros(1, 1, 17, 8)
+    kw = dict(degree=4, scale=1.0 / 8)
+    with pytest.raises(ValueError, match="one block"):
+        polysketch_prefill(cache, m, m, x, x, x, **kw)
+    with pytest.raises(ValueError, match="one block"):
+        polysketch_prefill(cache._replace(pos=3), m[:, :, :4], m[:, :, :4],
+                           x[:, :, :4], x[:, :, :4], x[:, :, :4], **kw)
+
+
 def test_generate_rejects_sampling_and_overflow(pair):
     _, _, tm = pair
     prompt = _tokens(0, (1, 4))

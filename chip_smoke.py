@@ -1,6 +1,6 @@
 """Chip smoke of the PyTorch port: build its kernels, hold each against its
-plain version on the card, serve gpt2s-polysketch at full width, and check
-the port against itself.
+plain version on the card, serve gpt2s-polysketch and gpt2s-poly4 at full
+width, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -11,15 +11,22 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      through ops.polysketch_attention, over the grid of the reference's
      kernel tests, at the slice's shape, and in the two calls each layer
      of a full-width 2040-token prefill makes (a 1024 block returning its
-     state, then the 1016-token tail seeded with it);
+     state, then the 1016-token tail seeded with it); then the B2 kernel
+     (poly_flash) through ops.poly_attention and the B3 kernel (lt_mult)
+     through ops.lt_mult, over their reference grids and at the shapes
+     their paths give them;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
-     tokens + 16 new ones (the decode fold at position 2047 runs), with
-     the kernel's launches counted over exactly that run;
-  3. self-checks: a prefill resumed at a block boundary equals a cold one
-     bit for bit; a train-mode forward at full width launches the kernel
-     once per layer and agrees with the plain path; SMOKE greedy tokens
-     on the card equal those on the CPU;
-  4. the kernel's time at the slice's shape beside its plain version's
+     tokens + 16 new ones, of gpt2s-polysketch (the decode fold at
+     position 2047 runs) and of gpt2s-poly4 (exact polynomial attention,
+     one prefill call into a KV cache of 2056), with every kernel's
+     launches counted over exactly each run; B3's own path, ops.lt_mult
+     at the kernel benchmark's shapes, likewise;
+  3. self-checks: a polysketch prefill resumed at a block boundary equals
+     a cold one bit for bit; a train-mode forward at full width launches
+     its kernel once per layer and agrees with the plain path, for both
+     models; the poly4 prefill's logits, kernel vs plain; SMOKE greedy
+     tokens on the card equal those on the CPU, for both mechanisms;
+  4. each kernel's time at its path's shapes beside its plain version's
      and its bound.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
@@ -42,14 +49,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4  # noqa: E402
+from repro_torch.core import decode as dec  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import lt_mult as lt  # noqa: E402
+from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serve.engine import generate  # noqa: E402
 
 F32_TOL, BF16_TOL = 1e-4, 5e-2      # the reference's kernel-sweep tolerances
+LT_F32_TOL, LT_BF16_TOL = 2e-3, 2e-2  # lt_mult's: atol tol * n, rtol tol
+LT_BENCH_REL_TOL = 1e-5             # and max|err| / max|out| at kernel_bench's shapes
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12          # HBM3 (data sheet)
+KERNELS = {"polysketch_causal": pc.polysketch_causal_cuda,
+           "poly_flash": pf.poly_flash_cuda, "lt_mult": lt.lt_mult_cuda}
+NO_LIBRARY = "none: no single PyTorch call computes this function"
 
 
 def log(*a):
@@ -81,6 +97,27 @@ def check(name, got, tol):
     log(f"  {name:58s} max|err| {got:.3e}  tol {tol:.0e}  {status}")
     if got > tol:
         raise AssertionError(f"{name}: max error {got} > {tol}")
+
+
+def check_close(name, got, want, atol, rtol):
+    """allclose(got, want, atol, rtol), as the reference's lt_mult tests
+    hold it; returns the max abs error."""
+    e = err(got, want)
+    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol)
+    log(f"  {name:58s} max|err| {e:.3e}  atol {atol:.1e} rtol {rtol:.0e}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: not within atol {atol}, rtol {rtol}")
+    return e
+
+
+def zero_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +220,119 @@ def phase_kernel_grid():
     return worst
 
 
+def phase_poly_flash_grid():
+    log("phase 1: poly_flash kernel vs plain PyTorch (ops.poly_attention)")
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for degree in (4, 8):
+            for causal in (True, False):
+                rnd = seeded(degree + causal)
+                q, k, v = (rnd(2, 2, 128, 16, dtype=dt) for _ in range(3))
+                kw = dict(degree=degree, scale=1.0 / 16, causal=causal)
+                got = ops.poly_attention(q, k, v, **kw)
+                want = ops.poly_attention(q, k, v, impl="torch", **kw)
+                torch.cuda.synchronize()
+                e = err(got, want)
+                check(f"{str(dt)[6:]} p={degree} causal={causal} B=2 H=2 S=128 hd=16",
+                      e, tol)
+                if dt == torch.float32:
+                    worst = max(worst, e)
+    rnd = seeded(5)
+    cases = (("f32 GQA 4:2, S=128", (2, 4, 128, 16), (2, 2, 128, 16), True),
+             ("f32 unaligned n=77 (ragged tile, no padding)", (1, 2, 77, 16),
+              (1, 2, 77, 16), True),
+             ("f32 non-causal n=100, t=77, h=64", (2, 2, 100, 64), (2, 2, 77, 64),
+              False),
+             ("f32 non-causal n=64, t=96, hd=16", (2, 2, 64, 16), (2, 2, 96, 16),
+              False))
+    for name, sq, skv, causal in cases:
+        q, k, v = rnd(*sq), rnd(*skv), rnd(*skv)
+        kw = dict(degree=4, causal=causal)
+        e = err(ops.poly_attention(q, k, v, **kw),
+                ops.poly_attention(q, k, v, impl="torch", **kw))
+        check(name, e, F32_TOL)
+        worst = max(worst, e)
+    for degree in (4, 8):
+        q, k, v = poly_slice_inputs(2040)
+        kw = dict(degree=degree, scale=1.0 / 64)
+        e = err(ops.poly_attention(q, k, v, **kw),
+                ops.poly_attention(q, k, v, impl="torch", **kw))
+        torch.cuda.synchronize()
+        check(f"f32 slice shape bh=4*12 n=2040 h=64 p={degree}", e, F32_TOL)
+        worst = max(worst, e)
+    return worst
+
+
+def poly_slice_inputs(n):
+    """q, k, v (4, 12, n, 64) as the poly4 prefill gives them: q and k
+    LayerNorm'd (zero mean, unit variance per row), v O(1)."""
+    rnd = seeded(12)
+    q, k, v = rnd(4, 12, n, 64), rnd(4, 12, n, 64), rnd(4, 12, n, 64)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (64,), eps=1e-6)  # noqa: E731
+    return ln(q), ln(k), v
+
+
+LT_BENCH = dict(bh=4, m=32, k=64, blk=256)        # benchmarks/kernel_bench.py
+
+
+def lt_bench_inputs(n):
+    rnd = seeded(13)
+    bh, m, k = LT_BENCH["bh"], LT_BENCH["m"], LT_BENCH["k"]
+    return rnd(bh, n, m), rnd(bh, n, m), rnd(bh, n, k)
+
+
+def phase_lt_mult_grid():
+    log("phase 1: lt_mult kernel vs plain PyTorch (ops.lt_mult)")
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = LT_F32_TOL if dt == torch.float32 else LT_BF16_TOL
+        for n, m, k, blk in ((64, 8, 16, 16), (128, 32, 8, 32), (96, 16, 16, 32),
+                             (256, 64, 64, 64)):
+            rnd = seeded(n + m)
+            a, b, c = rnd(2, n, m, dtype=dt), rnd(2, n, m, dtype=dt), rnd(2, n, k, dtype=dt)
+            got = ops.lt_mult(a, b, c, block_size=blk)
+            want = ops.lt_mult(a, b, c, block_size=blk, impl="torch")
+            torch.cuda.synchronize()
+            e = check_close(f"{str(dt)[6:]} n={n} m={m} k={k} block={blk}", got, want,
+                            tol * n, tol)
+            if dt == torch.float32:
+                worst = max(worst, e)
+    for n in (32, 64, 96):
+        for blk in (16, 32):
+            for seed in (0, 271, 828):
+                rnd = seeded(seed)
+                a, b, c = rnd(1, n, 8), rnd(1, n, 8), rnd(1, n, 4)
+                got = ops.lt_mult(a, b, c, block_size=blk)
+                want = ops.lt_mult(a, b, c, block_size=blk, impl="torch")
+                e = err(got, want)
+                if not torch.allclose(got, want, atol=1e-3, rtol=1e-3):
+                    raise AssertionError(f"lt_mult property n={n} block={blk} "
+                                         f"seed={seed}: max error {e}")
+                worst = max(worst, e)
+    log(f"  property grid (n 32/64/96 x block 16/32 x 3 seeds, m=8, k=4): all within "
+        f"1e-3, worst max|err| so far {worst:.3e}")
+    for n in (2048, 16384):
+        a, b, c = lt_bench_inputs(n)
+        got = ops.lt_mult(a, b, c, block_size=LT_BENCH["blk"])
+        want = ops.lt_mult(a, b, c, block_size=LT_BENCH["blk"], impl="torch")
+        torch.cuda.synchronize()
+        e = check_close(f"f32 kernel_bench shape bh=4 m=32 k=64 block=256 n={n}",
+                        got, want, LT_F32_TOL * n, LT_F32_TOL)
+        # At n = 16384 the reference's atol (2e-3 * n) is ~33 against outputs
+        # of a few hundred: hold the error to max|out| as well, so that a
+        # wrong tile term (~|a.b| |c|) fails at this shape too.
+        rel = e / want.abs().max().item()
+        log(f"    (relative to max|out| {want.abs().max().item():.1f}: {rel:.2e}, "
+            f"limit {LT_BENCH_REL_TOL:.0e})")
+        if not rel <= LT_BENCH_REL_TOL:
+            raise AssertionError(f"lt_mult kernel_bench shape n={n}: max error "
+                                 f"{e} is {rel:.2e} of max|out|, above "
+                                 f"{LT_BENCH_REL_TOL:.0e}")
+        worst = max(worst, e)
+    return worst
+
+
 def slice_inputs():
     """Inputs at the slice's shape, scaled like the model's: q, k are
     LayerNorm'd (unit variance per row), the sketches are O(1)."""
@@ -209,9 +359,10 @@ def phase_serve(model):
     cfg = model.cfg
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(4, 2040))
     generate(model, prompts[:, :64], 2)            # warm-up (allocator, cuBLAS)
-    pc.polysketch_causal_cuda.launches = 0
+    zero_counts()
     res, dt = timed(lambda: generate(model, prompts, 16))
-    launches = pc.polysketch_causal_cuda.launches
+    run_counts = counts()
+    launches = run_counts["polysketch_causal"]
     toks = res.tokens.cpu().numpy()
     if toks.shape != (4, 16) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
@@ -220,7 +371,7 @@ def phase_serve(model):
     log(f"  layers {cfg.n_layers} x d_model {cfg.d_model}, {cfg.n_heads} heads of "
         f"{cfg.resolved_head_dim}, block {cfg.lt_block_size}, r {cfg.sketch_size}")
     log(f"  generate: {dt * 1e3:.1f} ms for 4 x 16 tokens; B1 launches in the run: "
-        f"{launches}")
+        f"{launches} (all kernels: {run_counts})")
     if launches <= 0:
         raise AssertionError("the main path never launched the B1 kernel")
     _, t_pre = timed(lambda: generate(model, prompts, 0))
@@ -311,6 +462,152 @@ def phase_self_checks(model, prompts):
         raise AssertionError("SMOKE greedy tokens differ between card and CPU")
 
 
+def phase_serve_poly(model, prompts):
+    """gpt2s-poly4 served as phase 2 serves polysketch: B2 launched once
+    per layer by the one prefill call; decode timed with and without the
+    KV cache's copy per step."""
+    cfg = model.cfg
+    steps, max_len = 16, prompts.shape[1] + 16
+    log(f"phase 2: {cfg.name} full width, greedy generate, 4 x ({prompts.shape[1]} + "
+        f"{steps}), KV cache of {max_len}")
+    gen = lambda n_new: generate(model, prompts, n_new, max_len=max_len)  # noqa: E731
+    generate(model, prompts[:, :64], 2)            # warm-up (allocator, cuBLAS)
+    zero_counts()
+    res, dt = timed(lambda: gen(steps))
+    run_counts = counts()
+    launches = run_counts["poly_flash"]
+    toks = res.tokens.cpu().numpy()
+    if toks.shape != (4, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
+    if not torch.isfinite(res.logits_last).all():
+        raise AssertionError("non-finite logits")
+    log(f"  layers {cfg.n_layers} x d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, exact polynomial attention p={cfg.poly_degree}")
+    log(f"  generate: {dt * 1e3:.1f} ms for 4 x {steps} tokens; B2 launches in the "
+        f"run: {launches} (all kernels: {run_counts}; expected one per layer, "
+        f"{cfg.n_layers})")
+    if launches != cfg.n_layers or run_counts["polysketch_causal"] or run_counts["lt_mult"]:
+        raise AssertionError("the poly4 generate did not launch B2 exactly once per "
+                             "layer, or launched another kernel")
+    _, t_pre = timed(lambda: gen(0))
+    _, t_all = timed(lambda: gen(steps))
+    log(f"  prefill (generate, 0 new tokens): {t_pre * 1e3:.1f} ms; decode "
+        f"{(t_all - t_pre) * 1e3 / steps:.2f} ms/token-step; {4 * steps / t_all:.1f} "
+        f"generated tok/s ({4 * (prompts.shape[1] + steps) / t_all:.0f} tok/s prompt "
+        f"included)")
+    decode_copy_cost(model, prompts, steps, max_len)
+    for i, row in enumerate(toks):
+        log(f"  req{i}: {' '.join(map(str, row.tolist()))}")
+    profile_generate(model, prompts)
+    return launches
+
+
+def decode_copy_cost(model, prompts, steps, max_len):
+    """What the KV cache's copy per decode step (caches are values) costs:
+    16 decode steps from one prefill, timed with the copy and with the
+    buffers written in place, in turns; and the device time of the copies
+    alone (both buffers of every layer)."""
+    st = model.state
+    tokens = torch.from_numpy(prompts).cuda()
+    s0 = prompts.shape[1]
+    with torch.inference_mode():
+        last, cache = st.prefill(tokens, max_len=max_len)
+        tok = torch.argmax(last, dim=-1)[:, None]
+
+        def run():
+            c = cache
+            for i in range(steps):
+                _, c = st.decode_step(tok, s0 + i, c)
+        in_place = lambda: mock.patch.object(dec, "_writable", lambda x: x)  # noqa: E731
+        ms = {"copy": [], "in place": []}
+        for label in ("copy", "in place", "in place", "copy", "copy", "in place"):
+            if label == "copy":
+                dt = timed(run)[1]
+            else:
+                with in_place():
+                    dt = timed(run)[1]
+            ms[label].append(dt * 1e3 / steps)
+        copy_ms = event_ms(lambda: [dec._writable(x) for c in cache for x in (c.k, c.v)])
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  decode step, KV cache copied (as shipped): median {med['copy']:.2f} ms "
+        f"{[round(x, 2) for x in ms['copy']]}; written in place: median "
+        f"{med['in place']:.2f} ms {[round(x, 2) for x in ms['in place']]} "
+        f"(16 steps a run, host clock with sync, runs in turns); difference "
+        f"{med['copy'] - med['in place']:.2f} ms/step")
+    nbytes = sum(x.numel() * x.element_size() for c in cache for x in (c.k, c.v))
+    log(f"  device time of the copies alone: {copy_ms:.3f} ms/step "
+        f"({2 * nbytes / 1e6:.0f} MB read and written, CUDA events)")
+
+
+def phase_poly_self_checks(model, prompts):
+    log("phase 3: gpt2s-poly4 self-checks")
+    cfg = model.cfg
+    plain = mock.patch.object(ops, "poly_attention",
+                              functools.partial(ops.poly_attention, impl="torch"))
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 2048))).cuda()
+    with torch.inference_mode():
+        zero_counts()
+        got, _ = model.lm(x, mode="train")
+        launches = pf.poly_flash_cuda.launches
+        with plain:
+            want, _ = model.lm(x, mode="train")
+    torch.cuda.synchronize()
+    log(f"  train forward B=2 S=2048: B2 launches {launches} (one per layer: "
+        f"{cfg.n_layers}); plain run: {pf.poly_flash_cuda.launches - launches}")
+    if launches != cfg.n_layers or pf.poly_flash_cuda.launches != launches:
+        raise AssertionError("the train forward did not run B2 once per layer, "
+                             "or the plain run launched it")
+    check("train forward B=2 S=2048 full width: kernel vs plain (rel. logits)",
+          err(got, want) / want.abs().max().item(), F32_TOL)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite train logits")
+
+    tokens = torch.from_numpy(prompts).cuda()
+    max_len = prompts.shape[1] + 16
+    with torch.inference_mode():
+        got, _ = model.state.prefill(tokens, max_len=max_len)
+        with plain:
+            want, _ = model.state.prefill(tokens, max_len=max_len)
+    torch.cuda.synchronize()
+    check(f"prefill 4 x {prompts.shape[1]}: last-position logits, kernel vs plain (rel.)",
+          err(got, want) / want.abs().max().item(), F32_TOL)
+
+    for degree in (4, 8):
+        smoke = get_config("gpt2s-polysketch", smoke=True, attention="polynomial",
+                           poly_degree=degree)
+        prompt = np.random.default_rng(2).integers(0, smoke.vocab_size, size=(2, 13))
+        on_card = generate(build_model(smoke, device="cuda", seed=3), prompt, 8)
+        on_cpu = generate(build_model(smoke, device="cpu", seed=3), prompt, 8)
+        same = torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+        check(f"SMOKE-polynomial p={degree} generate logits, card (kernel) vs CPU (plain)",
+              err(on_card.logits_last.cpu(), on_cpu.logits_last), F32_TOL)
+        log(f"  SMOKE-polynomial p={degree} greedy tokens (13-token prompt, 8 steps) "
+            f"equal on card and CPU: {same}")
+        if not same:
+            raise AssertionError("SMOKE-polynomial greedy tokens differ between card "
+                                 "and CPU")
+
+
+def phase_lt_mult_path():
+    """B3's path: its public entry point ops.lt_mult, called as a user (or
+    benchmarks/kernel_bench.py) calls it, at the benchmark's shapes."""
+    log("phase 2: B3's path, ops.lt_mult at kernel_bench's shapes "
+        "(bh 4, m 32, k 64, block 256, n 2048 and 16384)")
+    inputs = [lt_bench_inputs(n) for n in (2048, 16384)]
+    zero_counts()
+    outs = [ops.lt_mult(a, b, c, block_size=LT_BENCH["blk"]) for a, b, c in inputs]
+    torch.cuda.synchronize()
+    run_counts = counts()
+    log(f"  launches in the run: {run_counts}")
+    if run_counts["lt_mult"] != len(inputs):
+        raise AssertionError("ops.lt_mult did not launch B3 once per call")
+    for (_, _, c), out in zip(inputs, outs):
+        if out.shape != c.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"bad lt_mult output {tuple(out.shape)}")
+    return run_counts["lt_mult"]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
@@ -336,16 +633,25 @@ def b1_bound(bh, n, r, h, b, degree, itemsize=4):
     input read once and each output written once."""
     t = n // b
     pairs = t * b * (b + 1) // 2
-    pow_muls = max(degree.bit_length() - 1 + bin(degree).count("1") - 1, 0)
-    diag = pairs * (2 * h + 1 + pow_muls + 2 * h + 1)
+    diag = pairs * (2 * h + 1 + pow_muls(degree) + 2 * h + 1)
     cross = n * (2 * r * r * h + 2 * r * h + 2 * r * r + 2 * r + h)
     fold = t * (b * r * h + 2 * b * r * r * h + 2 * b * r * r) + t * (r * r * h + r * r)
     flops = bh * (diag + cross + fold)
     state = bh * (r * r * h + r * r) * 4
     nbytes = bh * n * (2 * r + 3 * h) * itemsize + bh * n * h * itemsize + 2 * state
+    return (*bound(flops, nbytes), flops, nbytes)
+
+
+def bound(flops, nbytes):
+    """(ms, 'bytes'|'operations'): the larger of operations at the f32
+    non-tensor-core peak and bytes at the HBM rate."""
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pow_muls(degree):
+    """Multiplies of x^p by repeated squaring."""
+    return max(degree.bit_length() - 1 + bin(degree).count("1") - 1, 0)
 
 
 def phase_timing():
@@ -366,6 +672,62 @@ def phase_timing():
     return min(ms, ms2), plain_ms, bound_ms, bound_by
 
 
+def b2_bound(bh, n, h, degree, itemsize=4):
+    """Causal B2 (n == t): per pair the dot (2h), the scale, the power,
+    the PV product (2h) and the denominator; per row the normalisation.
+    Bytes: q, k, v read once, out written once."""
+    pairs = bh * n * (n + 1) // 2
+    flops = pairs * (2 * h + 1 + pow_muls(degree) + 2 * h + 1) + bh * n * (h + 2)
+    nbytes = 4 * bh * n * h * itemsize
+    return (*bound(flops, nbytes), flops, nbytes)
+
+
+def b3_bound(bh, n, m, k, b, itemsize=4):
+    """B3 as the block algorithm needs it: each block's triangle (2m for a
+    score, 2k for its row of W C), the fold B^T C and the cross term A Z
+    (2mk a row each), the prefix over blocks. Bytes: A, B, C read once, O
+    written once."""
+    t = n // b
+    pairs = t * b * (b + 1) // 2
+    flops = bh * (pairs * (2 * m + 2 * k) + 4 * n * m * k + t * m * k)
+    nbytes = bh * n * (2 * m + 2 * k) * itemsize
+    return (*bound(flops, nbytes), flops, nbytes)
+
+
+def phase_timing_poly_lt():
+    """B2 and B3 timed as phase 4 times B1: kernel, plain, kernel."""
+    log("phase 4: B2 and B3 times at their paths' shapes (CUDA events, warmed up)")
+    before = counts()
+    out = {"poly_flash": {}, "lt_mult": {}}
+    for n in (2040, 2048):
+        q, k, v = (x.reshape(48, n, 64).contiguous() for x in poly_slice_inputs(n))
+        kw = dict(degree=4, scale=1.0 / 64)
+        ms = event_ms(lambda: pf.poly_flash_cuda(q, k, v, **kw))
+        plain_ms = event_ms(lambda: pf.poly_flash_torch(q, k, v, **kw))
+        ms2 = event_ms(lambda: pf.poly_flash_cuda(q, k, v, **kw))
+        bound_ms, bound_by, flops, nbytes = b2_bound(48, n, 64, 4)
+        out["poly_flash"][n] = (min(ms, ms2), plain_ms, bound_ms, bound_by)
+        log(f"  B2 bh=48 n={n} h=64 p=4: kernel {min(ms, ms2):.3f} ms (runs {ms:.3f}, "
+            f"{ms2:.3f}), plain PyTorch {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by "
+            f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{bound_ms / min(ms, ms2):.1%} of the bound; library call: {NO_LIBRARY}")
+    for n in (2048, 16384):
+        a, b, c = lt_bench_inputs(n)
+        kw = dict(block_size=LT_BENCH["blk"])
+        ms = event_ms(lambda: lt.lt_mult_cuda(a, b, c, **kw))
+        plain_ms = event_ms(lambda: lt.lt_mult_torch(a, b, c, **kw))
+        ms2 = event_ms(lambda: lt.lt_mult_cuda(a, b, c, **kw))
+        bound_ms, bound_by, flops, nbytes = b3_bound(4, n, 32, 64, LT_BENCH["blk"])
+        out["lt_mult"][n] = (min(ms, ms2), plain_ms, bound_ms, bound_by)
+        log(f"  B3 bh=4 n={n} m=32 k=64 block=256: kernel {min(ms, ms2):.4f} ms (runs "
+            f"{ms:.4f}, {ms2:.4f}), plain PyTorch {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{bound_ms / min(ms, ms2):.1%} of the bound; library call: {NO_LIBRARY}")
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -384,19 +746,38 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     max_err = phase_kernel_grid()
+    b2_err = phase_poly_flash_grid()
+    b3_err = phase_lt_mult_grid()
     model = build_model(get_config("gpt2s-polysketch"), device="cuda", seed=0)
     launches, prompts = phase_serve(model)
     phase_self_checks(model, prompts)
+    del model
+    torch.cuda.empty_cache()
+    poly = build_model(GPT2_SMALL_POLY4, device="cuda", seed=0)
+    b2_launches = phase_serve_poly(poly, prompts)
+    phase_poly_self_checks(poly, prompts)
+    del poly
+    torch.cuda.empty_cache()
+    b3_launches = phase_lt_mult_path()
     ms, plain_ms, bound_ms, bound_by = phase_timing()
+    times = phase_timing_poly_lt()
+
+    def row(name, replaces, launches, max_abs_err, timing):
+        t_ms, t_plain, t_bound, by = timing
+        return {"name": name, "route": "cuda", "status": "ok",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
+                "bound_ms": t_bound, "bound_by": by, "library_ms": None}
 
     log(card)                     # as nvidia-smi prints it: name, power limit
-    log(json.dumps({"kernels": [{
-        "name": "polysketch_causal", "route": "cuda", "status": "ok",
-        "source": "src/repro_torch/kernels/csrc/polysketch_causal.cu",
-        "replaces": "src/repro/kernels/polysketch_causal.py:118",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+    log(json.dumps({"kernels": [
+        row("polysketch_causal", "src/repro/kernels/polysketch_causal.py:118",
+            launches, max_err, (ms, plain_ms, bound_ms, bound_by)),
+        row("poly_flash", "src/repro/kernels/poly_flash.py:59", b2_launches, b2_err,
+            times["poly_flash"][2040]),
+        row("lt_mult", "src/repro/kernels/lt_mult.py:45", b3_launches, b3_err,
+            times["lt_mult"][16384])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,22 @@
-"""Decode-time polysketch attention state.
+"""Decode-time attention state.
 
-Port of the polysketch part of the JAX package's ``core/decode.py``: the
-constant-size ``PolysketchCache`` (an r^2 x (h+1) prefix matrix per kv
-head plus one partial-block buffer), its prefill and its decode step.
+Port of two kinds of the JAX package's ``core/decode.py``:
 
-A token attends exactly (degree-p weights) to the tokens of its own block
-so far, and through the sketched prefix state to every earlier, completed
-block. When the buffer fills, the whole block is folded into the state.
+- polysketch: the constant-size ``PolysketchCache`` (an r^2 x (h+1)
+  prefix matrix per kv head plus one partial-block buffer), its prefill
+  and its decode step. A token attends exactly (degree-p weights) to the
+  tokens of its own block so far, and through the sketched prefix state
+  to every earlier, completed block. When the buffer fills, the whole
+  block is folded into the state.
+- poly_kv: the full ``KVCache`` of exact polynomial attention (the
+  paper's quadratic baseline), filled by the prefill and read whole by
+  ``poly_kv_decode_step``.
 
-`pos` is a host int (the JAX package keeps a device scalar): the fold is
-decided on the host, with no device sync.
+`pos` is a host int (the JAX package keeps a device scalar): the fold and
+the cache slot are decided on the host, with no device sync.
+
+Caches are values, as in the reference: a step returns a new cache and
+leaves the one it was given as it was, so buffers it writes are copies.
 """
 from __future__ import annotations
 
@@ -19,6 +26,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.utils import int_pow, self_kron
+
+
+def _writable(buf: torch.Tensor) -> torch.Tensor:
+    """A copy of a cache buffer for a step to write into."""
+    return buf.clone()
 
 
 class PolysketchCache(NamedTuple):
@@ -60,7 +72,7 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
     fill = cache.pos % blk  # slot for the incoming token
 
     f32 = torch.float32
-    kbuf, vbuf, mbuf = cache.kbuf.clone(), cache.vbuf.clone(), cache.mbuf.clone()
+    kbuf, vbuf, mbuf = map(_writable, (cache.kbuf, cache.vbuf, cache.mbuf))
     kbuf[:, :, fill] = k.to(kbuf.dtype)
     vbuf[:, :, fill] = v.to(vbuf.dtype)
     mbuf[:, :, fill] = km.to(f32)
@@ -130,9 +142,64 @@ def polysketch_prefill(cache: PolysketchCache, qm, km, q, k, v, *,
         # z0, so any copy is the per-kv-head state
         z = z_r.reshape(bsz, hkv, g, *z_r.shape[2:])[:, :, 0].contiguous()
         return out, cache._replace(z=z, pos=cache.pos + s)
-    kbuf, vbuf, mbuf = cache.kbuf.clone(), cache.vbuf.clone(), cache.mbuf.clone()
+    kbuf, vbuf, mbuf = map(_writable, (cache.kbuf, cache.vbuf, cache.mbuf))
     kbuf[:, :, :s] = k.to(kbuf.dtype)
     vbuf[:, :, :s] = v.to(vbuf.dtype)
     mbuf[:, :, :s] = km.to(f32)
     return out, cache._replace(kbuf=kbuf, vbuf=vbuf, mbuf=mbuf,
                                pos=cache.pos + s)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, Hkv, S_max, h) post-RoPE, post-LN keys
+    v: torch.Tensor   # (B, Hkv, S_max, h)
+    pos: int          # tokens written so far
+
+
+def init_kv_cache(batch, n_kv_heads, head_dim, max_len, dtype=torch.float32,
+                  device="cpu") -> KVCache:
+    shape = (batch, n_kv_heads, max_len, head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+
+
+def fill_kv(cache: KVCache, k, v) -> KVCache:
+    """The prefill's keys and values (B, Hkv, S, h), written at position
+    0 of copies of the cache's buffers (the reference's ``_fill_kv``)."""
+    s = k.shape[2]
+    if s > cache.k.shape[2]:
+        raise ValueError(f"a prompt of {s} tokens does not fit a KV cache "
+                         f"of {cache.k.shape[2]}")
+    kc, vc = _writable(cache.k), _writable(cache.v)
+    kc[:, :, :s] = k.to(kc.dtype)
+    vc[:, :, :s] = v.to(vc.dtype)
+    return KVCache(kc, vc, s)
+
+
+def poly_kv_decode_step(cache: KVCache, q, k, v, *, degree: int,
+                        scale: float):
+    """Exact polynomial attention decode over a full KV cache (the
+    quadratic baseline; the paper's inference win is that polysketch does
+    NOT need this). q: (B, Hq, h) post-LN; k: (B, Hkv, h) post-LN; v:
+    (B, Hkv, h). Returns (out (B, Hq, h), new_cache); `cache` is left as it
+    was."""
+    bsz, hq, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    pos = cache.pos
+    if pos >= cache.k.shape[2]:
+        raise ValueError(f"KV cache of {cache.k.shape[2]} is full at "
+                         f"position {pos}")
+    f32 = torch.float32
+    kc, vc = _writable(cache.k), _writable(cache.v)
+    kc[:, :, pos] = k.to(kc.dtype)
+    vc[:, :, pos] = v.to(vc.dtype)
+    qg = q.reshape(bsz, hkv, g, hd).to(f32)
+    wts = int_pow(torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * scale,
+                  degree)
+    # every slot of the cache is scored; only 0..pos are live
+    mask = torch.arange(kc.shape[2], device=kc.device) <= pos
+    wts = torch.where(mask, wts, torch.zeros((), device=wts.device))
+    den = 1.0 + wts.sum(-1, keepdim=True)
+    out = torch.einsum("bngs,bnsh->bngh", wts / den, vc.to(f32))
+    return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, from the sources in this checkout only, into
 ``build/kernels/`` at the repository root (git-ignored). A library is
-named by the hash of its source and flags, so an edited source rebuilds
-and an unchanged one loads what is there. All sources compile in
+named by the hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads what is there. All sources compile in
 parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
@@ -46,7 +47,9 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

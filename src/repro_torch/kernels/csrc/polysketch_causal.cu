@@ -37,9 +37,9 @@
 // pass 1, 4 x 4 in pass 3) so that an FMA costs well under one shared
 // memory read. wgmma on bf16/TF32 and TMA staging are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -55,39 +55,12 @@ constexpr int kP1RowsPerThread = kP1Rows / (kThreads / 32);
 constexpr int kP1ColsPerThread = 8;
 constexpr int kP1Cols = 32 * kP1ColsPerThread;    // pass 1: state columns per CTA
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x^p by repeated squaring, in the order of XLA's integer_pow (p >= 1).
-__device__ __forceinline__ float int_pow(float x, int p) {
-  float acc = 0.f;
-  bool have = false;
-  while (p > 0) {
-    if (p & 1) {
-      acc = have ? acc * x : x;
-      have = true;
-    }
-    p >>= 1;
-    if (p > 0) x = x * x;
-  }
-  return acc;
-}
-
-// Copy `rows` rows of `width` values (contiguous, row-major) into shared
-// memory with row stride `stride`, zero-filling rows up to kTile.
+// Copy `rows` rows of `width` values into shared memory with row stride
+// `stride`, zero-filling rows up to kTile.
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int rows, int width,
                                           int stride) {
-  for (int idx = threadIdx.x; idx < kTile * width; idx += kThreads) {
-    const int row = idx / width, col = idx - row * width;
-    dst[row * stride + col] = row < rows ? to_f32(src[(size_t)row * width + col]) : 0.f;
-  }
+  load_rows<kTile, kThreads>(dst, src, rows, width, stride);
 }
 
 // Pass 1: H_l as one product. Column n of the output is c*h + d for the
@@ -252,54 +225,13 @@ output_kernel(const T* __restrict__ qm, const T* __restrict__ km, const T* __res
     load_tile(kf_s, kf_src + (row0 + k0) * f, krows, f, fs);
     load_tile(v_s, v + (row0 + k0) * h, krows, h, h);
     __syncthreads();
-    float sc[kRowsPerThread][kRowsPerThread];
-#pragma unroll
-    for (int a = 0; a < kRowsPerThread; ++a)
-#pragma unroll
-      for (int c = 0; c < kRowsPerThread; ++c) sc[a][c] = 0.f;
-    for (int e = 0; e < f; ++e) {
-      float qv[kRowsPerThread], kv[kRowsPerThread];
-#pragma unroll
-      for (int a = 0; a < kRowsPerThread; ++a) qv[a] = qf_s[(tr + kSide * a) * fs + e];
-#pragma unroll
-      for (int c = 0; c < kRowsPerThread; ++c) kv[c] = kf_s[(tc + kSide * c) * fs + e];
-#pragma unroll
-      for (int a = 0; a < kRowsPerThread; ++a)
-#pragma unroll
-        for (int c = 0; c < kRowsPerThread; ++c) sc[a][c] = fmaf(qv[a], kv[c], sc[a][c]);
-    }
-#pragma unroll
-    for (int a = 0; a < kRowsPerThread; ++a) {
-#pragma unroll
-      for (int c = 0; c < kRowsPerThread; ++c) {
-        const int row = tr + kSide * a, j = tc + kSide * c;
-        float w;
-        if (kLocalExact) {
-          w = int_pow(sc[a][c] * scale, degree);
-        } else {
-          w = sc[a][c] * sc[a][c];
-        }
-        const bool keep = (k0 + j <= q0 + row) && (j < krows) && (row < qrows);
-        w_s[row * ws + j] = keep ? w : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int j = 0; j < krows; ++j) {
-      float wv[kRowsPerThread];
-#pragma unroll
-      for (int a = 0; a < kRowsPerThread; ++a) {
-        wv[a] = w_s[(tr + kSide * a) * ws + j];
-        den[a] += wv[a];
-      }
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int d = tc + kSide * c;
-        if (d < h) {
-          const float vv = v_s[j * h + d];
-#pragma unroll
-          for (int a = 0; a < kRowsPerThread; ++a) acc[a][c] = fmaf(wv[a], vv, acc[a][c]);
-        }
-      }
+    if (kLocalExact) {
+      tile_accumulate<kTile, kSide, kMaxCols, true>(qf_s, kf_s, f, fs, v_s, h, w_s, q0, qrows,
+                                                    k0, krows, true, PowWeight{scale, degree},
+                                                    acc, den);
+    } else {
+      tile_accumulate<kTile, kSide, kMaxCols, true>(qf_s, kf_s, f, fs, v_s, h, w_s, q0, qrows,
+                                                    k0, krows, true, SquareWeight{}, acc, den);
     }
   }
 

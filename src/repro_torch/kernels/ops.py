@@ -1,10 +1,11 @@
-"""Public wrapper around the port's polysketch kernel.
+"""Public wrappers around the port's kernels.
 
-Port of ``polysketch_attention`` in the JAX package's ``kernels/ops.py``.
-The device of the inputs picks the implementation: a CUDA tensor goes to
-the hand-written kernel (which raises if it cannot run; there is no
+Port of the JAX package's ``kernels/ops.py`` (``lt_mult``,
+``polysketch_attention``, ``poly_attention``, ``REFS``). The device of
+the inputs picks the implementation: a CUDA tensor goes to the
+hand-written kernel (which raises if it cannot run; there is no
 fallback), a CPU tensor to the kernel's plain PyTorch version.
-``impl="torch"`` asks for the plain version on any device, so the kernel
+``impl="torch"`` asks for the plain version on any device, so a kernel
 can be held against it on the card.
 
 Batching convention: leading dims (B, H, ...) are flattened to one `bh`
@@ -15,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.lt_mult import lt_mult_cuda, lt_mult_torch
+from repro_torch.kernels.poly_flash import poly_flash_cuda, poly_flash_torch
 from repro_torch.kernels.polysketch_causal import (factored_to_z,
                                                    polysketch_causal_cuda,
                                                    polysketch_causal_torch,
@@ -25,6 +29,24 @@ from repro_torch.utils import pad_to_multiple
 def _flatten_bh(*xs):
     lead = xs[0].shape[:-2]
     return lead, [x.reshape(-1, *x.shape[-2:]).contiguous() for x in xs]
+
+
+def _pick(impl, x, cuda_fn, torch_fn):
+    if impl not in (None, "torch"):
+        raise ValueError(f"impl must be None or 'torch', got {impl!r}")
+    return cuda_fn if impl is None and x.is_cuda else torch_fn
+
+
+def lt_mult(a, b, c, *, block_size: int = 256, impl: str | None = None):
+    """lt(A B^T) C over the last two axes; leading dims are batch.
+
+    a, b: (..., n, m); c: (..., n, k). n must be a multiple of
+    min(block_size, n), as the reference asserts.
+    """
+    fn = _pick(impl, c, lt_mult_cuda, lt_mult_torch)
+    lead, (af, bf, cf) = _flatten_bh(a, b, c)
+    out = fn(af, bf, cf, block_size=min(block_size, a.shape[-2]))
+    return out.reshape(*lead, *out.shape[-2:])
 
 
 def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
@@ -43,8 +65,7 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
     impl: None picks by device (the CUDA kernel for CUDA tensors, the
     plain PyTorch version on the CPU); "torch" asks for the plain version.
     """
-    if impl not in (None, "torch"):
-        raise ValueError(f"impl must be None or 'torch', got {impl!r}")
+    fn = _pick(impl, q, polysketch_causal_cuda, polysketch_causal_torch)
     hq, hkv = q.shape[-3], k.shape[-3]
     if hkv != hq:  # GQA: repeat kv to query heads
         g = hq // hkv
@@ -65,8 +86,6 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
             *lead, *z0.shape[-2:]))
         zv0 = zv0.reshape(-1, *zv0.shape[-2:]).contiguous()
         zd0 = zd0.reshape(-1, *zd0.shape[-2:]).contiguous()
-    fn = (polysketch_causal_cuda if impl is None and q.is_cuda
-          else polysketch_causal_torch)
     out = fn(qmf, kmf, qf, kf, vf, zv0, zd0, degree=degree, scale=scale,
              local_exact=local_exact, block_size=blk,
              return_state=return_state)
@@ -76,3 +95,31 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
                           zd.reshape(*lead, *zd.shape[-2:]))
         return out.reshape(*lead, *out.shape[-2:])[..., :n, :], z
     return out.reshape(*lead, *out.shape[-2:])[..., :n, :]
+
+
+def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
+                   causal: bool = True, impl: str | None = None):
+    """Exact (quadratic) polynomial attention. q: (B, Hq, S, h); k, v:
+    (B, Hkv, T, h) -> (B, Hq, S, h). Causal needs S == T.
+
+    Any S: the kernel masks a ragged last tile itself, so nothing is
+    padded.
+    """
+    fn = _pick(impl, q, poly_flash_cuda, poly_flash_torch)
+    if scale is None:
+        scale = 1.0 / q.shape[-1]
+    hq, hkv = q.shape[-3], k.shape[-3]
+    if hkv != hq:  # GQA: repeat kv to query heads
+        g = hq // hkv
+        k = k.repeat_interleave(g, dim=-3)
+        v = v.repeat_interleave(g, dim=-3)
+    lead, (qf, kf, vf) = _flatten_bh(q, k, v)
+    out = fn(qf, kf, vf, degree=degree, scale=scale, causal=causal)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+REFS = {
+    "lt_mult": _ref.lt_mult_ref,
+    "polysketch_causal": _ref.polysketch_causal_ref,
+    "poly_flash": _ref.poly_flash_ref,
+}

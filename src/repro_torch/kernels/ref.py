@@ -1,13 +1,25 @@
-"""O(n^2) oracle for the port's causal polysketch kernel.
+"""O(n^2) oracles for the port's kernels.
 
-Port of ``polysketch_causal_ref`` in the JAX package's ``kernels/ref.py``:
-written for clarity, not speed.
+Port of the JAX package's ``kernels/ref.py`` (``lt_mult_ref``,
+``polysketch_causal_ref``, ``poly_flash_ref``): written for clarity, not
+speed.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.poly_attention import poly_attention_full
 from repro_torch.utils import int_pow
+
+
+def lt_mult_ref(a, b, c):
+    """lt(A B^T) C, the paper's Section 3.1 contract (diagonal included).
+
+    a, b: (..., n, m); c: (..., n, k) -> (..., n, k), f32 accumulation.
+    """
+    w = a.float() @ b.float().transpose(-1, -2)
+    w = w.tril()
+    return (w @ c.float()).to(c.dtype)
 
 
 def polysketch_causal_ref(qm, km, q, k, v, *, degree: int, scale: float,
@@ -31,3 +43,10 @@ def polysketch_causal_ref(qm, km, q, k, v, *, degree: int, scale: float,
     den = 1.0 + w.sum(-1)
     out = (w @ v.float()) / den[..., None]
     return out.to(v.dtype)
+
+
+def poly_flash_ref(q, k, v, *, degree: int, scale: float | None = None,
+                   causal: bool = True):
+    """Exact polynomial attention oracle (== core.poly_attention_full)."""
+    return poly_attention_full(q, k, v, degree=degree, scale=scale,
+                               causal=causal)

@@ -1,9 +1,11 @@
-"""Polysketch attention mixer in train, prefill and decode modes.
+"""Attention mixer in train, prefill and decode modes, for the paper's
+knob ``cfg.attention``: "polysketch" or "polynomial" (exact, quadratic).
 
-Port of the polysketch branch of the JAX package's
-``models/attention.py`` (``attention_init``, ``_project``, ``_poly_ln``,
-``_out``, ``attention_apply``). Parameter names and layouts are the
-reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d).
+Port of those two branches of the JAX package's ``models/attention.py``
+(``attention_init``, ``_project``, ``_poly_ln``, ``_out``,
+``attention_apply``, ``_fill_kv``). Parameter names and layouts are the
+reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), the q/k
+LayerNorm's pln_*, and for polysketch only the learned sketch.
 """
 from __future__ import annotations
 
@@ -20,13 +22,16 @@ from repro_torch.models.layers import dense_init, rope
 from repro_torch.utils import const_param, normal_param
 
 
-class PolysketchAttention(nn.Module):
+MECHANISMS = ("polysketch", "polynomial")
+
+
+class Attention(nn.Module):
     def __init__(self, cfg, *, generator=None, device="cpu"):
         super().__init__()
-        if cfg.attention != "polysketch":
+        if cfg.attention not in MECHANISMS:
             raise NotImplementedError(
-                f"the port serves polysketch attention only, got "
-                f"{cfg.attention!r}")
+                f"the port serves {' and '.join(MECHANISMS)} attention, "
+                f"got {cfg.attention!r}")
         if cfg.qk_norm:
             raise NotImplementedError("qk_norm is not ported")
         self.cfg = cfg
@@ -42,8 +47,9 @@ class PolysketchAttention(nn.Module):
         self.pln_k_scale = const_param((hd,), 1.0, device=device)
         self.pln_q_bias = const_param((hd,), 0.0, device=device)
         self.pln_k_bias = const_param((hd,), 0.0, device=device)
-        self.sketch = init_sketch(hd, cfg.sketch_size, cfg.poly_degree,
-                                  cfg.learned_sketch, **kw)
+        if cfg.attention == "polysketch":
+            self.sketch = init_sketch(hd, cfg.sketch_size, cfg.poly_degree,
+                                      cfg.learned_sketch, **kw)
 
     def _project(self, x, positions):
         """x: (B, S, D) -> q (B,Hq,S,h), k,v (B,Hkv,S,h) with RoPE applied."""
@@ -76,19 +82,46 @@ class PolysketchAttention(nn.Module):
         y = y.transpose(1, 2).reshape(bsz, s, hq * hd)
         return y @ self.wo.to(y.dtype).reshape(hq * hd, -1)
 
-    def init_cache(self, batch: int, dtype, device) -> dec.PolysketchCache:
+    def init_cache(self, batch: int, max_len: int | None, dtype, device):
+        """A PolysketchCache (constant size; max_len sizes nothing), or a
+        KVCache of max_len positions for polynomial attention."""
         cfg = self.cfg
+        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        if cfg.attention == "polynomial":
+            if max_len is None:
+                raise ValueError(
+                    "a KV cache is sized at init: prefill needs max_len "
+                    "(or a pre-built state)")
+            return dec.init_kv_cache(batch, hkv, hd, max_len, dtype, device)
         return dec.init_polysketch_cache(
-            batch, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.sketch_size,
-            cfg.lt_block_size, dtype, device)
+            batch, hkv, hd, cfg.sketch_size, cfg.lt_block_size, dtype, device)
 
     def forward(self, x, *, positions, mode: str, cache=None):
         """Returns (y (B,S,D), new_cache_or_None)."""
-        cfg = self.cfg
-        scale = cfg.attn_scale
-        kw = dict(degree=cfg.poly_degree, scale=scale,
-                  local_exact=cfg.local_exact)
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
         q, k, v = self._project(x, positions)
+        if self.cfg.attention == "polynomial":
+            return self._polynomial(q, k, v, mode, cache)
+        return self._polysketch(q, k, v, mode, cache)
+
+    def _polynomial(self, q, k, v, mode, cache):
+        cfg = self.cfg
+        kw = dict(degree=cfg.poly_degree, scale=cfg.attn_scale)
+        q, k = self._poly_ln(q, k)
+        if mode == "decode":
+            y, cache = dec.poly_kv_decode_step(
+                cache, q[:, :, 0], k[:, :, 0], v[:, :, 0], **kw)
+            return self._out(y[:, :, None]), cache
+        y = ops.poly_attention(q, k, v, causal=True, **kw)
+        if mode == "prefill":
+            cache = dec.fill_kv(cache, k, v)
+        return self._out(y), cache
+
+    def _polysketch(self, q, k, v, mode, cache):
+        cfg = self.cfg
+        kw = dict(degree=cfg.poly_degree, scale=cfg.attn_scale,
+                  local_exact=cfg.local_exact)
         if mode == "decode":
             q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]   # (B, H, h)
             q, k = self._poly_ln(q, k)
@@ -99,10 +132,8 @@ class PolysketchAttention(nn.Module):
         qm, km = self._sketch(q), self._sketch(k)
         if mode == "prefill":
             y, cache = dec.polysketch_prefill(cache, qm, km, q, k, v, **kw)
-        elif mode == "train":
+        else:
             y = ops.polysketch_attention(
                 qm, km, q, k, v, block_size=min(cfg.lt_block_size, q.shape[-2]),
                 **kw)
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
         return self._out(y), cache

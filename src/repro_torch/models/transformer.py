@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, dense family with polysketch attention.
+"""Decoder-only transformer LM, dense family with polysketch or exact
+polynomial attention.
 
 Port of the dense ``block_pattern=("attn",)`` path of the JAX package's
 ``models/transformer.py`` (``lm_init``, ``lm_apply`` in train / prefill /
@@ -16,17 +17,18 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.models.attention import PolysketchAttention
+from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
 
 
 def check_supported(cfg):
     """Raise for a config outside the port's slice."""
     if cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",) \
-            or cfg.ffn != "glu" or cfg.attention != "polysketch":
+            or cfg.ffn != "glu" or cfg.attention not in MECHANISMS:
         raise NotImplementedError(
-            f"{cfg.name!r}: the port covers the dense polysketch family "
-            f"(block_pattern ('attn',), GLU FFN) only")
+            f"{cfg.name!r}: the port covers the dense family (block_pattern "
+            f"('attn',), GLU FFN) with {' or '.join(MECHANISMS)} attention "
+            f"only")
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied embeddings are not ported")
     if cfg.d_ff <= 0:
@@ -39,7 +41,7 @@ class Block(nn.Module):
         kw = dict(generator=generator, device=device)
         self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
         self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.mixer = PolysketchAttention(cfg, **kw)
+        self.mixer = Attention(cfg, **kw)
         self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
 
     def forward(self, h, *, positions, mode, cache=None):
@@ -69,7 +71,7 @@ class LM(nn.Module):
         """tokens: (B, S) int (S == 1 for decode).
 
         Returns (logits (B, S, V), new_cache): the cache is None in train
-        mode, else a list with one PolysketchCache per layer.
+        mode, else a list with one cache per layer.
         """
         cfg = self.cfg
         dt = getattr(torch, cfg.compute_dtype)
@@ -88,12 +90,13 @@ class LM(nn.Module):
         return logits, new_cache
 
     def init_cache(self, batch: int, max_len: int | None = None):
-        """Decode cache: one PolysketchCache per layer. Constant-size, so
-        `max_len` (kept for the reference's signature) sizes nothing."""
-        del max_len
+        """Decode cache, one per layer: a constant-size PolysketchCache
+        (`max_len` sizes nothing), or a KVCache of `max_len` positions for
+        polynomial attention (required then)."""
         dt = getattr(torch, self.cfg.compute_dtype)
         dev = self.embed.table.device
-        return [blk.mixer.init_cache(batch, dt, dev) for blk in self.layers]
+        return [blk.mixer.init_cache(batch, max_len, dt, dev)
+                for blk in self.layers]
 
     def init_slot_cache(self, max_len: int | None = None):
         """Decode cache for one serve slot: batch 1."""

@@ -14,7 +14,9 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      state, then the 1016-token tail seeded with it); then the B2 kernel
      (poly_flash) through ops.poly_attention and the B3 kernel (lt_mult)
      through ops.lt_mult, over their reference grids and at the shapes
-     their paths give them;
+     their paths give them; and one line of tolerance study: the plain
+     B1 and B2 with single-pass TF32 matmuls against full f32, beside the
+     kernels' (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
      tokens + 16 new ones, of gpt2s-polysketch (the decode fold at
      position 2047 runs) and of gpt2s-poly4 (exact polynomial attention,
@@ -27,7 +29,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      models; the poly4 prefill's logits, kernel vs plain; SMOKE greedy
      tokens on the card equal those on the CPU, for both mechanisms;
   4. each kernel's time at its path's shapes beside its plain version's
-     and its bound.
+     and its bounds (B1 also at the two calls a prefill's layer makes).
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -40,6 +42,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 from unittest import mock
 
 import numpy as np
@@ -62,6 +65,7 @@ F32_TOL, BF16_TOL = 1e-4, 5e-2      # the reference's kernel-sweep tolerances
 LT_F32_TOL, LT_BF16_TOL = 2e-3, 2e-2  # lt_mult's: atol tol * n, rtol tol
 LT_BENCH_REL_TOL = 1e-5             # and max|err| / max|out| at kernel_bench's shapes
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores (data sheet)
+H100_TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense (data sheet)
 H100_BYTES_PER_S = 3.35e12          # HBM3 (data sheet)
 KERNELS = {"polysketch_causal": pc.polysketch_causal_cuda,
            "poly_flash": pf.poly_flash_cuda, "lt_mult": lt.lt_mult_cuda}
@@ -331,6 +335,34 @@ def phase_lt_mult_grid():
                                  f"{LT_BENCH_REL_TOL:.0e}")
         worst = max(worst, e)
     return worst
+
+
+def phase_tolerance_study():
+    """Why the kernels take three TF32 products per f32 product: at the
+    slices' shapes, the plain B1 and B2 with single-pass TF32 matmuls
+    (PyTorch's allow_tf32, never on the main path; set back to False
+    after) and the kernels (3xTF32), each against the plain full-f32
+    result."""
+    b1_in = slice_inputs()
+    b1_kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    b2_in = poly_slice_inputs(2040)
+    b2_kw = dict(degree=4, scale=1.0 / 64)
+
+    def plain():
+        return (ops.polysketch_attention(*b1_in, impl="torch", **b1_kw),
+                ops.poly_attention(*b2_in, impl="torch", **b2_kw))
+    f32 = plain()
+    kernel = (ops.polysketch_attention(*b1_in, **b1_kw), ops.poly_attention(*b2_in, **b2_kw))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = plain()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  tolerance study (f32 slice shapes, max|err| against the plain full-f32 "
+        f"result): one TF32 product (plain, allow_tf32) B1 {err(tf32[0], f32[0]):.3e}, "
+        f"B2 {err(tf32[1], f32[1]):.3e}; 3xTF32 kernels B1 {err(kernel[0], f32[0]):.3e}, "
+        f"B2 {err(kernel[1], f32[1]):.3e}; gate {F32_TOL:.0e}")
 
 
 def slice_inputs():
@@ -626,27 +658,51 @@ def event_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def b1_bound(bh, n, r, h, b, degree, itemsize=4):
-    """Least time for B1's work on an H100: (ms, 'bytes'|'operations').
-    Operations are counted as the reference algorithm needs them (masked
-    pairs not counted) at the f32 non-tensor-core peak; bytes are each
-    input read once and each output written once."""
+def b1_ops(bh, n, r, h, b, degree):
+    """B1's operations as the algorithm needs them (masked pairs not
+    counted), as (products, rest). Products: the diagonal's Q K^T and W V
+    (4h a pair), the cross term Phi(qm) [Zv | Zd] (2r^2 (h + 1) a row), the
+    fold Km^T [Km (x) V | Km] (2br^2 (h + 1) a block). Rest: scale, power
+    and row sum a pair; the cross term's elementwise work a row; the
+    product km (x) v and the prefix a block."""
     t = n // b
     pairs = t * b * (b + 1) // 2
-    diag = pairs * (2 * h + 1 + pow_muls(degree) + 2 * h + 1)
-    cross = n * (2 * r * r * h + 2 * r * h + 2 * r * r + 2 * r + h)
-    fold = t * (b * r * h + 2 * b * r * r * h + 2 * b * r * r) + t * (r * r * h + r * r)
-    flops = bh * (diag + cross + fold)
+    prod = (pairs * 4 * h + n * (2 * r * r * h + 2 * r * r)
+            + t * (2 * b * r * r * h + 2 * b * r * r))
+    rest = (pairs * (2 + pow_muls(degree)) + n * (2 * r * h + 2 * r + h)
+            + t * b * r * h + t * (r * r * h + r * r))
+    return bh * prod, bh * rest
+
+
+def b1_bound(bh, n, r, h, b, degree, itemsize=4):
+    """B1's bounds on an H100: bytes are each input read once (z0 included:
+    the wrapper passes zeros when none is given) and each output written
+    once, the returned state included."""
     state = bh * (r * r * h + r * r) * 4
     nbytes = bh * n * (2 * r + 3 * h) * itemsize + bh * n * h * itemsize + 2 * state
-    return (*bound(flops, nbytes), flops, nbytes)
+    return bounds(*b1_ops(bh, n, r, h, b, degree), nbytes)
 
 
-def bound(flops, nbytes):
-    """(ms, 'bytes'|'operations'): the larger of operations at the f32
-    non-tensor-core peak and bytes at the HBM rate."""
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+class Bounds(NamedTuple):
+    tc_ms: float      # the tensor-core route (3xTF32)
+    tc_by: str        # 'bytes' | 'operations'
+    fma_ms: float     # every operation on the f32 FMA pipes
+    fma_by: str
+    flops: int        # products + rest
+    nbytes: int
+
+
+def bounds(prod, rest, nbytes) -> Bounds:
+    """Least times on an H100 (ms), each the larger of operations and bytes
+    at the HBM rate: on the tensor-core route, three TF32 products per f32
+    product at the TF32 peak plus the rest at the f32 peak; on the FMA
+    route, all operations at the f32 peak."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_tc = 3 * prod / H100_TF32_FLOPS + rest / H100_F32_FLOPS
+    t_fma = (prod + rest) / H100_F32_FLOPS
+    by = lambda t_ops: "operations" if t_ops >= t_bytes else "bytes"  # noqa: E731
+    return Bounds(max(t_tc, t_bytes) * 1e3, by(t_tc), max(t_fma, t_bytes) * 1e3,
+                  by(t_fma), prod + rest, nbytes)
 
 
 def pow_muls(degree):
@@ -655,43 +711,59 @@ def pow_muls(degree):
 
 
 def phase_timing():
-    log("phase 4: B1 time at the slice's shape (CUDA events, warmed up)")
+    """B1 at the slice's shape and at the two calls each layer of a
+    2040-token prefill makes: n = b = 1024 returning its state, then
+    n = b = 1016 seeded with it."""
+    log("phase 4: B1 time at the slice's shape and the prefill's call shapes "
+        "(CUDA events, warmed up)")
     qm, km, q, k, v = (x.reshape(48, 2048, -1).contiguous() for x in slice_inputs())
-    kw = dict(degree=4, scale=1.0 / 64, block_size=1024, return_state=True)
+    head = [x[:, :1024].contiguous() for x in (qm, km, q, k, v)]
+    tail = [x[:, 1024:2040].contiguous() for x in (qm, km, q, k, v)]
+    kw = dict(degree=4, scale=1.0 / 64, return_state=True)
     launches = pc.polysketch_causal_cuda.launches
-    ms = event_ms(lambda: pc.polysketch_causal_cuda(qm, km, q, k, v, **kw))
-    plain_ms = event_ms(lambda: pc.polysketch_causal_torch(qm, km, q, k, v, **kw))
-    ms2 = event_ms(lambda: pc.polysketch_causal_cuda(qm, km, q, k, v, **kw))
+    _, zv0, zd0 = pc.polysketch_causal_cuda(*head, block_size=1024, **kw)
+    out = {}
+    for name, xs, n, z0 in (("n 2048, b 1024", (qm, km, q, k, v), 2048, ()),
+                            ("prefill block n = b = 1024", head, 1024, ()),
+                            ("prefill tail n = b = 1016 + z0", tail, 1016, (zv0, zd0))):
+        b = 1024 if n == 2048 else n
+        run = lambda: pc.polysketch_causal_cuda(*xs, *z0, block_size=b, **kw)  # noqa: E731
+        ms = event_ms(run)
+        plain_ms = event_ms(lambda: pc.polysketch_causal_torch(*xs, *z0, block_size=b, **kw))
+        ms2 = event_ms(run)
+        bd = b1_bound(48, n, 32, 64, b, 4)
+        out[n] = (min(ms, ms2), plain_ms, bd)
+        log(f"  B1 {name} bh=48 r=32 h=64: kernel {min(ms, ms2):.3f} ms (runs {ms:.3f}, "
+            f"{ms2:.3f}; the plain version ran between them), plain PyTorch "
+            f"{plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by {bd.tc_by} on the tensor cores "
+            f"({bd.flops / 1e9:.1f} GFLOP, products in 3xTF32 at 495 TFLOP/s, the rest at "
+            f"67; {bd.nbytes / 1e6:.1f} MB at 3.35 TB/s), {bd.tc_ms / min(ms, ms2):.1%} of "
+            f"it; f32-FMA bound {bd.fma_ms:.3f} ms, {bd.fma_ms / min(ms, ms2):.1%} of it; "
+            f"library call: {NO_LIBRARY}")
     pc.polysketch_causal_cuda.launches = launches   # timing launches do not count
-    bound_ms, bound_by, flops, nbytes = b1_bound(48, 2048, 32, 64, 1024, 4)
-    log(f"  kernel {min(ms, ms2):.3f} ms (best of two runs of 20: {ms:.3f}, "
-        f"{ms2:.3f}; the plain version ran between them), plain PyTorch {plain_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP at 67 TFLOP/s "
-        f"f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s); {bound_ms / min(ms, ms2):.1%} of the bound; "
-        f"library call: none (no single PyTorch call computes this function)")
-    return min(ms, ms2), plain_ms, bound_ms, bound_by
+    return out
 
 
 def b2_bound(bh, n, h, degree, itemsize=4):
-    """Causal B2 (n == t): per pair the dot (2h), the scale, the power,
-    the PV product (2h) and the denominator; per row the normalisation.
-    Bytes: q, k, v read once, out written once."""
+    """Causal B2 (n == t): per pair the products Q K^T and W V (4h), the
+    scale, the power and the row sum; per row the normalisation. Bytes:
+    q, k, v read once, out written once."""
     pairs = bh * n * (n + 1) // 2
-    flops = pairs * (2 * h + 1 + pow_muls(degree) + 2 * h + 1) + bh * n * (h + 2)
-    nbytes = 4 * bh * n * h * itemsize
-    return (*bound(flops, nbytes), flops, nbytes)
+    prod = pairs * 4 * h
+    rest = pairs * (2 + pow_muls(degree)) + bh * n * (h + 2)
+    return bounds(prod, rest, 4 * bh * n * h * itemsize)
 
 
 def b3_bound(bh, n, m, k, b, itemsize=4):
     """B3 as the block algorithm needs it: each block's triangle (2m for a
     score, 2k for its row of W C), the fold B^T C and the cross term A Z
     (2mk a row each), the prefix over blocks. Bytes: A, B, C read once, O
-    written once."""
+    written once. B3 runs on the FMA pipes: its bound is the FMA route's."""
     t = n // b
     pairs = t * b * (b + 1) // 2
     flops = bh * (pairs * (2 * m + 2 * k) + 4 * n * m * k + t * m * k)
-    nbytes = bh * n * (2 * m + 2 * k) * itemsize
-    return (*bound(flops, nbytes), flops, nbytes)
+    bd = bounds(0, flops, bh * n * (2 * m + 2 * k) * itemsize)
+    return bd._replace(tc_ms=bd.fma_ms, tc_by=bd.fma_by)
 
 
 def phase_timing_poly_lt():
@@ -705,24 +777,27 @@ def phase_timing_poly_lt():
         ms = event_ms(lambda: pf.poly_flash_cuda(q, k, v, **kw))
         plain_ms = event_ms(lambda: pf.poly_flash_torch(q, k, v, **kw))
         ms2 = event_ms(lambda: pf.poly_flash_cuda(q, k, v, **kw))
-        bound_ms, bound_by, flops, nbytes = b2_bound(48, n, 64, 4)
-        out["poly_flash"][n] = (min(ms, ms2), plain_ms, bound_ms, bound_by)
+        bd = b2_bound(48, n, 64, 4)
+        out["poly_flash"][n] = (min(ms, ms2), plain_ms, bd)
         log(f"  B2 bh=48 n={n} h=64 p=4: kernel {min(ms, ms2):.3f} ms (runs {ms:.3f}, "
-            f"{ms2:.3f}), plain PyTorch {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by "
-            f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-            f"{bound_ms / min(ms, ms2):.1%} of the bound; library call: {NO_LIBRARY}")
+            f"{ms2:.3f}), plain PyTorch {plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by "
+            f"{bd.tc_by} on the tensor cores ({bd.flops / 1e9:.1f} GFLOP, "
+            f"{bd.nbytes / 1e6:.1f} MB), {bd.tc_ms / min(ms, ms2):.1%} of it; f32-FMA bound "
+            f"{bd.fma_ms:.3f} ms, {bd.fma_ms / min(ms, ms2):.1%} of it; library call: "
+            f"{NO_LIBRARY}")
     for n in (2048, 16384):
         a, b, c = lt_bench_inputs(n)
         kw = dict(block_size=LT_BENCH["blk"])
         ms = event_ms(lambda: lt.lt_mult_cuda(a, b, c, **kw))
         plain_ms = event_ms(lambda: lt.lt_mult_torch(a, b, c, **kw))
         ms2 = event_ms(lambda: lt.lt_mult_cuda(a, b, c, **kw))
-        bound_ms, bound_by, flops, nbytes = b3_bound(4, n, 32, 64, LT_BENCH["blk"])
-        out["lt_mult"][n] = (min(ms, ms2), plain_ms, bound_ms, bound_by)
+        bd = b3_bound(4, n, 32, 64, LT_BENCH["blk"])
+        out["lt_mult"][n] = (min(ms, ms2), plain_ms, bd)
         log(f"  B3 bh=4 n={n} m=32 k=64 block=256: kernel {min(ms, ms2):.4f} ms (runs "
-            f"{ms:.4f}, {ms2:.4f}), plain PyTorch {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-            f"ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-            f"{bound_ms / min(ms, ms2):.1%} of the bound; library call: {NO_LIBRARY}")
+            f"{ms:.4f}, {ms2:.4f}), plain PyTorch {plain_ms:.4f} ms, f32-FMA bound "
+            f"{bd.fma_ms:.4f} ms by {bd.fma_by} ({bd.flops / 1e9:.2f} GFLOP, "
+            f"{bd.nbytes / 1e6:.1f} MB); {bd.fma_ms / min(ms, ms2):.1%} of the bound; "
+            f"library call: {NO_LIBRARY}")
     for name, fn in KERNELS.items():   # timing launches do not count
         fn.launches = before[name]
     return out
@@ -748,6 +823,7 @@ def main():
     max_err = phase_kernel_grid()
     b2_err = phase_poly_flash_grid()
     b3_err = phase_lt_mult_grid()
+    phase_tolerance_study()
     model = build_model(get_config("gpt2s-polysketch"), device="cuda", seed=0)
     launches, prompts = phase_serve(model)
     phase_self_checks(model, prompts)
@@ -759,21 +835,22 @@ def main():
     del poly
     torch.cuda.empty_cache()
     b3_launches = phase_lt_mult_path()
-    ms, plain_ms, bound_ms, bound_by = phase_timing()
+    b1_times = phase_timing()
     times = phase_timing_poly_lt()
 
     def row(name, replaces, launches, max_abs_err, timing):
-        t_ms, t_plain, t_bound, by = timing
+        t_ms, t_plain, bd = timing
         return {"name": name, "route": "cuda", "status": "ok",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
-                "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+                "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
+                "library_ms": None}
 
     log(card)                     # as nvidia-smi prints it: name, power limit
     log(json.dumps({"kernels": [
         row("polysketch_causal", "src/repro/kernels/polysketch_causal.py:118",
-            launches, max_err, (ms, plain_ms, bound_ms, bound_by)),
+            launches, max_err, b1_times[2048]),
         row("poly_flash", "src/repro/kernels/poly_flash.py:59", b2_launches, b2_err,
             times["poly_flash"][2040]),
         row("lt_mult", "src/repro/kernels/lt_mult.py:45", b3_launches, b3_err,

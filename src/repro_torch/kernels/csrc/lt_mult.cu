@@ -48,7 +48,7 @@ constexpr int kP1Cols = 32 * kP1ColsPerThread;  // pass 1: columns of H per CTA
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int rows, int width,
                                           int stride) {
-  load_rows<kTile, kThreads>(dst, src, rows, width, stride);
+  load_rows<kThreads>(dst, src, rows, kTile, width, stride);
 }
 
 // Pass 1: hz[bh, l, i, c] = sum_{s in block l} b[s, i] c[s, c].

@@ -5,27 +5,31 @@
 //   out_i = sum_j w_ij v_j / (1 + sum_j w_ij),   w_ij = (<q_i, k_j> * scale)^p
 // over j <= i (causal, n == t) or over every key (non-causal, any t).
 //
-// Layout. One CTA per (64-query tile, bh row), flash-style over 64-key
-// tiles: load the key and value tile into shared memory, score it, mask it,
-// take the power, and fold it into f32 accumulators held in registers.
-// x^p needs no running max, so nothing is rescaled between tiles. In the
-// causal mode the tiles above the diagonal are skipped and the diagonal
-// tile is masked. out = acc / (1 + den) is written once. The tile code is
-// common.cuh's tile_accumulate, which polysketch_causal.cu's pass 3 runs
-// over the tiles of one semantic block and this kernel over every key
-// tile. Rows past n (or t) are loaded as zeros and masked, so any n is
-// taken: no padding.
+// Layout. One CTA of 4 warps per (64-query tile, bh row), the last query
+// tile (the one with most keys) first. It runs common.cuh's tc_flash_loop
+// over the 64-key tiles: each key and value tile is staged with cp.async
+// into a ring of two, and each warp scores its 16 rows against the tile on
+// the tensor cores (Q K^T), takes the power and the mask on the
+// accumulator in registers, and folds W V into f32 accumulators, also on
+// the tensor cores. x^p needs no running max, so nothing is rescaled
+// between tiles. In the causal mode the tiles above the diagonal are
+// skipped and only the diagonal tile is masked. out = acc / (1 + den) is
+// written once. polysketch_causal.cu's pass 3 runs the same routine over
+// the tiles of one semantic block. Rows past n (or t) are staged as zeros
+// (their weights are 0) and are not stored, so any n is taken: no padding.
 //
 // What bounds it. At the serving shape (bh = 48, n = 2040, h = 64, p = 4,
-// f32) the causal pairs are ~2.08 M per row; at 2h + 2h + ~4 operations a
-// pair that is ~26 GFLOP against ~100 MB of q, k, v and out: bound by
-// operations, ~0.39 ms at the f32 FMA peak. This version runs on the f32
-// FMA pipes (no tensor cores: f32 inputs, and TF32 is not held to the 1e-4
-// tolerance), keeps every operand tile in shared memory and tiles each
-// thread's outputs in registers: a thread owns 4 query rows x 4 keys of the
-// scores and 4 query rows x h/16 columns of the output, so an inner step
-// reads 8 shared values for 16 FMAs. wgmma, TMA staging and bf16 operands
-// are later work.
+// f32) the causal pairs are ~2.08 M per row: 25.6 GFLOP of products (Q K^T
+// and W V) and 0.4 GFLOP of scale, power and sums, against 100 MB of q, k,
+// v and out. Both products run on the tensor cores in 3xTF32 (common.cuh),
+// so the least time is 3 x 25.6 GFLOP at 495 TFLOP/s plus the rest at
+// 67 TFLOP/s, 0.161 ms: bound by operations (0.388 ms on the f32 FMA
+// pipes). bf16 inputs are staged as f32 and take the same path.
+//
+// Registers (nvcc -Xptxas -v, as chip_smoke.py prints it): 232-245 a
+// thread for every instantiation (f32 causal h <= 64: 235), no spills, no
+// stack. With 87 KB of shared memory at h = 64, two CTAs (8 warps) share
+// an SM.
 
 #include <stddef.h>
 
@@ -33,100 +37,67 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;                       // query rows / key rows per tile
-constexpr int kSide = 16;                       // 16 x 16 threads per tile
-constexpr int kRowsPerThread = kTile / kSide;   // query rows (and keys) per thread
 constexpr int kMaxH = 128;
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows, int width,
-                                          int stride) {
-  load_rows<kTile, kThreads>(dst, src, rows, width, stride);
-}
-
-// grid (ceil(n / 64), bh). Thread (tr, tc) owns query rows tr + 16a
-// (a < 4); in the scores it owns keys tc + 16c, in the output columns
-// tc + 16c (c < kCols, kCols = ceil(h / 16) rounded to 4 or 8).
-template <typename T, bool kCausal, int kCols>
-__global__ void __launch_bounds__(kThreads)
+// grid (ceil(n / 64), bh), kTcThreads threads. kNT = output n-tiles of 8
+// columns, 8 for h <= 64 and 16 for h <= 128.
+template <typename T, bool kCausal, int kNT>
+__global__ void __launch_bounds__(kTcThreads)
 poly_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ out, int n, int t, int h, int degree, float scale) {
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int tid = threadIdx.x, tr = tid / kSide, tc = tid % kSide;
-  const int q0 = qt * kTile;
-  const int qrows = min(kTile, n - q0);
-  const int hs = h + 1;                // padded stride avoids bank conflicts
+  // the last query tile (most key tiles) first, so the grid's tail is short
+  const int qt = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y;
+  const int q0 = qt * kTcTile;
+  const int qrows = min(kTcTile, n - q0);
+  const int qs = row_frag_stride(h), vs = pair_frag_stride(h);
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // kTile x hs
-  float* k_s = q_s + kTile * hs;       // kTile x hs
-  float* v_s = k_s + kTile * hs;       // kTile x h
-  float* w_s = v_s + kTile * h;        // kTile x (kTile + 1)
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                         // kTcTile x qs
+  float* k_ring = q_s + kTcTile * qs;        // 2 x kKeyTile x qs
+  float* v_ring = k_ring + 2 * kKeyTile * qs;   // 2 x kKeyTile x vs
 
-  load_tile(q_s, q + ((size_t)bh * n + q0) * h, qrows, h, hs);
+  zero_pad_cols<kTcThreads>(q_s, kTcTile + 2 * kKeyTile, h, qs);
+  zero_pad_cols<kTcThreads>(v_ring, 2 * kKeyTile, h, vs);
+  stage_rows<kTcThreads>(q_s, q + ((size_t)bh * n + q0) * h, qrows, kTcTile, h, qs);
 
-  float acc[kRowsPerThread][kCols];
-  float den[kRowsPerThread];
+  float acc[kNT][4];
+  float den[2] = {0.f, 0.f};
 #pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    den[a] = 0.f;
+  for (int nd = 0; nd < kNT; ++nd)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[a][c] = 0.f;
-  }
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
 
-  const int ktiles = kCausal ? qt + 1 : (t + kTile - 1) / kTile;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int k0 = kt * kTile;
-    const int krows = min(kTile, t - k0);
-    __syncthreads();   // the previous tile's readers are done
-    load_tile(k_s, k + ((size_t)bh * t + k0) * h, krows, h, hs);
-    load_tile(v_s, v + ((size_t)bh * t + k0) * h, krows, h, h);
-    __syncthreads();
-    tile_accumulate<kTile, kSide, kCols, true>(q_s, k_s, h, hs, v_s, h, w_s, q0, qrows, k0,
-                                               krows, kCausal, PowWeight{scale, degree}, acc,
-                                               den);
-  }
-
-#pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    const int row = tr + kSide * a;
-    if (row >= qrows) continue;
-    const float inv = 1.f / (1.f + den[a]);
-    T* orow = out + ((size_t)bh * n + q0 + row) * h;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = tc + kSide * c;
-      if (d < h) orow[d] = from_f32<T>(acc[a][c] * inv);
-    }
-  }
+  const int ktiles = ((kCausal ? q0 + qrows : t) + kKeyTile - 1) / kKeyTile;
+  tc_flash_loop<kNT, kNT, 8 * kNT>(q_s, qs, k + (size_t)bh * t * h, v + (size_t)bh * t * h, h,
+                                   h, t, ktiles, k_ring, qs, v_ring, vs, q0, qrows, kCausal,
+                                   PowWeight{scale, degree}, acc, den);
+  quad_sum(den);
+  tc_store_rows<kNT>(out + ((size_t)bh * n + q0) * h, h, qrows, acc, den);
 }
 
-template <typename T, bool kCausal, int kCols>
+template <typename T, bool kCausal, int kNT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh, int n,
                    int t, int h, int degree, float scale, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)2 * kTile * (h + 1) + (size_t)kTile * h + (size_t)kTile * (kTile + 1)) *
-      sizeof(float);
-  auto kernel = poly_flash_kernel<T, kCausal, kCols>;
+  const size_t smem = ((size_t)(kTcTile + 2 * kKeyTile) * row_frag_stride(h) +
+                       (size_t)2 * kKeyTile * pair_frag_stride(h)) *
+                      sizeof(float);
+  auto kernel = poly_flash_kernel<T, kCausal, kNT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q),
-                                           static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(out), n,
-                                           t, h, degree, scale);
+  const dim3 grid((n + kTcTile - 1) / kTcTile, bh);
+  kernel<<<grid, kTcThreads, smem, stream>>>(static_cast<const T*>(q),
+                                             static_cast<const T*>(k),
+                                             static_cast<const T*>(v), static_cast<T*>(out),
+                                             n, t, h, degree, scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool kCausal>
 cudaError_t run(const void* q, const void* k, const void* v, void* out, int bh, int n, int t,
                 int h, int degree, float scale, cudaStream_t stream) {
-  if (h <= 4 * kSide) {
-    return launch<T, kCausal, 4>(q, k, v, out, bh, n, t, h, degree, scale, stream);
-  }
-  return launch<T, kCausal, kMaxH / kSide>(q, k, v, out, bh, n, t, h, degree, scale, stream);
+  if (h <= 64) return launch<T, kCausal, 8>(q, k, v, out, bh, n, t, h, degree, scale, stream);
+  return launch<T, kCausal, kMaxH / 8>(q, k, v, out, bh, n, t, h, degree, scale, stream);
 }
 
 }  // namespace

@@ -15,27 +15,44 @@
 // Hopper the blocks of a grid run in no order, Zv at r=32, h=64 is 256 KiB
 // (more than one SM's 227 KB of shared memory) and the diagonal block at
 // b=1024 would be a 4 MiB W. So:
-//   pass 1  (bh, block, 32 x 256 tile of the state) in parallel: H_l.
-//   pass 2  state elements in parallel, blocks in order: the exclusive
-//           prefix Z_l, written over H_l, plus the final state.
-//   pass 3  (bh, block, 64-query tile) in parallel: the diagonal block
-//           flash-style over 64-key tiles of the same block (exact weights
-//           for every pair in it, no running max since x^p needs none),
-//           then the cross term, streaming Z_l one row at a time through
-//           shared memory.
-// No atomics; every sum runs in a fixed order, and pass 2 adds the blocks
-// left to right from z0. A prefill resumed at a block boundary from the
-// state this kernel returned is therefore bit-identical to a cold one.
+//   pass 1  fold_kernel, (256 state columns, block, bh) in parallel: H_l
+//           as one product Km_l^T [Km_l (x) V_l | Km_l] (M = r,
+//           N = r*h + r, K = b); the ones column of V yields Zd. Each warp
+//           sums its 32 columns over the b keys in order: no split-K, no
+//           atomics.
+//   pass 2  prefix_kernel, state elements in parallel (float4 a thread),
+//           blocks in order: the exclusive prefix Z_l, written over H_l,
+//           plus the final state.
+//   pass 3  output_kernel, (64-query tile, block, bh) in parallel, the last
+//           tile first: the diagonal block flash-style over the 64-key
+//           tiles of block l (common.cuh's tc_flash_loop, as in
+//           poly_flash.cu: exact weights for every pair in the block, no
+//           running max since x^p needs none), then the cross term as one
+//           product with K = r^2: Phi(qm) [Zv_l | Zd_l], Phi(qm)[i, e*r + c]
+//           = qm_ie qm_ic, built one sketch index e at a time as
+//           qm[:, e] (.) qm (a 64 x r chunk, in registers) against row
+//           block e of Z_l taken as r x (h + 1), staged with cp.async. The
+//           numerator and the denominator come out of that one product
+//           (Zd_l is the column after the numerator's n-tiles).
+// Every sum runs in a fixed order that n and bh do not change, and pass 2
+// adds the blocks left to right from z0. A prefill resumed at a block
+// boundary from the state this kernel returned is therefore bit-identical
+// to a cold one, and a head computed alone equals the same head in a batch.
 //
-// What bounds it. At the serving shapes (bh=48, n=2048, r=32, h=64,
-// b=1024, f32) the three terms are ~13 GFLOP each against ~125 MB of
-// inputs and outputs, i.e. ~300 FLOP per byte: the kernel is bound by
-// operations. This version runs them on the f32 FMA pipes (no tensor
-// cores: f32 inputs, and TF32 is untested against the 1e-4 tolerance). It
-// keeps every operand tile in shared memory, so device memory is read
-// once per tile, and tiles each thread's outputs in registers (4 x 8 in
-// pass 1, 4 x 4 in pass 3) so that an FMA costs well under one shared
-// memory read. wgmma on bf16/TF32 and TMA staging are later work.
+// What bounds it. At bh=48, n=2048, r=32, h=64, b=1024, f32 the three
+// products (fold, diagonal, cross term) are ~13 GFLOP each, 39.1 GFLOP
+// together, against 151 MB of inputs, state and outputs; the rest (scale,
+// power, masks, km (x) v, the prefix) is 0.8 GFLOP. Every product runs on
+// the tensor cores as mma.sync m16n8k8 in 3xTF32 (common.cuh), so the
+// least time is 3 x 39.1 GFLOP at 495 TFLOP/s plus 0.8 GFLOP at
+// 67 TFLOP/s, 0.249 ms: bound by operations (0.595 ms on the f32 FMA
+// pipes). The prefill's calls, n = b = 1024 and 1016, are bound at 0.125
+// and 0.123 ms. bf16 inputs are staged as f32 and take the same path.
+//
+// Registers (nvcc -Xptxas -v, as chip_smoke.py prints it), no spills and
+// no stack in any instantiation: output_kernel 212-245 a thread (f32,
+// local_exact, r <= 32, h <= 64: 245; 96 KB of shared memory, so two CTAs
+// share an SM), fold_kernel 115-167 (f32, r <= 32: 115), prefix_kernel 32.
 
 #include <stddef.h>
 
@@ -43,268 +60,380 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;                         // query rows / key rows per tile
-constexpr int kSide = 16;                         // pass 3: 16 x 16 threads per tile
-constexpr int kRowsPerThread = kTile / kSide;     // pass 3: query rows (and keys) per thread
 constexpr int kMaxH = 128;
 constexpr int kMaxR = 64;
-constexpr int kMaxCols = kMaxH / kSide;           // pass 3: output columns per thread
-constexpr int kP1Rows = 32;                       // pass 1: state rows per CTA
-constexpr int kP1RowsPerThread = kP1Rows / (kThreads / 32);
-constexpr int kP1ColsPerThread = 8;
-constexpr int kP1Cols = 32 * kP1ColsPerThread;    // pass 1: state columns per CTA
+constexpr int kPrefixThreads = 256;
+constexpr int kFoldWarps = 8;
+constexpr int kFoldThreads = 32 * kFoldWarps;
+constexpr int kFoldCols = 32 * kFoldWarps;   // state columns per CTA: 4 n-tiles a warp
+constexpr int kFoldKeys = 64;                // keys per staged chunk
+constexpr int kZRows = 64;                   // rows of Z_l per staged chunk
 
-// Copy `rows` rows of `width` values into shared memory with row stride
-// `stride`, zero-filling rows up to kTile.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows, int width,
-                                          int stride) {
-  load_rows<kTile, kThreads>(dst, src, rows, width, stride);
+// One staged chunk of the fold for the calling warp: acc[mt][nt] +=
+// Km_chunk^T U_chunk over the chunk's first `rows` keys (all kFoldKeys when
+// kFull: no guard, so the k-steps are one straight line).
+template <int kMT, bool kFull>
+__device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float* kd, int kms,
+                                           const float* vd, int vs, const int (&cj)[4],
+                                           const int (&dj)[4], int rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int s0 = 0; s0 < kFoldKeys; s0 += 8) {
+    if (!kFull && s0 >= rows) break;
+    const float* ka = kd + (s0 + t4) * kms + g;
+    FragA a[kMT];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      a[mt] = split_a(ka[mt * 16], ka[mt * 16 + 8], ka[4 * kms + mt * 16],
+                      ka[4 * kms + mt * 16 + 8]);
+    }
+    const float* kb = kd + (s0 + t4) * kms;
+    const float* vb = vd + (s0 + t4) * vs;
+    FragB bf[4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      bf[nt] = split_b(kb[cj[nt]] * vb[dj[nt]], kb[4 * kms + cj[nt]] * vb[4 * vs + dj[nt]]);
+    }
+    // three passes over the 4 kMT accumulators (see mma_3xtf32)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].lo, bf[nt].hi);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].hi, bf[nt].lo);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].hi, bf[nt].hi);
+  }
 }
 
-// Pass 1: H_l as one product. Column n of the output is c*h + d for the
+// Pass 1: H_l as one product. Column col of the output is c*h + d for the
 // Zv part and r*h + c for the Zd part, against a ones column appended to v:
 //   hv[bh, l, i, c*h + d] = sum_s km[s, i] * (km[s, c] * v[s, d])
 //   hd[bh, l, i, c]       = sum_s km[s, i] * (km[s, c] * 1)
-// grid (ceil((r*h + r) / 256), t, bh * ceil(r / 32)). A CTA owns 32 rows i
-// x 256 columns; a thread owns rows warp + 8k (k < 4) and columns
-// lane + 32j (j < 8), so each step s reads 12 shared values for 32 FMAs.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_state_kernel(const T* __restrict__ km, const T* __restrict__ v, float* __restrict__ hv,
-                   float* __restrict__ hd, int n, int r, int h, int b) {
-  const int row_tiles = (r + kP1Rows - 1) / kP1Rows;
-  const int l = blockIdx.y, t = gridDim.y;
-  const int bh = blockIdx.z / row_tiles, rt = blockIdx.z - bh * row_tiles;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int rh = r * h, ncols = rh + r, hs = h + 1;
-  extern __shared__ float smem[];
-  float* km_s = smem;              // kTile x r
-  float* v_s = km_s + kTile * r;   // kTile x (h + 1), last column 1
+// grid (ceil((r*h + r) / 256), t, bh). Warp w owns 32 columns and all r
+// rows (kMT m-tiles of 16: 2 for r <= 32, 4 for r <= 64). A = Km^T from
+// the staged km chunk, B = km (x) v formed in registers from the staged
+// chunks, both split in registers.
+template <typename T, int kMT>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_kernel(const T* __restrict__ km, const T* __restrict__ v, float* __restrict__ hv,
+            float* __restrict__ hd, int n, int r, int h, int b) {
+  const int l = blockIdx.y, t = gridDim.y, bh = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int rh = r * h, ncols = rh + r;
+  constexpr int kms = k_frag_stride(16 * kMT);
+  const int vs = k_frag_stride(h + 1);
+  extern __shared__ __align__(16) float smem[];
+  float* km_ring = smem;                           // 2 x kFoldKeys x kms
+  float* v_ring = km_ring + 2 * kFoldKeys * kms;   // 2 x kFoldKeys x vs, column h = 1
 
-  int cj[kP1ColsPerThread], dj[kP1ColsPerThread];
+  zero_pad_cols<kFoldThreads>(km_ring, 2 * kFoldKeys, r, kms);
+  zero_pad_cols<kFoldThreads>(v_ring, 2 * kFoldKeys, h + 1, vs);
+
+  // The columns of this thread's B fragments: U[s, col] = km[s, cj] * v1[s, dj],
+  // v1 = [v | 1]. Columns past the state compute garbage and are not written.
+  const int col0 = blockIdx.x * kFoldCols + warp * 32;
+  int cj[4], dj[4];
 #pragma unroll
-  for (int j = 0; j < kP1ColsPerThread; ++j) {
-    const int col = blockIdx.x * kP1Cols + lane + 32 * j;
-    const bool zv_part = col < rh;
-    cj[j] = col >= ncols ? 0 : (zv_part ? col / h : col - rh);
-    dj[j] = col >= ncols ? 0 : (zv_part ? col - (col / h) * h : h);
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = col0 + nt * 8 + g;
+    cj[nt] = col < rh ? col / h : (col < ncols ? col - rh : 0);
+    dj[nt] = col < rh ? col - cj[nt] * h : h;
   }
-  int ik[kP1RowsPerThread];
+  float acc[kMT][4][4];
 #pragma unroll
-  for (int k = 0; k < kP1RowsPerThread; ++k) {
-    const int i = rt * kP1Rows + warp + 8 * k;
-    ik[k] = i < r ? i : 0;   // rows past r compute garbage and are not written
-  }
-  float acc[kP1RowsPerThread][kP1ColsPerThread];
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-  for (int k = 0; k < kP1RowsPerThread; ++k)
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int j = 0; j < kP1ColsPerThread; ++j) acc[k][j] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 
   const size_t row0 = (size_t)bh * n + (size_t)l * b;
-  for (int s0 = 0; s0 < b; s0 += kTile) {
-    const int rows = min(kTile, b - s0);
-    load_tile(km_s, km + (row0 + s0) * r, rows, r, r);
-    load_tile(v_s, v + (row0 + s0) * h, rows, h, hs);
-    for (int s = threadIdx.x; s < kTile; s += kThreads) v_s[s * hs + h] = s < rows ? 1.f : 0.f;
-    __syncthreads();
-    for (int s = 0; s < rows; ++s) {
-      float a[kP1RowsPerThread], u[kP1ColsPerThread];
-#pragma unroll
-      for (int k = 0; k < kP1RowsPerThread; ++k) a[k] = km_s[s * r + ik[k]];
-#pragma unroll
-      for (int j = 0; j < kP1ColsPerThread; ++j) u[j] = km_s[s * r + cj[j]] * v_s[s * hs + dj[j]];
-#pragma unroll
-      for (int k = 0; k < kP1RowsPerThread; ++k)
-#pragma unroll
-        for (int j = 0; j < kP1ColsPerThread; ++j) acc[k][j] = fmaf(a[k], u[j], acc[k][j]);
+  const int chunks = (b + kFoldKeys - 1) / kFoldKeys;
+  const auto stage = [&](int ch) {
+    const int s0 = ch * kFoldKeys, rows = min(kFoldKeys, b - s0);
+    float* kd = km_ring + (ch & 1) * kFoldKeys * kms;
+    float* vd = v_ring + (ch & 1) * kFoldKeys * vs;
+    stage_rows<kFoldThreads>(kd, km + (row0 + s0) * r, rows, kFoldKeys, r, kms);
+    stage_rows<kFoldThreads>(vd, v + (row0 + s0) * h, rows, kFoldKeys, h, vs);
+    for (int s = threadIdx.x; s < kFoldKeys; s += kFoldThreads) {
+      vd[s * vs + h] = s < rows ? 1.f : 0.f;
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < kP1RowsPerThread; ++k) {
-    const int i = rt * kP1Rows + warp + 8 * k;
-    if (i >= r) continue;
-    const size_t state_row = ((size_t)bh * t + l) * r + i;
-#pragma unroll
-    for (int j = 0; j < kP1ColsPerThread; ++j) {
-      const int col = blockIdx.x * kP1Cols + lane + 32 * j;
-      if (col < rh) {
-        hv[state_row * rh + col] = acc[k][j];
-      } else if (col < ncols) {
-        hd[state_row * r + (col - rh)] = acc[k][j];
-      }
-    }
-  }
-}
-
-// Pass 2: in place over hv/hd, H_l becomes Z_l = z0 + H_0 + ... + H_{l-1},
-// added left to right; the sum over all t blocks is the returned state.
-__global__ void __launch_bounds__(kThreads)
-prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __restrict__ zv0,
-              const float* __restrict__ zd0, float* __restrict__ zv_out,
-              float* __restrict__ zd_out, int bh_count, int t, int rrh, int rr) {
-  const size_t per = (size_t)rrh + rr;
-  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= per * bh_count) return;
-  const size_t bh = idx / per, e = idx - bh * per;
-  float* cur;
-  size_t stride;
-  float z;
-  float* out;
-  if (e < (size_t)rrh) {
-    cur = hv + bh * t * rrh + e;
-    stride = rrh;
-    z = zv0[bh * rrh + e];
-    out = zv_out + bh * rrh + e;
-  } else {
-    const size_t e2 = e - rrh;
-    cur = hd + bh * t * rr + e2;
-    stride = rr;
-    z = zd0[bh * rr + e2];
-    out = zd_out + bh * rr + e2;
-  }
-  for (int l = 0; l < t; ++l) {
-    const float h_l = cur[l * stride];
-    cur[l * stride] = z;
-    z = z + h_l;
-  }
-  *out = z;
-}
-
-// Pass 3: outputs of one 64-query tile of block l. grid (ceil(b/64), t, bh).
-// Thread (tr, tc) owns query rows tr + 16a (a < 4); in the scores it owns
-// keys tc + 16c, in the outputs columns tc + 16c, so every inner step reads
-// 8 shared values for 16 FMAs.
-template <typename T, bool kLocalExact>
-__global__ void __launch_bounds__(kThreads)
-output_kernel(const T* __restrict__ qm, const T* __restrict__ km, const T* __restrict__ q,
-              const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ zv,
-              const float* __restrict__ zd, T* __restrict__ out, int n, int r, int h, int b,
-              int degree, float scale) {
-  const int qt = blockIdx.x, l = blockIdx.y, bh = blockIdx.z, t = gridDim.y;
-  const int tid = threadIdx.x, tr = tid / kSide, tc = tid % kSide;
-  const int q0 = qt * kTile;
-  const int qrows = min(kTile, b - q0);
-  const int f = kLocalExact ? h : r;   // feature width of the diagonal scores
-  const int fs = f + 1;                // padded strides avoid bank conflicts
-  const int rs = r + 1;
-  const int ws = kTile + 1;
-
-  extern __shared__ float smem[];
-  float* qf_s = smem;                  // kTile x fs
-  float* kf_s = qf_s + kTile * fs;     // kTile x fs
-  float* v_s = kf_s + kTile * fs;      // kTile x h
-  float* w_s = v_s + kTile * h;        // kTile x ws
-  float* qm_s = w_s + kTile * ws;      // kTile x rs
-  float* z_s = qm_s + kTile * rs;      // r x h: one row of Zv_l
-  float* zd_s = z_s + r * h;           // r x r
-
-  const size_t row0 = (size_t)bh * n + (size_t)l * b;
-  const T* qf_src = kLocalExact ? q : qm;
-  const T* kf_src = kLocalExact ? k : km;
-  load_tile(qf_s, qf_src + (row0 + q0) * f, qrows, f, fs);
-  load_tile(qm_s, qm + (row0 + q0) * r, qrows, r, rs);
-
-  float acc[kRowsPerThread][kMaxCols];
-  float den[kRowsPerThread];
-#pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    den[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) acc[a][c] = 0.f;
-  }
-
-  // ---- diagonal block: exact weights for every pair inside block l ----
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kTile;
-    const int krows = min(kTile, b - k0);
-    __syncthreads();   // the previous tile's readers are done
-    load_tile(kf_s, kf_src + (row0 + k0) * f, krows, f, fs);
-    load_tile(v_s, v + (row0 + k0) * h, krows, h, h);
-    __syncthreads();
-    if (kLocalExact) {
-      tile_accumulate<kTile, kSide, kMaxCols, true>(qf_s, kf_s, f, fs, v_s, h, w_s, q0, qrows,
-                                                    k0, krows, true, PowWeight{scale, degree},
-                                                    acc, den);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      stage(ch + 1);
+      cp_async_wait<1>();
     } else {
-      tile_accumulate<kTile, kSide, kMaxCols, true>(qf_s, kf_s, f, fs, v_s, h, w_s, q0, qrows,
-                                                    k0, krows, true, SquareWeight{}, acc, den);
+      cp_async_wait<0>();
     }
-  }
-
-  // ---- cross-block prefix through Z_l: sum_{e,c} qm_e qm_c Z[e, c, :] ----
-  const size_t state = (size_t)bh * t + l;
-  const int rh = r * h;
-  for (int idx = tid; idx < r * r; idx += kThreads) zd_s[idx] = zd[state * r * r + idx];
-  for (int e = 0; e < r; ++e) {
     __syncthreads();
-    const float* zrow = zv + (state * r + e) * rh;
-    for (int idx = tid; idx < rh; idx += kThreads) z_s[idx] = zrow[idx];
-    __syncthreads();
-    float qe[kRowsPerThread];
-#pragma unroll
-    for (int a = 0; a < kRowsPerThread; ++a) qe[a] = qm_s[(tr + kSide * a) * rs + e];
-    for (int c = 0; c < r; ++c) {
-      const float zdv = zd_s[e * r + c];
-      float coef[kRowsPerThread];
-#pragma unroll
-      for (int a = 0; a < kRowsPerThread; ++a) {
-        coef[a] = qe[a] * qm_s[(tr + kSide * a) * rs + c];
-        den[a] = fmaf(coef[a], zdv, den[a]);
+    const float* kd = km_ring + (ch & 1) * kFoldKeys * kms;
+    const float* vd = v_ring + (ch & 1) * kFoldKeys * vs;
+    const int rows = min(kFoldKeys, b - ch * kFoldKeys);
+    if (col0 < ncols) {
+      if (rows == kFoldKeys) {
+        fold_chunk<kMT, true>(acc, kd, kms, vd, vs, cj, dj, rows);
+      } else {
+        fold_chunk<kMT, false>(acc, kd, kms, vd, vs, cj, dj, rows);
       }
+    }
+    __syncthreads();
+  }
 #pragma unroll
-      for (int cc = 0; cc < kMaxCols; ++cc) {
-        const int d = tc + kSide * cc;
-        if (d < h) {
-          const float zz = z_s[c * h + d];
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-          for (int a = 0; a < kRowsPerThread; ++a) acc[a][cc] = fmaf(coef[a], zz, acc[a][cc]);
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = mt * 16 + g + 8 * (c >> 1), col = col0 + nt * 8 + 2 * t4 + (c & 1);
+        if (i >= r || col >= ncols) continue;
+        const size_t state_row = ((size_t)bh * t + l) * r + i;
+        if (col < rh) {
+          hv[state_row * rh + col] = acc[mt][nt][c];
+        } else {
+          hd[state_row * r + (col - rh)] = acc[mt][nt][c];
         }
       }
     }
   }
+}
 
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Pass 2: in place over hv/hd, H_l becomes Z_l = z0 + H_0 + ... + H_{l-1},
+// added left to right; the sum over all t blocks is the returned state.
+// grid (ceil((rrh + rr) / (256 kVec)), bh): kVec consecutive state elements
+// a thread (V = float4 when r*r*h and r*r are multiples of 4, else float),
+// so that enough bytes are in flight to keep device memory busy.
+template <typename V>
+__global__ void __launch_bounds__(kPrefixThreads)
+prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __restrict__ zv0,
+              const float* __restrict__ zd0, float* __restrict__ zv_out,
+              float* __restrict__ zd_out, int t, int rrh, int rr) {
+  constexpr int kVec = sizeof(V) / sizeof(float);
+  const int e = (blockIdx.x * kPrefixThreads + threadIdx.x) * kVec;
+  if (e >= rrh + rr) return;
+  const size_t bh = blockIdx.y;
+  const bool zv_part = e < rrh;
+  const int stride = zv_part ? rrh : rr, e2 = zv_part ? e : e - rrh;
+  const size_t off = bh * stride + e2;
+  V* cur = reinterpret_cast<V*>((zv_part ? hv : hd) + bh * t * stride + e2);
+  V z = *reinterpret_cast<const V*>((zv_part ? zv0 : zd0) + off);
+  const int vstride = stride / kVec;
+  for (int l = 0; l < t; ++l) {
+    const V h_l = cur[(size_t)l * vstride];
+    cur[(size_t)l * vstride] = z;
+    z = vadd(z, h_l);
+  }
+  *reinterpret_cast<V*>((zv_part ? zv_out : zd_out) + off) = z;
+}
+
+// The cross term's row block e for the calling warp: acc += Phi_e Z_e, with
+// Phi_e[row, c] = qm[row, e] qm[row, c] (qe = qm[row, e] and qmr = the
+// thread's qm[row, t4 + 4j], rows g and g + 8) and Z_e at `slot` (this
+// thread's element of k-row t4, n-column g; stride zs). kFull: r == 8 kRK,
+// so the k-steps run unguarded.
+template <int kRK, bool kFull, int kNT>
+__device__ __forceinline__ void cross_block(float (&acc)[kNT][4], const float (&qmr)[2][2 * kRK],
+                                            const float (&qe)[2], const float* slot, int zs,
+                                            int r) {
 #pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    const int row = tr + kSide * a;
-    if (row >= qrows) continue;
-    const float inv = 1.f / (1.f + den[a]);
-    T* orow = out + (row0 + q0 + row) * h;
-#pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
-      const int d = tc + kSide * c;
-      if (d < h) orow[d] = from_f32<T>(acc[a][c] * inv);
-    }
+  for (int kk = 0; kk < kRK; ++kk) {
+    if (!kFull && kk * 8 >= r) break;
+    const FragA a = split_a(qe[0] * qmr[0][2 * kk], qe[1] * qmr[1][2 * kk],
+                            qe[0] * qmr[0][2 * kk + 1], qe[1] * qmr[1][2 * kk + 1]);
+    mma_3xtf32_cols(acc, a, slot + kk * 8 * zs, 4 * zs, kNT);
   }
 }
 
-size_t output_smem_bytes(int r, int h, bool local_exact) {
-  const int f = local_exact ? h : r;
-  const size_t floats = (size_t)2 * kTile * (f + 1) + (size_t)kTile * h +
-                        (size_t)kTile * (kTile + 1) + (size_t)kTile * (r + 1) +
-                        (size_t)r * h + (size_t)r * r;
-  return floats * sizeof(float);
+// Pass 3: outputs of one 64-query tile of block l. grid (ceil(b/64), t, bh),
+// kTcThreads threads; warp w owns query rows 16w .. 16w + 15. acc holds
+// kNT n-tiles (9 for h <= 64, 17 for h <= 128): the numerator's h columns,
+// and the denominator's in column 8 (kNT - 1), a place known at compile
+// time; kRK = k-steps of r (4 for r <= 32, 8 for r <= 64).
+template <typename T, bool kLocalExact, int kNT, int kRK>
+__global__ void __launch_bounds__(kTcThreads)
+output_kernel(const T* __restrict__ qm, const T* __restrict__ km, const T* __restrict__ q,
+              const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ zv,
+              const float* __restrict__ zd, T* __restrict__ out, int n, int r, int h, int b,
+              int degree, float scale) {
+  // the last query tile (most key tiles) first, so the grid's tail is short
+  const int qt = gridDim.x - 1 - blockIdx.x, l = blockIdx.y, bh = blockIdx.z, t = gridDim.y;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int wrow = (threadIdx.x >> 5) * 16;
+  const int q0 = qt * kTcTile;
+  const int qrows = min(kTcTile, b - q0);
+  const int f = kLocalExact ? h : r;   // feature width of the diagonal scores
+  const int fs = row_frag_stride(f), ms = row_frag_stride(r);
+  const int vs = pair_frag_stride(h);
+  constexpr int kDenCol = 8 * (kNT - 1), zs = k_frag_stride(8 * kNT);
+
+  extern __shared__ __align__(16) float smem[];
+  float* qf_s = smem;                                       // kTcTile x fs
+  float* qm_s = kLocalExact ? qf_s + kTcTile * fs : qf_s;   // kTcTile x ms
+  float* k_ring = qm_s + kTcTile * ms;                      // 2 x kKeyTile x fs
+  float* v_ring = k_ring + 2 * kKeyTile * fs;               // 2 x kKeyTile x vs
+  float* z_ring = k_ring;   // after the diagonal block: 2 x kZRows x zs
+
+  const size_t row0 = (size_t)bh * n + (size_t)l * b;
+  const T* qf_src = kLocalExact ? q : qm;
+  const T* kf_src = kLocalExact ? k : km;
+  zero_pad_cols<kTcThreads>(qf_s, kTcTile, f, fs);
+  if (kLocalExact) zero_pad_cols<kTcThreads>(qm_s, kTcTile, r, ms);
+  zero_pad_cols<kTcThreads>(k_ring, 2 * kKeyTile, f, fs);
+  zero_pad_cols<kTcThreads>(v_ring, 2 * kKeyTile, h, vs);
+  stage_rows<kTcThreads>(qf_s, qf_src + (row0 + q0) * f, qrows, kTcTile, f, fs);
+  if (kLocalExact) stage_rows<kTcThreads>(qm_s, qm + (row0 + q0) * r, qrows, kTcTile, r, ms);
+
+  float acc[kNT][4];
+  float den[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nd = 0; nd < kNT; ++nd)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[nd][c] = 0.f;
+
+  // ---- diagonal block: exact weights for every pair inside block l ----
+  const int ktiles = (q0 + qrows + kKeyTile - 1) / kKeyTile;
+  if (kLocalExact) {
+    tc_flash_loop<kNT, kNT - 1, 8 * (kNT - 1)>(
+        qf_s, fs, kf_src + row0 * f, v + row0 * h, f, h, b, ktiles, k_ring, fs, v_ring, vs, q0,
+        qrows, true, PowWeight{scale, degree}, acc, den);
+  } else {
+    tc_flash_loop<kNT, kNT - 1, 8 * kRK>(qf_s, fs, kf_src + row0 * f, v + row0 * h, f, h, b,
+                                         ktiles, k_ring, fs, v_ring, vs, q0, qrows, true,
+                                         SquareWeight{}, acc, den);
+  }
+
+  // ---- cross-block prefix: Phi(qm) [Zv_l | Zd_l], K = r^2 ----
+  // Row block e of Z_l is r x 8 kNT: [c, d] = Zv_l[e, c*h + d] for d < h,
+  // [c, kDenCol] = Zd_l[e, c], zero elsewhere. A chunk of kZRows rows holds
+  // e_per such blocks, each padded with zero rows to rp8.
+  const size_t state = (size_t)bh * t + l;
+  const int rh = r * h, rp8 = (r + 7) / 8 * 8;
+  const int e_per = max(1, kZRows / rp8);
+  const int zchunks = (r + e_per - 1) / e_per;
+  for (int idx = threadIdx.x; idx < 2 * kZRows * zs; idx += kTcThreads) {
+    const int row = idx / zs, col = idx - row * zs;
+    if ((col >= h && col != kDenCol) || row % kZRows % rp8 >= r) z_ring[idx] = 0.f;
+  }
+  const auto stage_z = [&](int ch) {
+    float* zb = z_ring + (ch & 1) * kZRows * zs;
+    const int e0 = ch * e_per, ne = min(e_per, r - e0);
+    for (int i = 0; i < ne; ++i) {
+      const size_t zrow = state * r + e0 + i;
+      float* slot = zb + i * rp8 * zs;
+      stage_rows<kTcThreads>(slot, zv + zrow * rh, r, r, h, zs);
+      for (int c = threadIdx.x; c < r; c += kTcThreads) {
+        cp_async4(slot + c * zs + kDenCol, zd + zrow * r + c, true);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // qm[row, c] for the thread's rows g and g + 8 and its k columns t4 + 4j.
+  float qmr[2][2 * kRK];
+#pragma unroll
+  for (int j = 0; j < 2 * kRK; ++j) {
+    const int c = t4 + 4 * j;
+    qmr[0][j] = c < rp8 ? qm_s[(wrow + g) * ms + c] : 0.f;
+    qmr[1][j] = c < rp8 ? qm_s[(wrow + g + 8) * ms + c] : 0.f;
+  }
+  stage_z(0);
+  for (int ch = 0; ch < zchunks; ++ch) {
+    if (ch + 1 < zchunks) {
+      stage_z(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (wrow < qrows) {
+      const int e0 = ch * e_per, ne = min(e_per, r - e0);
+      for (int i = 0; i < ne; ++i) {
+        const int e = e0 + i;
+        const float qe[2] = {qm_s[(wrow + g) * ms + e], qm_s[(wrow + g + 8) * ms + e]};
+        const float* slot = z_ring + (ch & 1) * kZRows * zs + (i * rp8 + t4) * zs + g;
+        if (r == 8 * kRK) {
+          cross_block<kRK, true>(acc, qmr, qe, slot, zs, r);
+        } else {
+          cross_block<kRK, false>(acc, qmr, qe, slot, zs, r);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // den = rowsum W (this thread's keys, summed over the quad) + column
+  // kDenCol, held by the quad's first thread.
+  quad_sum(den);
+  den[0] += __shfl_sync(0xffffffffu, acc[kNT - 1][0], lane & ~3);
+  den[1] += __shfl_sync(0xffffffffu, acc[kNT - 1][2], lane & ~3);
+  tc_store_rows<kNT>(out + (row0 + q0) * h, h, qrows, acc, den);
 }
 
-template <typename T, bool kLocalExact>
+template <typename T, int kMT>
+cudaError_t launch_fold(const void* km, const void* v, float* hv, float* hd, int bh, int n,
+                        int r, int h, int b, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)2 * kFoldKeys * (k_frag_stride(16 * kMT) + k_frag_stride(h + 1)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fold_kernel<T, kMT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((r * h + r + kFoldCols - 1) / kFoldCols, n / b, bh);
+  fold_kernel<T, kMT><<<grid, kFoldThreads, smem, stream>>>(
+      static_cast<const T*>(km), static_cast<const T*>(v), hv, hd, n, r, h, b);
+  return cudaGetLastError();
+}
+
+size_t output_smem_bytes(int r, int h, bool local_exact, int nt) {
+  const int f = local_exact ? h : r;
+  const size_t tiles = (size_t)kTcTile * row_frag_stride(f) +
+                       (local_exact ? (size_t)kTcTile * row_frag_stride(r) : 0);
+  const size_t rings = (size_t)2 * kKeyTile * (row_frag_stride(f) + pair_frag_stride(h));
+  const size_t zring = (size_t)2 * kZRows * k_frag_stride(8 * nt);
+  return (tiles + (rings > zring ? rings : zring)) * sizeof(float);
+}
+
+template <typename T, bool kLocalExact, int kNT, int kRK>
 cudaError_t launch_output(const void* qm, const void* km, const void* q, const void* k,
                           const void* v, const float* zv, const float* zd, void* out, int bh,
                           int n, int r, int h, int b, int degree, float scale,
                           cudaStream_t stream) {
-  const size_t smem = output_smem_bytes(r, h, kLocalExact);
-  cudaError_t err = cudaFuncSetAttribute(output_kernel<T, kLocalExact>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const size_t smem = output_smem_bytes(r, h, kLocalExact, kNT);
+  auto kernel = output_kernel<T, kLocalExact, kNT, kRK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((b + kTile - 1) / kTile, n / b, bh);
-  output_kernel<T, kLocalExact><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((b + kTcTile - 1) / kTcTile, n / b, bh);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(qm), static_cast<const T*>(km), static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), zv, zd, static_cast<T*>(out), n, r,
       h, b, degree, scale);
   return cudaGetLastError();
+}
+
+template <typename T, bool kLocalExact>
+cudaError_t run_output(const void* qm, const void* km, const void* q, const void* k,
+                       const void* v, const float* zv, const float* zd, void* out, int bh,
+                       int n, int r, int h, int b, int degree, float scale,
+                       cudaStream_t stream) {
+  if (h <= 64 && r <= 32) {
+    return launch_output<T, kLocalExact, 9, 4>(qm, km, q, k, v, zv, zd, out, bh, n, r, h, b,
+                                               degree, scale, stream);
+  }
+  return launch_output<T, kLocalExact, (kMaxH + 8) / 8, kMaxR / 8>(
+      qm, km, q, k, v, zv, zd, out, bh, n, r, h, b, degree, scale, stream);
 }
 
 template <typename T>
@@ -313,28 +442,31 @@ cudaError_t run(const void* qm, const void* km, const void* q, const void* k, co
                 float* zv_out, float* zd_out, int bh, int n, int r, int h, int b, int degree,
                 float scale, int local_exact, cudaStream_t stream) {
   const int t = n / b;
-  const size_t smem1 = (size_t)kTile * (r + h + 1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(block_state_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem1);
+  cudaError_t err = r <= 32 ? launch_fold<T, 2>(km, v, hv, hd, bh, n, r, h, b, stream)
+                            : launch_fold<T, kMaxR / 16>(km, v, hv, hd, bh, n, r, h, b, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid1((r * h + r + kP1Cols - 1) / kP1Cols, t,
-                   bh * ((r + kP1Rows - 1) / kP1Rows));
-  block_state_kernel<T><<<grid1, kThreads, smem1, stream>>>(
-      static_cast<const T*>(km), static_cast<const T*>(v), hv, hd, n, r, h, b);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const size_t total = (size_t)bh * ((size_t)r * r * h + (size_t)r * r);
-  prefix_kernel<<<(unsigned)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      hv, hd, zv0, zd0, zv_out, zd_out, bh, t, r * r * h, r * r);
+  const int rrh = r * r * h, rr = r * r;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(hv) | reinterpret_cast<uintptr_t>(hd) |
+                         reinterpret_cast<uintptr_t>(zv0) | reinterpret_cast<uintptr_t>(zd0) |
+                         reinterpret_cast<uintptr_t>(zv_out) | reinterpret_cast<uintptr_t>(zd_out);
+  if (rr % 4 == 0 && (addr & 15) == 0) {   // rr % 4 == 0 makes rrh one too
+    const dim3 grid2((rrh + rr + 4 * kPrefixThreads - 1) / (4 * kPrefixThreads), bh);
+    prefix_kernel<float4><<<grid2, kPrefixThreads, 0, stream>>>(hv, hd, zv0, zd0, zv_out,
+                                                                zd_out, t, rrh, rr);
+  } else {
+    const dim3 grid2((rrh + rr + kPrefixThreads - 1) / kPrefixThreads, bh);
+    prefix_kernel<float><<<grid2, kPrefixThreads, 0, stream>>>(hv, hd, zv0, zd0, zv_out,
+                                                               zd_out, t, rrh, rr);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if (local_exact) {
-    return launch_output<T, true>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
-                                  stream);
+    return run_output<T, true>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
+                               stream);
   }
-  return launch_output<T, false>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
-                                 stream);
+  return run_output<T, false>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
+                              stream);
 }
 
 }  // namespace
@@ -353,7 +485,7 @@ extern "C" int polysketch_causal_forward(const void* qm, const void* km, const v
                                          int h, int b, int degree, float scale,
                                          int local_exact, int dtype, void* stream) {
   if (bh <= 0 || n <= 0 || b <= 0 || n % b != 0 || r <= 0 || r > kMaxR || h < 1 ||
-      h > kMaxH || degree < 1 || bh > 32767 || n / b > 65535) {
+      h > kMaxH || degree < 1 || bh > 65535 || n / b > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

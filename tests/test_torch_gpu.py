@@ -145,3 +145,46 @@ def test_polynomial_smoke_generate_on_card_matches_cpu(card, degree):
     assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
     torch.testing.assert_close(on_card.logits_last.cpu(), on_cpu.logits_last,
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,r,h,blk", [
+    (1016, 32, 64, 1016),   # the prefill's tail call: ragged last 64-row tile
+    (64, 4, 8, 16),         # r, h and b below one mma tile
+])
+def test_kernel_mma_tile_shapes_match_plain_version(card, n, r, h, blk, dtype):
+    rnd = _normal(n + r, card)
+    kw = dict(degree=4, scale=1.0 / h, block_size=blk, return_state=True)
+    # z0: the state a previous call of the same heads returned
+    _, zv0, zd0 = pc.polysketch_causal_torch(
+        rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5, rnd(2, n, h), rnd(2, n, h),
+        rnd(2, n, h), **kw)
+    dt = getattr(torch, dtype)
+    xs = [x.to(dt) for x in (rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5,
+                             rnd(2, n, h), rnd(2, n, h), rnd(2, n, h))]
+    before = pc.polysketch_causal_cuda.launches
+    got, gzv, gzd = pc.polysketch_causal_cuda(*xs, zv0, zd0, **kw)
+    want, wzv, wzd = pc.polysketch_causal_torch(*xs, zv0, zd0, **kw)
+    torch.cuda.synchronize()
+    assert pc.polysketch_causal_cuda.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for z, wz in ((gzv, wzv), (gzd, wzd)):
+        assert (z - wz).abs().max().item() <= 1e-4 * wz.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [77, 2040])
+def test_poly_flash_kernel_ragged_tiles_match_plain_version(card, n, dtype):
+    rnd = _normal(n, card)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (64,), eps=1e-6)  # noqa: E731
+    dt = getattr(torch, dtype)
+    q, k, v = (x.to(dt) for x in (ln(rnd(2, n, 64)), ln(rnd(2, n, 64)), rnd(2, n, 64)))
+    kw = dict(degree=4, scale=1.0 / 64)
+    before = pf.poly_flash_cuda.launches
+    got = pf.poly_flash_cuda(q, k, v, **kw)
+    want = pf.poly_flash_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert pf.poly_flash_cuda.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

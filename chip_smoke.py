@@ -14,9 +14,10 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      state, then the 1016-token tail seeded with it); then the B2 kernel
      (poly_flash) through ops.poly_attention and the B3 kernel (lt_mult)
      through ops.lt_mult, over their reference grids and at the shapes
-     their paths give them; and one line of tolerance study: the plain
-     B1 and B2 with single-pass TF32 matmuls against full f32, beside the
-     kernels' (3xTF32) errors;
+     their paths give them (B3 also bit for bit: two runs, and one bh
+     row alone against the batch); and one line of tolerance study: the
+     plain B1, B2 and B3 with single-pass TF32 matmuls against full f32,
+     beside the kernels' (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
      tokens + 16 new ones, of gpt2s-polysketch (the decode fold at
      position 2047 runs) and of gpt2s-poly4 (exact polynomial attention,
@@ -29,7 +30,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      models; the poly4 prefill's logits, kernel vs plain; SMOKE greedy
      tokens on the card equal those on the CPU, for both mechanisms;
   4. each kernel's time at its path's shapes beside its plain version's
-     and its bounds (B1 also at the two calls a prefill's layer makes).
+     and its bounds (B1 also at the two calls a prefill's layer makes);
+     B3's device time per pass (torch.profiler) and host time per call.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -316,10 +318,11 @@ def phase_lt_mult_grid():
                 worst = max(worst, e)
     log(f"  property grid (n 32/64/96 x block 16/32 x 3 seeds, m=8, k=4): all within "
         f"1e-3, worst max|err| so far {worst:.3e}")
+    kw = dict(block_size=LT_BENCH["blk"])
     for n in (2048, 16384):
         a, b, c = lt_bench_inputs(n)
-        got = ops.lt_mult(a, b, c, block_size=LT_BENCH["blk"])
-        want = ops.lt_mult(a, b, c, block_size=LT_BENCH["blk"], impl="torch")
+        got = ops.lt_mult(a, b, c, **kw)
+        want = ops.lt_mult(a, b, c, impl="torch", **kw)
         torch.cuda.synchronize()
         e = check_close(f"f32 kernel_bench shape bh=4 m=32 k=64 block=256 n={n}",
                         got, want, LT_F32_TOL * n, LT_F32_TOL)
@@ -334,35 +337,67 @@ def phase_lt_mult_grid():
                                  f"{e} is {rel:.2e} of max|out|, above "
                                  f"{LT_BENCH_REL_TOL:.0e}")
         worst = max(worst, e)
+    # b 384: 3 query tiles a block, on a paired grid (bh 4, 66 blocks), so
+    # that the middle CTA of each block takes its one tile alone.
+    rnd = seeded(15)
+    pa, pb, pc_ = rnd(4, 384 * 66, 32), rnd(4, 384 * 66, 32), rnd(4, 384 * 66, 64)
+    got_p = ops.lt_mult(pa, pb, pc_, block_size=384)
+    want_p = ops.lt_mult(pa, pb, pc_, block_size=384, impl="torch")
+    torch.cuda.synchronize()
+    e = check_close("f32 paired, odd tiles bh=4 m=32 k=64 block=384 n=25344",
+                    got_p, want_p, LT_F32_TOL * 384 * 66, LT_F32_TOL)
+    rel = e / want_p.abs().max().item()
+    log(f"    (relative to max|out|: {rel:.2e}, limit {LT_BENCH_REL_TOL:.0e})")
+    if not rel <= LT_BENCH_REL_TOL:
+        raise AssertionError(f"lt_mult paired grid b=384: max error {e} is {rel:.2e} of "
+                             f"max|out|, above {LT_BENCH_REL_TOL:.0e}")
+    # Bit for bit at n = 16384: a second run, and bh row 2 computed alone
+    # (the batch runs paired query tiles, the row alone unpaired).
+    again = ops.lt_mult(a, b, c, **kw)
+    solo = ops.lt_mult(*(x[2:3].contiguous() for x in (a, b, c)), **kw)
+    torch.cuda.synchronize()
+    same, alone = torch.equal(again, got), torch.equal(solo[0], got[2])
+    log(f"  f32 kernel_bench shape n=16384: two runs equal bit for bit: {same}; bh row 2 "
+        f"alone equals it in the batch of 4, bit for bit: {alone}")
+    if not (same and alone):
+        raise AssertionError("lt_mult: not bit-stable across runs or across the batch")
     return worst
 
 
 def phase_tolerance_study():
     """Why the kernels take three TF32 products per f32 product: at the
-    slices' shapes, the plain B1 and B2 with single-pass TF32 matmuls
-    (PyTorch's allow_tf32, never on the main path; set back to False
-    after) and the kernels (3xTF32), each against the plain full-f32
-    result."""
+    slices' shapes (B3: kernel_bench's, n = 16384), the plain versions with
+    single-pass TF32 matmuls (PyTorch's allow_tf32, never on the main path;
+    set back to False after) and the kernels (3xTF32), each against the
+    plain full-f32 result. B3's errors are shares of max|out|, as its gate
+    holds them."""
     b1_in = slice_inputs()
     b1_kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
     b2_in = poly_slice_inputs(2040)
     b2_kw = dict(degree=4, scale=1.0 / 64)
+    b3_in = lt_bench_inputs(16384)
+    b3_kw = dict(block_size=LT_BENCH["blk"])
 
     def plain():
         return (ops.polysketch_attention(*b1_in, impl="torch", **b1_kw),
-                ops.poly_attention(*b2_in, impl="torch", **b2_kw))
+                ops.poly_attention(*b2_in, impl="torch", **b2_kw),
+                ops.lt_mult(*b3_in, impl="torch", **b3_kw))
     f32 = plain()
-    kernel = (ops.polysketch_attention(*b1_in, **b1_kw), ops.poly_attention(*b2_in, **b2_kw))
+    kernel = (ops.polysketch_attention(*b1_in, **b1_kw), ops.poly_attention(*b2_in, **b2_kw),
+              ops.lt_mult(*b3_in, **b3_kw))
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         tf32 = plain()
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+    b3_max = f32[2].abs().max().item()
     log(f"  tolerance study (f32 slice shapes, max|err| against the plain full-f32 "
         f"result): one TF32 product (plain, allow_tf32) B1 {err(tf32[0], f32[0]):.3e}, "
         f"B2 {err(tf32[1], f32[1]):.3e}; 3xTF32 kernels B1 {err(kernel[0], f32[0]):.3e}, "
-        f"B2 {err(kernel[1], f32[1]):.3e}; gate {F32_TOL:.0e}")
+        f"B2 {err(kernel[1], f32[1]):.3e}; gate {F32_TOL:.0e}. B3 bh=4 n=16384, as a share "
+        f"of max|out| {b3_max:.1f}: one TF32 product {err(tf32[2], f32[2]) / b3_max:.2e}, "
+        f"3xTF32 kernel {err(kernel[2], f32[2]) / b3_max:.2e}; gate {LT_BENCH_REL_TOL:.0e}")
 
 
 def slice_inputs():
@@ -418,6 +453,17 @@ def phase_serve(model):
     return launches, prompts
 
 
+def device_rows(prof):
+    """The device-side rows of a torch.profiler run's key_averages()."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+
 def profile_generate(model, prompts):
     """Device busy share and the top device kernels of one prefill and of
     the 16 decode steps, from torch.profiler (CUPTI)."""
@@ -426,11 +472,7 @@ def profile_generate(model, prompts):
     for label, steps in (("prefill", 0), ("prefill+decode16", 16)):
         with profile(activities=acts) as prof:
             _, wall = timed(lambda: generate(model, prompts, steps))
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) is not None
-                and str(e.device_type).endswith("CUDA")]
-        dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                                   getattr(e, "self_cuda_time_total", 0))
+        rows = device_rows(prof)
         busy = sum(dev_us(e) for e in rows) / 1e6
         log(f"  profile {label}: wall {wall * 1e3:.1f} ms (profiler on), device "
             f"busy {busy * 1e3:.1f} ms = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
@@ -755,15 +797,14 @@ def b2_bound(bh, n, h, degree, itemsize=4):
 
 
 def b3_bound(bh, n, m, k, b, itemsize=4):
-    """B3 as the block algorithm needs it: each block's triangle (2m for a
-    score, 2k for its row of W C), the fold B^T C and the cross term A Z
-    (2mk a row each), the prefix over blocks. Bytes: A, B, C read once, O
-    written once. B3 runs on the FMA pipes: its bound is the FMA route's."""
+    """B3 as the block algorithm needs it. Products: each block's triangle
+    (2m for a score, 2k for its row of W C), the fold B^T C and the cross
+    term A Z (2mk a row each); the rest: the prefix's adds over blocks.
+    Bytes: A, B, C read once, O written once."""
     t = n // b
     pairs = t * b * (b + 1) // 2
-    flops = bh * (pairs * (2 * m + 2 * k) + 4 * n * m * k + t * m * k)
-    bd = bounds(0, flops, bh * n * (2 * m + 2 * k) * itemsize)
-    return bd._replace(tc_ms=bd.fma_ms, tc_by=bd.fma_by)
+    prod = bh * (pairs * (2 * m + 2 * k) + 4 * n * m * k)
+    return bounds(prod, bh * t * m * k, bh * n * (2 * m + 2 * k) * itemsize)
 
 
 def phase_timing_poly_lt():
@@ -794,13 +835,64 @@ def phase_timing_poly_lt():
         bd = b3_bound(4, n, 32, 64, LT_BENCH["blk"])
         out["lt_mult"][n] = (min(ms, ms2), plain_ms, bd)
         log(f"  B3 bh=4 n={n} m=32 k=64 block=256: kernel {min(ms, ms2):.4f} ms (runs "
-            f"{ms:.4f}, {ms2:.4f}), plain PyTorch {plain_ms:.4f} ms, f32-FMA bound "
-            f"{bd.fma_ms:.4f} ms by {bd.fma_by} ({bd.flops / 1e9:.2f} GFLOP, "
-            f"{bd.nbytes / 1e6:.1f} MB); {bd.fma_ms / min(ms, ms2):.1%} of the bound; "
-            f"library call: {NO_LIBRARY}")
+            f"{ms:.4f}, {ms2:.4f}), plain PyTorch {plain_ms:.4f} ms; bound {bd.tc_ms:.4f} "
+            f"ms by {bd.tc_by} on the tensor cores ({bd.flops / 1e9:.3f} GFLOP, "
+            f"{bd.nbytes / 1e6:.1f} MB), {bd.tc_ms / min(ms, ms2):.1%} of it; f32-FMA "
+            f"bound {bd.fma_ms:.4f} ms by {bd.fma_by}, {bd.fma_ms / min(ms, ms2):.1%} of "
+            f"it; library call: {NO_LIBRARY}")
     for name, fn in KERNELS.items():   # timing launches do not count
         fn.launches = before[name]
     return out
+
+
+# (pass, a substring of its kernels' names)
+LT_PASSES = (("fold", "fold"), ("prefix", "prefix"), ("outputs", "output"))
+
+
+def lt_mult_breakdown(fn, n, passes=LT_PASSES, calls=20, host_calls=100):
+    """B3's wrapper `fn` at kernel_bench's shape: device time per pass per
+    call (ms) from torch.profiler over `calls` calls, each kernel counted
+    under the first pass in `passes` whose key its name holds; and the
+    host's time per call (ms), wall clock over `host_calls` calls issued
+    without a sync, beside the CUDA events' time over the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+    a, b, c = lt_bench_inputs(n)
+    run = lambda: fn(a, b, c, block_size=LT_BENCH["blk"])  # noqa: E731
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    per_pass = {name: 0.0 for name, _ in passes}
+    for e in device_rows(prof):
+        name = next((p for p, key in passes if key in e.key), None)
+        if name is None:
+            raise AssertionError(f"lt_mult profile: unexpected device kernel {e.key!r}")
+        per_pass[name] += dev_us(e) / 1e3 / calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        run()
+    host_ms = (time.perf_counter() - t0) * 1e3 / host_calls
+    end.record()
+    torch.cuda.synchronize()
+    return per_pass, host_ms, start.elapsed_time(end) / host_calls
+
+
+def phase_lt_mult_breakdown():
+    log("phase 4: B3 per pass (torch.profiler device time per call) and host time per "
+        "call (wall clock over 100 calls without sync, against CUDA events)")
+    before = lt.lt_mult_cuda.launches
+    for n in (2048, 16384):
+        passes, host_ms, event_ms_ = lt_mult_breakdown(lt.lt_mult_cuda, n)
+        log(f"  B3 n={n}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+            + f"; device sum {sum(passes.values()):.4f} ms; host {host_ms:.4f} ms per "
+            f"call, CUDA events {event_ms_:.4f} ms per call")
+    lt.lt_mult_cuda.launches = before   # timing launches do not count
 
 
 def main():
@@ -817,7 +909,7 @@ def main():
         + ", ".join(f"{n} {b.seconds:.1f} s" for n, b in libs.items()))
     for name, built in libs.items():
         for line in built.log.splitlines():
-            if "registers" in line:
+            if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     max_err = phase_kernel_grid()
@@ -837,6 +929,7 @@ def main():
     b3_launches = phase_lt_mult_path()
     b1_times = phase_timing()
     times = phase_timing_poly_lt()
+    phase_lt_mult_breakdown()
 
     def row(name, replaces, launches, max_abs_err, timing):
         t_ms, t_plain, bd = timing

@@ -1,12 +1,12 @@
-// Helpers shared by the port's CUDA kernels (sm_90a).
+// Helpers shared by the port's CUDA kernels (sm_90a): polysketch_causal.cu
+// (B1), poly_flash.cu (B2) and lt_mult.cu (B3).
 //
 // - dtype conversion to and from the f32 accumulators;
-// - tile_accumulate: the register-tiled f32-FMA key-tile step of
-//   lt_mult.cu (B3, which is not on the tensor cores yet);
-// - the tensor-core path of polysketch_causal.cu (B1) and poly_flash.cu
-//   (B2): f32 products as three TF32 products on mma.sync (3xTF32),
-//   cp.async staging into rings of two, and the flash-style diagonal
-//   routine both run, tc_flash_loop over tc_tile_accumulate.
+// - f32 products as three TF32 products on mma.sync (3xTF32);
+// - cp.async staging into rings of two;
+// - the flash-style diagonal routine all three run, tc_flash_loop over
+//   tc_tile_accumulate, with the weight applied to the scores in registers
+//   (the power for B1 and B2, none for B3).
 //
 // Why three TF32 products. A TF32 operand keeps 10 of f32's 23 mantissa
 // bits. One TF32 product per f32 product (PyTorch's allow_tf32) missed the
@@ -63,14 +63,12 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int rows, in
   }
 }
 
-// Weights applied to a tile's scores s = <x_row, y_j>: PlainWeight one
-// score at a time (tile_accumulate), PowWeight and SquareWeight to a
-// warp's whole score fragment in place (tc_tile_accumulate), so that the
-// power's loop over the bits of the degree runs once per tile.
-struct PlainWeight {   // s
-  __device__ __forceinline__ float operator()(float s) const { return s; }
-};
+// Weights applied to a warp's whole score fragment in place
+// (tc_tile_accumulate), so that the power's loop over the bits of the
+// degree runs once per tile. kDen: the kernel divides by 1 + the row sum of
+// the weights, so tc_tile_accumulate sums them.
 struct PowWeight {   // (s * scale)^degree, by repeated squaring in XLA's integer_pow order
+  static constexpr bool kDen = true;
   float scale;
   int degree;
   template <int kN>
@@ -104,6 +102,7 @@ struct PowWeight {   // (s * scale)^degree, by repeated squaring in XLA's intege
   }
 };
 struct SquareWeight {   // s^2
+  static constexpr bool kDen = true;
   template <int kN>
   __device__ __forceinline__ void operator()(float (&s)[kN][4]) const {
 #pragma unroll
@@ -112,71 +111,11 @@ struct SquareWeight {   // s^2
       for (int c = 0; c < 4; ++c) s[i][c] *= s[i][c];
   }
 };
-
-// One key tile of the register-tiled f32-FMA product W V (lt_mult.cu's
-// pass 3). A CTA of kSide x kSide threads covers kTile query rows x kTile
-// keys; thread (tr, tc) owns rows tr + kSide*a and keys tc + kSide*c of the
-// scores (a, c < kTile / kSide), and columns tc + kSide*c (c < kCols) of
-// the output. The query tile x_s and the key tile y_s hold f features each
-// at row stride fs, the value tile v_s holds h columns at row stride h; the
-// caller has loaded them and synchronised. Scores become
-// w = weight(<x_row, y_j>), zeroed unless j < krows, row < qrows and (when
-// causal) k0 + j <= q0 + row, are staged in w_s (row stride kTile + 1), and
-// are folded into acc (and into den when kDen) key by key in order.
-template <int kTile, int kSide, int kCols, bool kDen, typename Weight>
-__device__ __forceinline__ void tile_accumulate(const float* x_s, const float* y_s, int f,
-                                                int fs, const float* v_s, int h, float* w_s,
-                                                int q0, int qrows, int k0, int krows,
-                                                bool causal, Weight weight,
-                                                float (&acc)[kTile / kSide][kCols],
-                                                float (&den)[kTile / kSide]) {
-  constexpr int kRows = kTile / kSide;
-  constexpr int ws = kTile + 1;   // padded stride avoids bank conflicts
-  const int tr = threadIdx.x / kSide, tc = threadIdx.x % kSide;
-  float sc[kRows][kRows];
-#pragma unroll
-  for (int a = 0; a < kRows; ++a)
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) sc[a][c] = 0.f;
-  for (int e = 0; e < f; ++e) {
-    float xv[kRows], yv[kRows];
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) xv[a] = x_s[(tr + kSide * a) * fs + e];
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) yv[c] = y_s[(tc + kSide * c) * fs + e];
-#pragma unroll
-    for (int a = 0; a < kRows; ++a)
-#pragma unroll
-      for (int c = 0; c < kRows; ++c) sc[a][c] = fmaf(xv[a], yv[c], sc[a][c]);
-  }
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) {
-      const int row = tr + kSide * a, j = tc + kSide * c;
-      const bool keep = (j < krows) && (row < qrows) && (!causal || k0 + j <= q0 + row);
-      w_s[row * ws + j] = keep ? weight(sc[a][c]) : 0.f;
-    }
-  }
-  __syncthreads();
-  for (int j = 0; j < krows; ++j) {
-    float wv[kRows];
-#pragma unroll
-    for (int a = 0; a < kRows; ++a) {
-      wv[a] = w_s[(tr + kSide * a) * ws + j];
-      if (kDen) den[a] += wv[a];
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = tc + kSide * c;
-      if (d < h) {
-        const float vv = v_s[j * h + d];
-#pragma unroll
-        for (int a = 0; a < kRows; ++a) acc[a][c] = fmaf(wv[a], vv, acc[a][c]);
-      }
-    }
-  }
-}
+struct IdentityWeight {   // s, with no denominator (B3)
+  static constexpr bool kDen = false;
+  template <int kN>
+  __device__ __forceinline__ void operator()(float (&)[kN][4]) const {}
+};
 
 // ---------------------------------------------------------------------------
 // Tensor cores: mma.sync.m16n8k8 in 3xTF32.
@@ -283,26 +222,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Stage rows [0, rows) of a row-major (., width) matrix into shared memory
-// at row stride `stride`, zero-filling rows [rows, total). f32 goes through
-// cp.async (16 bytes a copy where width and src allow it, else 4) and is in
-// place after cp_async_wait and a __syncthreads; bf16 is converted through
-// registers and is in place after the __syncthreads.
+// Stage rows [0, rows) of `width` values each, src_stride apart in global
+// memory (a row-major (., width) matrix by default, or a column slice of
+// a wider one, f32 only), into shared memory at row stride `stride`,
+// zero-filling rows [rows, total). f32 goes through cp.async (16 bytes a
+// copy where the widths and src allow it, else 4) and is in place after
+// cp_async_wait and a __syncthreads; bf16 is converted through registers
+// and is in place after the __syncthreads.
 template <int kThreads>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int rows, int total,
-                                           int width, int stride) {
-  if ((width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+                                           int width, int stride, int src_stride = 0) {
+  if (src_stride == 0) src_stride = width;
+  if (((width | src_stride) & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const int vw = width >> 2;
     for (int idx = threadIdx.x; idx < total * vw; idx += kThreads) {
       const int row = idx / vw, c = 4 * (idx - row * vw);
       const bool ok = row < rows;
-      cp_async16(dst + row * stride + c, ok ? src + (size_t)row * width + c : src, ok);
+      cp_async16(dst + row * stride + c, ok ? src + (size_t)row * src_stride + c : src, ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < total * width; idx += kThreads) {
       const int row = idx / width, col = idx - row * width;
       const bool ok = row < rows;
-      cp_async4(dst + row * stride + col, ok ? src + (size_t)row * width + col : src, ok);
+      cp_async4(dst + row * stride + col, ok ? src + (size_t)row * src_stride + col : src, ok);
     }
   }
 }
@@ -325,16 +267,16 @@ __device__ __forceinline__ void zero_pad_cols(float* dst, int rows, int width, i
 }
 
 // ---------------------------------------------------------------------------
-// The flash-style diagonal routine of B1's pass 3 and of B2, on the tensor
-// cores.
+// The flash-style diagonal routine of B1's and B3's pass 3 and of B2, on
+// the tensor cores.
 //
 // A CTA of kTcWarps warps owns kTcTile = 16 * kTcWarps query rows; warp w
 // owns rows 16w .. 16w + 15. For every 64-key tile the warp computes its
 // 16 x 64 scores S = Q K^T (3xTF32 mma, Q and K fragments loaded from
 // shared memory and split in registers), applies weight() (the scale and
-// the power, or the square) to the accumulator in registers, masks it on
-// the tiles that cross the diagonal, adds each row's weights into den, and
-// folds W V into acc (3xTF32 mma). The scores' accumulator is W V's A
+// the power, the square, or nothing) to the accumulator in registers,
+// masks it on the tiles that cross the diagonal, adds each row's weights
+// into den (when Weight::kDen), and folds W V into acc (3xTF32 mma). The scores' accumulator is W V's A
 // operand as it stands: within each 8-key step the k index t of the mma
 // stands for key 2t and t + 4 for key 2t + 1, and V's fragments are read
 // in that order. On a masked tile, the 8-key groups that none of the
@@ -377,8 +319,10 @@ __device__ __forceinline__ void mma_3xtf32_cols(float (&acc)[kNT][4], const Frag
 // stored): only the causal mask needs the guarded path. With kFull every
 // loop has a trip count known at compile time and no guard, so the code is
 // one straight line whose loads and splits the compiler interleaves with
-// the products.
-template <int kNT, int kNV, int kF, bool kFull, typename Weight>
+// the products. kMask applies the mask; with kFull too (a tile that
+// crosses the diagonal, taken whole), the products past the diagonal are
+// computed and then masked, which costs less than guarding each mma.
+template <int kNT, int kNV, int kF, bool kFull, bool kMask = !kFull, typename Weight>
 __device__ __forceinline__ void tc_tile_accumulate(const float* q_s, int qs, const float* k_s,
                                                    int ks, int f, const float* v_s, int vs,
                                                    int h, int q0, int qrows, int k0,
@@ -423,12 +367,12 @@ __device__ __forceinline__ void tc_tile_accumulate(const float* q_s, int qs, con
   for (int nt = 0; nt < kKT; ++nt) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (!kFull) {
+      if (kMask) {
         const int row = row0 + 8 * (c >> 1), j = nt * 8 + 2 * t + (c & 1);
         const bool keep = j < krows && row < qrows && (!causal || k0 + j <= q0 + row);
         s[nt][c] = keep ? s[nt][c] : 0.f;
       }
-      den[c >> 1] += s[nt][c];
+      if (Weight::kDen) den[c >> 1] += s[nt][c];
     }
   }
 
@@ -497,8 +441,9 @@ __device__ __forceinline__ void quad_sum(float (&den)[2]) {
 }
 
 // Write a warp's 16 output rows (q0 + row for row < qrows), columns < h:
-// out = acc / (1 + den). out points at the tile's first row (stride h).
-template <int kNT, typename T>
+// out = acc / (1 + den) when kDen, else out = acc. out points at the
+// tile's first row (stride h).
+template <int kNT, bool kDen = true, typename T>
 __device__ __forceinline__ void tc_store_rows(T* out, int h, int qrows,
                                               const float (&acc)[kNT][4], const float (&den)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -509,7 +454,9 @@ __device__ __forceinline__ void tc_store_rows(T* out, int h, int qrows,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int row = row0 + 8 * (c >> 1), d = nd * 8 + 2 * t + (c & 1);
-      if (row < qrows && d < h) out[(size_t)row * h + d] = from_f32<T>(acc[nd][c] * inv[c >> 1]);
+      if (row < qrows && d < h) {
+        out[(size_t)row * h + d] = from_f32<T>(kDen ? acc[nd][c] * inv[c >> 1] : acc[nd][c]);
+      }
     }
   }
 }

@@ -92,8 +92,11 @@ def lt_mult_cuda(a, b, c, *, block_size: int):
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("inputs must be contiguous")
     out = torch.empty_like(c)
-    hz = torch.empty(bh, t, m, kk, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the block states H_l, then their prefixes, for l < t - 1
+    hz = torch.empty(bh, t - 1, m, kk, dtype=torch.float32, device=dev)
+    # the raw handle: torch.cuda.current_stream(dev) also builds a Stream
+    # object, on every call
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with torch.cuda.device(dev):
         err = _lib().lt_mult_forward(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),

@@ -188,3 +188,59 @@ def test_poly_flash_kernel_ragged_tiles_match_plain_version(card, n, dtype):
     assert pf.poly_flash_cuda.launches == before + 1
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _lt_inputs(card, seed, bh, n, m, k, dtype=torch.float32):
+    rnd = _normal(seed, card, dtype)
+    return rnd(bh, n, m), rnd(bh, n, m), rnd(bh, n, k)
+
+
+def test_lt_mult_kernel_is_bit_stable(card):
+    a, b, c = _lt_inputs(card, 13, 4, 2048, 32, 64)
+    first = lt.lt_mult_cuda(a, b, c, block_size=256)
+    again = lt.lt_mult_cuda(a, b, c, block_size=256)
+    assert torch.equal(first, again)
+
+
+def test_lt_mult_kernel_row_alone_equals_batch(card):
+    # At n 16384 the batch of 4 (512 query tiles of 128 rows) fills two CTAs
+    # an SM, so its tiles run paired; the row alone (128 tiles) runs
+    # unpaired: paired and unpaired must agree bit for bit.
+    a, b, c = _lt_inputs(card, 14, 4, 16384, 32, 64)
+    batch = lt.lt_mult_cuda(a, b, c, block_size=256)
+    alone = lt.lt_mult_cuda(*(x[2:3].contiguous() for x in (a, b, c)), block_size=256)
+    assert torch.equal(alone[0], batch[2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lt_mult_kernel_paired_odd_tiles_match_plain_version(card, dtype):
+    # b 384 gives 3 query tiles a block; at bh 4 and 66 blocks the grid is
+    # paired, and the middle CTA of each block takes its one tile alone.
+    n, blk = 384 * 66, 384
+    a, b, c = _lt_inputs(card, 15, 4, n, 32, 64, getattr(torch, dtype))
+    got = lt.lt_mult_cuda(a, b, c, block_size=blk)
+    want = lt.lt_mult_torch(a, b, c, block_size=blk)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * n, rtol=tol)
+    # and to max|out|: f32 at the benchmark shape's gate (1e-5)
+    rel = 2e-2 if dtype == "bfloat16" else 1e-5
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,m,k,blk", [
+    (48, 12, 20, 16),      # widths off the 8-wide mma tiles
+    (256, 128, 128, 64),   # the widest m and k the kernel takes
+])
+def test_lt_mult_kernel_edge_widths_match_plain_version(card, n, m, k, blk, dtype):
+    a, b, c = _lt_inputs(card, n + m, 2, n, m, k, getattr(torch, dtype))
+    before = lt.lt_mult_cuda.launches
+    got = lt.lt_mult_cuda(a, b, c, block_size=blk)
+    want = lt.lt_mult_torch(a, b, c, block_size=blk)
+    torch.cuda.synchronize()
+    assert lt.lt_mult_cuda.launches == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * n,
+                               rtol=tol)

@@ -1,6 +1,6 @@
 """Chip smoke of the PyTorch port: build its kernels, hold each against its
-plain version on the card, serve gpt2s-polysketch and gpt2s-poly4 at full
-width, and check the port against itself.
+plain version on the card, serve gpt2s-polysketch and gpt2s-poly4 and
+train gpt2s-polysketch at full width, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -15,9 +15,14 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      (poly_flash) through ops.poly_attention and the B3 kernel (lt_mult)
      through ops.lt_mult, over their reference grids and at the shapes
      their paths give them (B3 also bit for bit: two runs, and one bh
-     row alone against the batch); and one line of tolerance study: the
-     plain B1, B2 and B3 with single-pass TF32 matmuls against full f32,
-     beside the kernels' (3xTF32) errors;
+     row alone against the batch); B1's backward kernel against its plain
+     version (the gradients of ops.polysketch_attention with and without
+     the kernels) over degree 2/4/8 x local_exact, GQA 4:2, n 77, a seeded
+     z0, the forward's mma tile shapes and the training shape, two calls
+     bit for bit, and the forward's outputs with and without the saved
+     den; and one line of tolerance study: the plain B1, B2 and B3 with
+     single-pass TF32 matmuls against full f32, beside the kernels'
+     (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
      tokens + 16 new ones, of gpt2s-polysketch (the decode fold at
      position 2047 runs) and of gpt2s-poly4 (exact polynomial attention,
@@ -28,10 +33,15 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      a cold one bit for bit; a train-mode forward at full width launches
      its kernel once per layer and agrees with the plain path, for both
      models; the poly4 prefill's logits, kernel vs plain; SMOKE greedy
-     tokens on the card equal those on the CPU, for both mechanisms;
+     tokens on the card equal those on the CPU, for both mechanisms; one
+     training step's gradients through the kernels against the plain
+     path's; 2 steps + checkpoint save/restore + 2 steps equal 4 straight
+     steps, and two runs equal, bit for bit (under
+     torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8);
   4. each kernel's time at its path's shapes beside its plain version's
      and its bounds (B1 also at the two calls a prefill's layer makes);
-     B3's device time per pass (torch.profiler) and host time per call.
+     B3's device time per pass (torch.profiler) and host time per call;
+     B1's backward at the training shape, per pass.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -41,27 +51,37 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 from typing import NamedTuple
 from unittest import mock
 
-import numpy as np
-import torch
+# cuBLAS reads this when it starts; phase 3's bit-for-bit training checks
+# run under torch.use_deterministic_algorithms, which needs it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.bridge import train_state_to_jax  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import TrainConfig, get_config  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4  # noqa: E402
 from repro_torch.core import decode as dec  # noqa: E402
+from repro_torch.data import DataIterator, make_markov_lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import lt_mult as lt  # noqa: E402
 from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serve.engine import generate  # noqa: E402
+from repro_torch.train import init_train_state, make_loss_fn, make_train_step  # noqa: E402
 
 F32_TOL, BF16_TOL = 1e-4, 5e-2      # the reference's kernel-sweep tolerances
 LT_F32_TOL, LT_BF16_TOL = 2e-3, 2e-2  # lt_mult's: atol tol * n, rtol tol
@@ -70,8 +90,10 @@ H100_F32_FLOPS = 67e12              # f32 outside the tensor cores (data sheet)
 H100_TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense (data sheet)
 H100_BYTES_PER_S = 3.35e12          # HBM3 (data sheet)
 KERNELS = {"polysketch_causal": pc.polysketch_causal_cuda,
+           "polysketch_causal_backward": pc.polysketch_causal_backward_cuda,
            "poly_flash": pf.poly_flash_cuda, "lt_mult": lt.lt_mult_cuda}
 NO_LIBRARY = "none: no single PyTorch call computes this function"
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096    # phase 2's training traffic: 4 blocks a row
 
 
 def log(*a):
@@ -224,6 +246,122 @@ def phase_kernel_grid():
               err(z, pz) / pz.abs().max().item(), F32_TOL)
         worst = max(worst, e)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 1: B1's backward against its plain version
+# ---------------------------------------------------------------------------
+
+GRADS = ("qm", "km", "q", "k", "v", "z0")
+
+
+def grads_of(fn, xs, dout):
+    """Gradients of sum(fn(*xs) * dout) with respect to xs (fresh leaves)."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, dout)
+
+
+def grad_err(got, want):
+    """The worst gradient's max|err| as a share of its own max|.|."""
+    return max(err(g, w) / max(w.abs().max().item(), 1e-30) for g, w in zip(got, want))
+
+
+def check_grads(name, fn, xs, dout, **kw):
+    """The kernel path's gradients (ops.polysketch_attention through B1's
+    forward and backward) against the plain path's, each within F32_TOL
+    of its own max|.|; returns (error, kernel gradients)."""
+    before = pc.polysketch_causal_backward_cuda.launches
+    got = grads_of(lambda *a: fn(*a, **kw), xs, dout)
+    launched = pc.polysketch_causal_backward_cuda.launches - before
+    want = grads_of(lambda *a: fn(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    if launched != 1 or pc.polysketch_causal_backward_cuda.launches != before + 1:
+        raise AssertionError(f"{name}: the kernel path launched the backward "
+                             f"{launched} times, or the plain path launched it")
+    e = grad_err(got, want)
+    check(f"{name} (grads, rel.)", e, F32_TOL)
+    return e, max(err(g, w) for g, w in zip(got, want)), got
+
+
+def phase_b1_backward_grid():
+    """Returns the worst max|err| of any gradient over the grid."""
+    log("phase 1: polysketch_causal backward kernel vs plain PyTorch (gradients of "
+        "ops.polysketch_attention)")
+    worst, worst_rel = 0.0, 0.0
+    for degree in (2, 4, 8):
+        for local_exact in (True, False):
+            rnd = seeded(100 + degree)
+            B, Hq, Hkv, S, hd, r, blk = 2, 4, 2, 96, 16, 8, 32
+            xs = (rnd(B, Hq, S, r, scale=0.5), rnd(B, Hkv, S, r, scale=0.5),
+                  rnd(B, Hq, S, hd), rnd(B, Hkv, S, hd), rnd(B, Hkv, S, hd))
+            kw = dict(degree=degree, scale=1.0 / hd, local_exact=local_exact,
+                      block_size=blk)
+            rel, e, _ = check_grads(f"f32 p={degree} local_exact={local_exact} GQA 4:2",
+                                    ops.polysketch_attention, xs, rnd(B, Hq, S, hd), **kw)
+            worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    rnd = seeded(101)
+    xs = (rnd(1, 2, 77, 8), rnd(1, 2, 77, 8), rnd(1, 2, 77, 16), rnd(1, 2, 77, 16),
+          rnd(1, 2, 77, 16))
+    rel, e, _ = check_grads("f32 unaligned n=77 (zero-padded)", ops.polysketch_attention,
+                            xs, rnd(1, 2, 77, 16), degree=4, scale=1.0 / 16, block_size=32)
+    worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    # a seeded z0 (the state a previous call returned), its gradient included
+    rnd = seeded(102)
+    B, H, S, hd, r, blk = 2, 2, 96, 16, 8, 32
+    prev = [rnd(B, H, S, d, scale=0.5) for d in (r, r, hd, hd, hd)]
+    _, z0 = ops.polysketch_attention(*prev, degree=4, scale=1.0 / hd, block_size=blk,
+                                     return_state=True)
+    xs = (rnd(B, H, S, r, scale=0.5), rnd(B, H, S, r, scale=0.5), rnd(B, H, S, hd),
+          rnd(B, H, S, hd), rnd(B, H, S, hd), z0)
+
+    def with_z0(qm, km, q, k, v, z, **kw):
+        return ops.polysketch_attention(qm, km, q, k, v, z0=z, **kw)
+    rel, e, _ = check_grads("f32 with a seeded z0 (its gradient too)", with_z0, xs,
+                            rnd(B, H, S, hd), degree=4, scale=1.0 / hd, block_size=blk)
+    worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    # the forward's mma tile shapes (a ragged last tile; widths below a tile)
+    for n, r, h, blk in ((1016, 32, 64, 1016), (64, 4, 8, 16)):
+        rnd = seeded(n + r)
+        xs = (rnd(1, 2, n, r, scale=0.5), rnd(1, 2, n, r, scale=0.5), rnd(1, 2, n, h),
+              rnd(1, 2, n, h), rnd(1, 2, n, h))
+        rel, e, _ = check_grads(f"f32 n={n} r={r} h={h} b={blk}", ops.polysketch_attention,
+                                xs, rnd(1, 2, n, h), degree=4, scale=1.0 / h, block_size=blk)
+        worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    # the training shape, and two calls bit for bit
+    xs, dout = train_attention_inputs()
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    rel, e, got = check_grads("f32 training shape B=2 H=12 n=4096 r=32 h=64 b=1024",
+                              ops.polysketch_attention, xs, dout, **kw)
+    worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    again = grads_of(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  training shape: two backward calls equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("B1 backward: two calls differ")
+    # the forward with and without den_out (what training saves) bit for bit
+    flat = [x.reshape(24, 4096, -1).contiguous() for x in xs]
+    out_a, zv_a, zd_a = pc.polysketch_causal_cuda(*flat, return_state=True, **kw)
+    out_b, zv_b, zd_b, _ = pc.polysketch_causal_cuda(*flat, return_saved=True, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in ((out_a, out_b), (zv_a, zv_b), (zd_a, zd_b)))
+    log(f"  B1 forward with den_out on and off: outputs and state equal bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("B1 forward: den_out changed the outputs")
+    log(f"  backward grid: worst gradient error {worst_rel:.3e} of its max|.|, "
+        f"{worst:.3e} absolute")
+    return worst
+
+
+def train_attention_inputs():
+    """(qm, km, q, k, v) and dout at the training shape (B 2, H 12, n 4096,
+    r 32, h 64), scaled like the model's."""
+    rnd = seeded(16)
+    B, H, n, r, h = 2, 12, 4096, 32, 64
+    return ((rnd(B, H, n, r, scale=0.5), rnd(B, H, n, r, scale=0.5), rnd(B, H, n, h),
+             rnd(B, H, n, h), rnd(B, H, n, h)), rnd(B, H, n, h))
 
 
 def phase_poly_flash_grid():
@@ -683,6 +821,179 @@ def phase_lt_mult_path():
 
 
 # ---------------------------------------------------------------------------
+# phase 2 and 3: full-width training through B1 and its backward
+# ---------------------------------------------------------------------------
+
+def train_batches(cfg, count):
+    """`count` batches of the Markov stream (seed 1), made up front."""
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), TRAIN_BATCH, TRAIN_SEQ,
+                      seed=0, device="cuda")
+    return [next(it) for _ in range(count)]
+
+
+def train_setup(cfg, seed=0):
+    model = build_model(cfg, device="cuda", seed=seed, trainable=True)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=100,
+                       peak_lr=3e-3)
+    return init_train_state(model.lm), make_train_step(cfg, tcfg)
+
+
+class PlainCalls:
+    """Counts calls of B1's plain versions through ops while active."""
+
+    def __enter__(self):
+        self.calls = 0
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return wrapper
+        self._patches = [mock.patch.object(ops, name, counted(getattr(ops, name)))
+                         for name in ("polysketch_causal_torch",
+                                      "polysketch_causal_backward_torch")]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def phase_train(cfg, batches):
+    """The training path: a warm-up step, then 4 timed steps with every
+    kernel's launches counted over exactly those steps."""
+    steps = len(batches) - 1
+    log(f"phase 2: {cfg.name} training, full width and depth ({cfg.n_layers} layers), "
+        f"seed 0, f32, Markov data (vocab {cfg.vocab_size}), batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, 1 warm-up + {steps} timed steps")
+    torch.cuda.reset_peak_memory_stats()
+    state, step = train_setup(cfg)
+    state, _ = step(state, batches[0])               # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, times = [], []
+    with PlainCalls() as plain:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))     # waits for the step
+            times.append(time.perf_counter() - t0)
+    run_counts = counts()
+    fwd, bwd = run_counts["polysketch_causal"], run_counts["polysketch_causal_backward"]
+    log(f"  losses: {[round(x, 4) for x in losses]}; lr at the last step "
+        f"{float(metrics['lr']):.2e}, grad norm {float(metrics['grad_norm']):.3f}")
+    log(f"  step time: median {np.median(times) * 1e3:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times]} (host clock, synchronised by the loss); "
+        f"{TRAIN_BATCH * TRAIN_SEQ / np.median(times):.0f} tokens/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches over the {steps} steps: {run_counts}; plain-version calls: "
+        f"{plain.calls}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if fwd != cfg.n_layers * steps or bwd != cfg.n_layers * steps or plain.calls:
+        raise AssertionError("a training step did not run B1's forward and backward "
+                             "kernels once per layer, or called a plain version")
+    profile_train_step(step, state, batches[-1])
+    return bwd, float(np.median(times))
+
+
+# (group, substrings of a kernel's name) for the split of a training step
+STEP_GROUPS = (
+    ("B1 backward (prep, suffix, query, key)", ("prep_kernel", "query_kernel",
+                                               "key_kernel", "prefix_kernel<float4, true>",
+                                               "prefix_kernel<float, true>")),
+    ("B1 forward (prefix, outputs)", ("output_kernel", "prefix_kernel")),
+    ("B1 folds (forward and backward)", ("fold_kernel",)),
+    ("GEMMs (cuBLAS)", ("gemm", "Gemm", "GEMM", "xmma", "cutlass")),
+    ("other (elementwise, reductions, copies)", ("",)),
+)
+
+
+def profile_train_step(step, state, batch):
+    """Device busy share, the split by kernel group, the top kernels and
+    the operators whose kernels take the most device time, of one training
+    step, from torch.profiler (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, metrics), wall = timed(lambda: step(state, batch))
+    rows = device_rows(prof)
+    busy = sum(dev_us(e) for e in rows) / 1e6
+    log(f"  profile of one step: wall {wall * 1e3:.1f} ms (profiler on), device busy "
+        f"{busy * 1e3:.1f} ms = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
+    groups = {name: [0.0, 0] for name, _ in STEP_GROUPS}
+    for e in rows:
+        name = next(g for g, keys in STEP_GROUPS if any(k in e.key for k in keys))
+        groups[name][0] += dev_us(e) / 1e3
+        groups[name][1] += e.count
+    for name, (ms, n) in groups.items():
+        share = ms / (busy * 1e3) if busy else 0.0
+        log(f"    {ms:9.2f} ms  {share:6.1%}  x{n:<6d} {name}")
+    for e in sorted(rows, key=dev_us, reverse=True)[:8]:
+        log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    ops_rows = [e for e in prof.key_averages()
+                if not str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us(e) > 0]
+    log("  operators by the device time of the kernels they launch themselves:")
+    for e in sorted(ops_rows, key=dev_us, reverse=True)[:10]:
+        log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:80]}")
+
+
+def phase_train_checks(cfg, batches):
+    log("phase 3: training self-checks")
+    state, step = train_setup(cfg)
+    lm, loss_fn = state.lm, make_loss_fn(cfg)
+
+    def grads():
+        for p in lm.parameters():
+            p.grad = None
+        loss, _ = loss_fn(lm, batches[0])
+        loss.backward()
+        out = {n: p.grad.clone() for n, p in lm.named_parameters() if p.grad is not None}
+        for p in lm.parameters():
+            p.grad = None
+        return out
+
+    got = grads()
+    plain = functools.partial(ops.polysketch_attention, impl="torch")
+    with mock.patch.object(ops, "polysketch_attention", plain):
+        want = grads()
+    torch.cuda.synchronize()
+    worst = max((err(got[n], want[n]) / max(want[n].abs().max().item(), 1e-30), n)
+                for n in want)
+    check(f"one step's gradients, kernels vs plain, per leaf (rel.; worst {worst[1]})",
+          worst[0], F32_TOL)
+    del state, step, lm, got, want
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(resume):
+            state, step = train_setup(cfg)
+            for i, batch in enumerate(batches[:4]):
+                if resume and i == 2:
+                    path = os.path.join(ROOT, "build", f"chip_smoke_ckpt_{os.getpid()}")
+                    mgr = CheckpointManager(path, keep=1)
+                    mgr.save(2, state)
+                    mgr.wait()
+                    fresh, _ = train_setup(cfg, seed=7)
+                    _, state, _ = mgr.restore_latest(fresh)
+                    shutil.rmtree(path)
+                state, _ = step(state, batch)
+            return train_state_to_jax(state)
+
+        straight, resumed, again = run(False), run(True), run(False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = lambda a, b: all(np.array_equal(a[k], b[k]) for k in a)  # noqa: E731
+    ok_resume, ok_repeat = same(straight, resumed), same(straight, again)
+    log(f"  (deterministic algorithms on) 2 steps + checkpoint save/restore + 2 steps == 4 "
+        f"straight steps, bit for bit (params, m, v, count, step): {ok_resume}; two runs "
+        f"equal bit for bit: {ok_repeat}")
+    if not (ok_resume and ok_repeat):
+        raise AssertionError("training is not bit-reproducible on the card")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -747,6 +1058,34 @@ def bounds(prod, rest, nbytes) -> Bounds:
                   by(t_fma), prod + rest, nbytes)
 
 
+def b1_bwd_bound(bh, n, r, h, b, degree, itemsize=4):
+    """B1's backward (local_exact) as the function needs it, each product
+    counted once. Products: on the diagonal's pairs, S = Q K^T (2h),
+    dW = G [V | 1]^T (2(h + 1)), dq, dk and dv (2h each); r^2-wide, the
+    fold and M = Z g over every row (2r^2 (h + 1) each), N = dH [v | 1]
+    and Phi(km) dHv over the rows of the blocks before the last (dH of the
+    last block is zero): 2r^2 (h + 1) and 2r^2 h. Rest: per pair
+    dS = p x^(p-1) dW and W = x^p; per row g's preparation, the
+    contractions of M and N with the sketch (4r^2 each), Phi(km) (r^2),
+    the fold's qm (x) g (r (h + 1)); the suffix's adds. Bytes: qm, km, q,
+    k, v, out, dO, 1 + den and the saved Z_l read once; dqm, dkm, dq, dk,
+    dv and dz0 written once. csrc/polysketch_causal_bwd.cu does more: its
+    query and key kernels each rebuild S and dW (and dS), the price of
+    having no atomics; that recomputation is part of the gap between the
+    kernel and this bound."""
+    t = n // b
+    pairs = t * b * (b + 1) // 2
+    rr = r * r
+    prod = (pairs * (8 * h + 2 * (h + 1)) + n * 2 * rr * (h + 1) * 2
+            + (n - b) * (2 * rr * (h + 1) + 2 * rr * h))
+    rest = (pairs * (4 + pow_muls(degree - 1) + pow_muls(degree))
+            + n * (3 * h + 2) + n * 4 * rr + (n - b) * 5 * rr + n * r * (h + 1)
+            + t * rr * (h + 1))
+    nbytes = itemsize * (n * (2 * r + 5 * h + 1) + n * (2 * r + 3 * h)) \
+        + 4 * (t + 1) * rr * (h + 1)
+    return bounds(bh * prod, bh * rest, bh * nbytes)
+
+
 def pow_muls(degree):
     """Multiplies of x^p by repeated squaring."""
     return max(degree.bit_length() - 1 + bin(degree).count("1") - 1, 0)
@@ -784,6 +1123,48 @@ def phase_timing():
             f"library call: {NO_LIBRARY}")
     pc.polysketch_causal_cuda.launches = launches   # timing launches do not count
     return out
+
+
+# B1's backward passes (a substring of their kernels' names); the fold and
+# the suffix are the forward's kernels, run on g and right to left
+B1_BWD_PASSES = (("prep", "prep_kernel"), ("fold", "fold_kernel"),
+                 ("suffix", "prefix_kernel"), ("query tiles", "query_kernel"),
+                 ("key tiles", "key_kernel"))
+
+
+def phase_timing_backward():
+    """B1's backward at the training shape (bh 24, n 4096, r 32, h 64,
+    b 1024): kernel, plain, kernel with CUDA events, the kernel per pass
+    (torch.profiler), and the forward that saves its inputs."""
+    log("phase 4: B1 backward time at the training shape (CUDA events, warmed up)")
+    xs, dout = train_attention_inputs()
+    flat = [x.reshape(24, 4096, -1).contiguous() for x in xs]
+    dout = dout.reshape(24, 4096, -1).contiguous()
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    before = counts()
+    out, _, _, saved = pc.polysketch_causal_cuda(*flat, return_saved=True, **kw)
+    run = lambda: pc.polysketch_causal_backward_cuda(dout, *flat, out, saved, **kw)  # noqa: E731
+    ms = event_ms(run)
+    plain_ms = event_ms(lambda: pc.polysketch_causal_backward_torch(
+        dout, *flat, out, saved, **kw), iters=5, warmup=1)
+    ms2 = event_ms(run)
+    fwd_ms = event_ms(lambda: pc.polysketch_causal_cuda(*flat, return_saved=True, **kw))
+    passes = profile_passes(run, B1_BWD_PASSES)
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    bd = b1_bwd_bound(24, 4096, 32, 64, 1024, 4)
+    best = min(ms, ms2)
+    log(f"  B1 backward bh=24 n=4096 r=32 h=64 b=1024: kernel {best:.3f} ms (runs "
+        f"{ms:.3f}, {ms2:.3f}; the plain version ran between them), plain PyTorch "
+        f"{plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by {bd.tc_by} on the tensor cores "
+        f"({bd.flops / 1e9:.1f} GFLOP, {bd.nbytes / 1e6:.1f} MB), {bd.tc_ms / best:.1%} of "
+        f"it; f32-FMA bound {bd.fma_ms:.3f} ms, {bd.fma_ms / best:.1%} of it; library "
+        f"call: {NO_LIBRARY}")
+    log("  per pass (torch.profiler, device ms a call): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in passes.items())
+        + f"; sum {sum(passes.values()):.3f}")
+    log(f"  B1 forward at the same shape, saving Z_l and 1 + den: {fwd_ms:.3f} ms")
+    return best, plain_ms, bd
 
 
 def b2_bound(bh, n, h, degree, itemsize=4):
@@ -849,15 +1230,11 @@ def phase_timing_poly_lt():
 LT_PASSES = (("fold", "fold"), ("prefix", "prefix"), ("outputs", "output"))
 
 
-def lt_mult_breakdown(fn, n, passes=LT_PASSES, calls=20, host_calls=100):
-    """B3's wrapper `fn` at kernel_bench's shape: device time per pass per
-    call (ms) from torch.profiler over `calls` calls, each kernel counted
-    under the first pass in `passes` whose key its name holds; and the
-    host's time per call (ms), wall clock over `host_calls` calls issued
-    without a sync, beside the CUDA events' time over the same calls."""
+def profile_passes(run, passes, calls=20):
+    """Device time per pass per call (ms) of `run` from torch.profiler over
+    `calls` calls after 3 warm-up calls, each kernel counted under the
+    first pass in `passes` whose key its name holds."""
     from torch.profiler import ProfilerActivity, profile
-    a, b, c = lt_bench_inputs(n)
-    run = lambda: fn(a, b, c, block_size=LT_BENCH["blk"])  # noqa: E731
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -869,8 +1246,19 @@ def lt_mult_breakdown(fn, n, passes=LT_PASSES, calls=20, host_calls=100):
     for e in device_rows(prof):
         name = next((p for p, key in passes if key in e.key), None)
         if name is None:
-            raise AssertionError(f"lt_mult profile: unexpected device kernel {e.key!r}")
+            raise AssertionError(f"profile: unexpected device kernel {e.key!r}")
         per_pass[name] += dev_us(e) / 1e3 / calls
+    return per_pass
+
+
+def lt_mult_breakdown(fn, n, passes=LT_PASSES, calls=20, host_calls=100):
+    """B3's wrapper `fn` at kernel_bench's shape: device time per pass per
+    call (ms, profile_passes); and the host's time per call (ms), wall
+    clock over `host_calls` calls issued without a sync, beside the CUDA
+    events' time over the same calls."""
+    a, b, c = lt_bench_inputs(n)
+    run = lambda: fn(a, b, c, block_size=LT_BENCH["blk"])  # noqa: E731
+    per_pass = profile_passes(run, passes, calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -895,6 +1283,23 @@ def phase_lt_mult_breakdown():
     lt.lt_mult_cuda.launches = before   # timing launches do not count
 
 
+def build_kernels():
+    """Build every kernel from this checkout (one nvcc a source, in
+    parallel) and log each kernel's registers and spills."""
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s, nvcc per source: "
+        + ", ".join(f"{n} {b.seconds:.1f} s" for n, b in libs.items()))
+    for name, built in libs.items():
+        kernel = "?"
+        for line in built.log.splitlines():
+            entry = re.search(r"\d([a-z_]+_kernel)(I\w*?E)?\w*' for", line)
+            if entry:
+                kernel = entry.group(1) + (entry.group(2) or "")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -903,16 +1308,10 @@ def main():
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s, nvcc per source: "
-        + ", ".join(f"{n} {b.seconds:.1f} s" for n, b in libs.items()))
-    for name, built in libs.items():
-        for line in built.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    build_kernels()
 
     max_err = phase_kernel_grid()
+    bwd_err = phase_b1_backward_grid()
     b2_err = phase_poly_flash_grid()
     b3_err = phase_lt_mult_grid()
     phase_tolerance_study()
@@ -927,14 +1326,22 @@ def main():
     del poly
     torch.cuda.empty_cache()
     b3_launches = phase_lt_mult_path()
+    train_cfg = get_config("gpt2s-polysketch")
+    batches = train_batches(train_cfg, 5)
+    bwd_launches, _ = phase_train(train_cfg, batches)
+    torch.cuda.empty_cache()
+    phase_train_checks(train_cfg, batches)
+    del batches
+    torch.cuda.empty_cache()
     b1_times = phase_timing()
+    bwd_times = phase_timing_backward()
     times = phase_timing_poly_lt()
     phase_lt_mult_breakdown()
 
-    def row(name, replaces, launches, max_abs_err, timing):
+    def row(name, replaces, launches, max_abs_err, timing, source=None):
         t_ms, t_plain, bd = timing
         return {"name": name, "route": "cuda", "status": "ok",
-                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
                 "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
@@ -944,6 +1351,8 @@ def main():
     log(json.dumps({"kernels": [
         row("polysketch_causal", "src/repro/kernels/polysketch_causal.py:118",
             launches, max_err, b1_times[2048]),
+        row("polysketch_causal_backward", "src/repro/core/linear_attention.py:35",
+            bwd_launches, bwd_err, bwd_times, source="polysketch_causal_bwd"),
         row("poly_flash", "src/repro/kernels/poly_flash.py:59", b2_launches, b2_err,
             times["poly_flash"][2040]),
         row("lt_mult", "src/repro/kernels/lt_mult.py:45", b3_launches, b3_err,

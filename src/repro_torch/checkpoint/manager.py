@@ -1,0 +1,110 @@
+"""Checkpoint manager: atomic, async, keep-k, auto-resume.
+
+The port of the JAX package's ``checkpoint/manager.py``, with its layout
+and its keys:
+  <dir>/step_<n>/manifest.json        keys, shapes, dtypes, extras
+  <dir>/step_<n>/arrays.npz           full arrays by flat key
+  <dir>/step_<n>/.COMPLETE            commit marker (atomic rename target)
+A training state is stored as the reference's TrainState would be
+(``bridge.train_state_to_jax``: ``.params/<tree path>``, ``.opt/.m/...``,
+``.opt/.v/...``, ``.opt/.count``, ``.step``, layers stacked), so either
+package restores what the other wrote.
+
+The arrays are copied to the host on the calling thread (the train step
+updates the parameters in place afterwards); only the file writing runs
+on the background thread, unless ``save(..., block=True)``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any
+
+import numpy as np
+
+from repro_torch.bridge import train_state_from_jax, train_state_to_jax
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        os.makedirs(directory, exist_ok=True)
+
+    # ------------------------------------------------------------- save
+    def save(self, step: int, state, extras: dict[str, Any] | None = None,
+             block: bool = False):
+        arrays = train_state_to_jax(state)
+        self.wait()
+        if not block:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, arrays, extras or {}))
+            self._thread.start()
+        else:
+            self._write(step, arrays, extras or {})
+
+    def _write(self, step: int, arrays: dict, extras: dict):
+        tmp = os.path.join(self.dir, f".tmp_step_{step}")
+        final = os.path.join(self.dir, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+        manifest = {
+            "step": step,
+            "keys": sorted(arrays),
+            "shapes": {k: list(v.shape) for k, v in arrays.items()},
+            "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+            "extras": extras,
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        open(os.path.join(tmp, ".COMPLETE"), "w").close()
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self._gc()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
+                          ignore_errors=True)
+
+    # ---------------------------------------------------------- restore
+    def all_steps(self) -> list[int]:
+        steps = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and os.path.exists(
+                    os.path.join(self.dir, name, ".COMPLETE")):
+                steps.append(int(name.split("_")[1]))
+        return sorted(steps)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, state):
+        """Load checkpoint `step` into `state`'s LM (in place) and return
+        (the restored TrainState, extras)."""
+        path = os.path.join(self.dir, f"step_{step}")
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            flat = {k: data[k] for k in data.files}
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        return train_state_from_jax(flat, state.lm), manifest.get("extras", {})
+
+    def restore_latest(self, state):
+        step = self.latest_step()
+        if step is None:
+            return None, None, {}
+        state, extras = self.restore(step, state)
+        return step, state, extras

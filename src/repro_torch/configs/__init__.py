@@ -2,7 +2,7 @@
 
 Only the configurations the port serves are registered.
 """
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, TrainConfig
 
 _MODULES = {
     "gpt2s-polysketch": "gpt2_paper",
@@ -22,4 +22,4 @@ def get_config(name: str, smoke: bool = False, **overrides) -> ArchConfig:
     return cfg.replace(**overrides) if overrides else cfg
 
 
-__all__ = ["ArchConfig", "get_config"]
+__all__ = ["ArchConfig", "TrainConfig", "get_config"]

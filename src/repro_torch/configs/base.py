@@ -1,7 +1,8 @@
-"""Architecture configuration for the PyTorch port.
+"""Architecture and training configuration for the PyTorch port.
 
-The port's own copy of ``ArchConfig`` (the JAX package's
-``repro/configs/base.py``), cut to the fields the port reads, with the
+The port's own copies of ``ArchConfig`` and ``TrainConfig`` (the JAX
+package's ``repro/configs/base.py``). ``ArchConfig`` is cut to the fields
+the port reads, with the
 reference's names and defaults: one value means the same model in both
 packages. A field the port does not serve is not here, so setting it
 raises (``replace`` takes no unknown field); family, block pattern, FFN
@@ -45,6 +46,7 @@ class ArchConfig:
 
     # numerics
     compute_dtype: str = "float32"
+    remat: str = "none"            # the port trains without rematerialisation
     tie_embeddings: bool = True
     norm: str = "rmsnorm"          # rmsnorm|layernorm
 
@@ -59,3 +61,22 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class TrainConfig:
+    """Training-run hyperparameters (paper Section 4 recipe defaults), as
+    the reference's. Its checkpoint and logging fields, which no step
+    reads, are the launcher's flags here; its two sharded-gradient options
+    wait for the port's data-parallel step."""
+    seq_len: int = 512
+    global_batch: int = 8
+    steps: int = 100
+    warmup_frac: float = 0.1
+    peak_lr: float = 7e-4
+    b1: float = 0.95
+    b2: float = 0.98
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    seed: int = 0

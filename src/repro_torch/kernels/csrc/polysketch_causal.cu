@@ -15,14 +15,16 @@
 // Hopper the blocks of a grid run in no order, Zv at r=32, h=64 is 256 KiB
 // (more than one SM's 227 KB of shared memory) and the diagonal block at
 // b=1024 would be a 4 MiB W. So:
-//   pass 1  fold_kernel, (256 state columns, block, bh) in parallel: H_l
+//   pass 1  fold_kernel (polysketch_state.cuh, shared with the backward),
+//           (256 state columns, block, bh) in parallel: H_l
 //           as one product Km_l^T [Km_l (x) V_l | Km_l] (M = r,
 //           N = r*h + r, K = b); the ones column of V yields Zd. Each warp
 //           sums its 32 columns over the b keys in order: no split-K, no
 //           atomics.
-//   pass 2  prefix_kernel, state elements in parallel (float4 a thread),
-//           blocks in order: the exclusive prefix Z_l, written over H_l,
-//           plus the final state.
+//   pass 2  prefix_kernel (polysketch_state.cuh), state elements in
+//           parallel (float4 a thread), blocks in order: the exclusive
+//           prefix Z_l, written over H_l, plus the final state. Z_l stays
+//           in hv/hd for the backward (polysketch_causal_bwd.cu).
 //   pass 3  output_kernel, (64-query tile, block, bh) in parallel, the last
 //           tile first: the diagonal block flash-style over the 64-key
 //           tiles of block l (common.cuh's tc_flash_loop, as in
@@ -33,7 +35,9 @@
 //           qm[:, e] (.) qm (a 64 x r chunk, in registers) against row
 //           block e of Z_l taken as r x (h + 1), staged with cp.async. The
 //           numerator and the denominator come out of that one product
-//           (Zd_l is the column after the numerator's n-tiles).
+//           (Zd_l is the column after the numerator's n-tiles). When
+//           asked (den_out), it also stores 1 + den of each row for the
+//           backward; the outputs are the same bits either way.
 // Every sum runs in a fixed order that n and bh do not change, and pass 2
 // adds the blocks left to right from z0. A prefill resumed at a block
 // boundary from the state this kernel returned is therefore bit-identical
@@ -50,211 +54,20 @@
 // and 0.123 ms. bf16 inputs are staged as f32 and take the same path.
 //
 // Registers (nvcc -Xptxas -v, as chip_smoke.py prints it), no spills and
-// no stack in any instantiation: output_kernel 212-245 a thread (f32,
-// local_exact, r <= 32, h <= 64: 245; 96 KB of shared memory, so two CTAs
-// share an SM), fold_kernel 115-167 (f32, r <= 32: 115), prefix_kernel 32.
+// no stack in any instantiation: output_kernel 212-252 a thread (f32,
+// local_exact: 239 and 245; 96 KB of shared memory, so two CTAs share an
+// SM), fold_kernel 119-163 (f32, r <= 32: 121), prefix_kernel 32.
 
 #include <stddef.h>
 
 #include "common.cuh"
+#include "polysketch_state.cuh"
 
 namespace {
 
 constexpr int kMaxH = 128;
 constexpr int kMaxR = 64;
-constexpr int kPrefixThreads = 256;
-constexpr int kFoldWarps = 8;
-constexpr int kFoldThreads = 32 * kFoldWarps;
-constexpr int kFoldCols = 32 * kFoldWarps;   // state columns per CTA: 4 n-tiles a warp
-constexpr int kFoldKeys = 64;                // keys per staged chunk
 constexpr int kZRows = 64;                   // rows of Z_l per staged chunk
-
-// One staged chunk of the fold for the calling warp: acc[mt][nt] +=
-// Km_chunk^T U_chunk over the chunk's first `rows` keys (all kFoldKeys when
-// kFull: no guard, so the k-steps are one straight line).
-template <int kMT, bool kFull>
-__device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float* kd, int kms,
-                                           const float* vd, int vs, const int (&cj)[4],
-                                           const int (&dj)[4], int rows) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int s0 = 0; s0 < kFoldKeys; s0 += 8) {
-    if (!kFull && s0 >= rows) break;
-    const float* ka = kd + (s0 + t4) * kms + g;
-    FragA a[kMT];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      a[mt] = split_a(ka[mt * 16], ka[mt * 16 + 8], ka[4 * kms + mt * 16],
-                      ka[4 * kms + mt * 16 + 8]);
-    }
-    const float* kb = kd + (s0 + t4) * kms;
-    const float* vb = vd + (s0 + t4) * vs;
-    FragB bf[4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      bf[nt] = split_b(kb[cj[nt]] * vb[dj[nt]], kb[4 * kms + cj[nt]] * vb[4 * vs + dj[nt]]);
-    }
-    // three passes over the 4 kMT accumulators (see mma_3xtf32)
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].lo, bf[nt].hi);
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].hi, bf[nt].lo);
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].hi, bf[nt].hi);
-  }
-}
-
-// Pass 1: H_l as one product. Column col of the output is c*h + d for the
-// Zv part and r*h + c for the Zd part, against a ones column appended to v:
-//   hv[bh, l, i, c*h + d] = sum_s km[s, i] * (km[s, c] * v[s, d])
-//   hd[bh, l, i, c]       = sum_s km[s, i] * (km[s, c] * 1)
-// grid (ceil((r*h + r) / 256), t, bh). Warp w owns 32 columns and all r
-// rows (kMT m-tiles of 16: 2 for r <= 32, 4 for r <= 64). A = Km^T from
-// the staged km chunk, B = km (x) v formed in registers from the staged
-// chunks, both split in registers.
-template <typename T, int kMT>
-__global__ void __launch_bounds__(kFoldThreads)
-fold_kernel(const T* __restrict__ km, const T* __restrict__ v, float* __restrict__ hv,
-            float* __restrict__ hd, int n, int r, int h, int b) {
-  const int l = blockIdx.y, t = gridDim.y, bh = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
-  const int rh = r * h, ncols = rh + r;
-  constexpr int kms = k_frag_stride(16 * kMT);
-  const int vs = k_frag_stride(h + 1);
-  extern __shared__ __align__(16) float smem[];
-  float* km_ring = smem;                           // 2 x kFoldKeys x kms
-  float* v_ring = km_ring + 2 * kFoldKeys * kms;   // 2 x kFoldKeys x vs, column h = 1
-
-  zero_pad_cols<kFoldThreads>(km_ring, 2 * kFoldKeys, r, kms);
-  zero_pad_cols<kFoldThreads>(v_ring, 2 * kFoldKeys, h + 1, vs);
-
-  // The columns of this thread's B fragments: U[s, col] = km[s, cj] * v1[s, dj],
-  // v1 = [v | 1]. Columns past the state compute garbage and are not written.
-  const int col0 = blockIdx.x * kFoldCols + warp * 32;
-  int cj[4], dj[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = col0 + nt * 8 + g;
-    cj[nt] = col < rh ? col / h : (col < ncols ? col - rh : 0);
-    dj[nt] = col < rh ? col - cj[nt] * h : h;
-  }
-  float acc[kMT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-
-  const size_t row0 = (size_t)bh * n + (size_t)l * b;
-  const int chunks = (b + kFoldKeys - 1) / kFoldKeys;
-  const auto stage = [&](int ch) {
-    const int s0 = ch * kFoldKeys, rows = min(kFoldKeys, b - s0);
-    float* kd = km_ring + (ch & 1) * kFoldKeys * kms;
-    float* vd = v_ring + (ch & 1) * kFoldKeys * vs;
-    stage_rows<kFoldThreads>(kd, km + (row0 + s0) * r, rows, kFoldKeys, r, kms);
-    stage_rows<kFoldThreads>(vd, v + (row0 + s0) * h, rows, kFoldKeys, h, vs);
-    for (int s = threadIdx.x; s < kFoldKeys; s += kFoldThreads) {
-      vd[s * vs + h] = s < rows ? 1.f : 0.f;
-    }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int ch = 0; ch < chunks; ++ch) {
-    if (ch + 1 < chunks) {
-      stage(ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* kd = km_ring + (ch & 1) * kFoldKeys * kms;
-    const float* vd = v_ring + (ch & 1) * kFoldKeys * vs;
-    const int rows = min(kFoldKeys, b - ch * kFoldKeys);
-    if (col0 < ncols) {
-      if (rows == kFoldKeys) {
-        fold_chunk<kMT, true>(acc, kd, kms, vd, vs, cj, dj, rows);
-      } else {
-        fold_chunk<kMT, false>(acc, kd, kms, vd, vs, cj, dj, rows);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = mt * 16 + g + 8 * (c >> 1), col = col0 + nt * 8 + 2 * t4 + (c & 1);
-        if (i >= r || col >= ncols) continue;
-        const size_t state_row = ((size_t)bh * t + l) * r + i;
-        if (col < rh) {
-          hv[state_row * rh + col] = acc[mt][nt][c];
-        } else {
-          hd[state_row * r + (col - rh)] = acc[mt][nt][c];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
-__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// Pass 2: in place over hv/hd, H_l becomes Z_l = z0 + H_0 + ... + H_{l-1},
-// added left to right; the sum over all t blocks is the returned state.
-// grid (ceil((rrh + rr) / (256 kVec)), bh): kVec consecutive state elements
-// a thread (V = float4 when r*r*h and r*r are multiples of 4, else float),
-// so that enough bytes are in flight to keep device memory busy.
-template <typename V>
-__global__ void __launch_bounds__(kPrefixThreads)
-prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __restrict__ zv0,
-              const float* __restrict__ zd0, float* __restrict__ zv_out,
-              float* __restrict__ zd_out, int t, int rrh, int rr) {
-  constexpr int kVec = sizeof(V) / sizeof(float);
-  const int e = (blockIdx.x * kPrefixThreads + threadIdx.x) * kVec;
-  if (e >= rrh + rr) return;
-  const size_t bh = blockIdx.y;
-  const bool zv_part = e < rrh;
-  const int stride = zv_part ? rrh : rr, e2 = zv_part ? e : e - rrh;
-  const size_t off = bh * stride + e2;
-  V* cur = reinterpret_cast<V*>((zv_part ? hv : hd) + bh * t * stride + e2);
-  V z = *reinterpret_cast<const V*>((zv_part ? zv0 : zd0) + off);
-  const int vstride = stride / kVec;
-  for (int l = 0; l < t; ++l) {
-    const V h_l = cur[(size_t)l * vstride];
-    cur[(size_t)l * vstride] = z;
-    z = vadd(z, h_l);
-  }
-  *reinterpret_cast<V*>((zv_part ? zv_out : zd_out) + off) = z;
-}
-
-// The cross term's row block e for the calling warp: acc += Phi_e Z_e, with
-// Phi_e[row, c] = qm[row, e] qm[row, c] (qe = qm[row, e] and qmr = the
-// thread's qm[row, t4 + 4j], rows g and g + 8) and Z_e at `slot` (this
-// thread's element of k-row t4, n-column g; stride zs). kFull: r == 8 kRK,
-// so the k-steps run unguarded.
-template <int kRK, bool kFull, int kNT>
-__device__ __forceinline__ void cross_block(float (&acc)[kNT][4], const float (&qmr)[2][2 * kRK],
-                                            const float (&qe)[2], const float* slot, int zs,
-                                            int r) {
-#pragma unroll
-  for (int kk = 0; kk < kRK; ++kk) {
-    if (!kFull && kk * 8 >= r) break;
-    const FragA a = split_a(qe[0] * qmr[0][2 * kk], qe[1] * qmr[1][2 * kk],
-                            qe[0] * qmr[0][2 * kk + 1], qe[1] * qmr[1][2 * kk + 1]);
-    mma_3xtf32_cols(acc, a, slot + kk * 8 * zs, 4 * zs, kNT);
-  }
-}
 
 // Pass 3: outputs of one 64-query tile of block l. grid (ceil(b/64), t, bh),
 // kTcThreads threads; warp w owns query rows 16w .. 16w + 15. acc holds
@@ -265,8 +78,8 @@ template <typename T, bool kLocalExact, int kNT, int kRK>
 __global__ void __launch_bounds__(kTcThreads)
 output_kernel(const T* __restrict__ qm, const T* __restrict__ km, const T* __restrict__ q,
               const T* __restrict__ k, const T* __restrict__ v, const float* __restrict__ zv,
-              const float* __restrict__ zd, T* __restrict__ out, int n, int r, int h, int b,
-              int degree, float scale) {
+              const float* __restrict__ zd, T* __restrict__ out, float* __restrict__ den_out,
+              int n, int r, int h, int b, int degree, float scale) {
   // the last query tile (most key tiles) first, so the grid's tail is short
   const int qt = gridDim.x - 1 - blockIdx.x, l = blockIdx.y, bh = blockIdx.z, t = gridDim.y;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -379,21 +192,13 @@ output_kernel(const T* __restrict__ qm, const T* __restrict__ km, const T* __res
   den[0] += __shfl_sync(0xffffffffu, acc[kNT - 1][0], lane & ~3);
   den[1] += __shfl_sync(0xffffffffu, acc[kNT - 1][2], lane & ~3);
   tc_store_rows<kNT>(out + (row0 + q0) * h, h, qrows, acc, den);
-}
-
-template <typename T, int kMT>
-cudaError_t launch_fold(const void* km, const void* v, float* hv, float* hd, int bh, int n,
-                        int r, int h, int b, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)2 * kFoldKeys * (k_frag_stride(16 * kMT) + k_frag_stride(h + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fold_kernel<T, kMT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((r * h + r + kFoldCols - 1) / kFoldCols, n / b, bh);
-  fold_kernel<T, kMT><<<grid, kFoldThreads, smem, stream>>>(
-      static_cast<const T*>(km), static_cast<const T*>(v), hv, hd, n, r, h, b);
-  return cudaGetLastError();
+  if (den_out != nullptr && t4 == 0) {   // 1 + den per row, for the backward
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = wrow + g + 8 * i;
+      if (row < qrows) den_out[row0 + q0 + row] = 1.f + den[i];
+    }
+  }
 }
 
 size_t output_smem_bytes(int r, int h, bool local_exact, int nt) {
@@ -407,9 +212,9 @@ size_t output_smem_bytes(int r, int h, bool local_exact, int nt) {
 
 template <typename T, bool kLocalExact, int kNT, int kRK>
 cudaError_t launch_output(const void* qm, const void* km, const void* q, const void* k,
-                          const void* v, const float* zv, const float* zd, void* out, int bh,
-                          int n, int r, int h, int b, int degree, float scale,
-                          cudaStream_t stream) {
+                          const void* v, const float* zv, const float* zd, void* out,
+                          float* den_out, int bh, int n, int r, int h, int b, int degree,
+                          float scale, cudaStream_t stream) {
   const size_t smem = output_smem_bytes(r, h, kLocalExact, kNT);
   auto kernel = output_kernel<T, kLocalExact, kNT, kRK>;
   cudaError_t err =
@@ -418,55 +223,41 @@ cudaError_t launch_output(const void* qm, const void* km, const void* q, const v
   const dim3 grid((b + kTcTile - 1) / kTcTile, n / b, bh);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(qm), static_cast<const T*>(km), static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), zv, zd, static_cast<T*>(out), n, r,
-      h, b, degree, scale);
+      static_cast<const T*>(k), static_cast<const T*>(v), zv, zd, static_cast<T*>(out),
+      den_out, n, r, h, b, degree, scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool kLocalExact>
 cudaError_t run_output(const void* qm, const void* km, const void* q, const void* k,
-                       const void* v, const float* zv, const float* zd, void* out, int bh,
-                       int n, int r, int h, int b, int degree, float scale,
-                       cudaStream_t stream) {
+                       const void* v, const float* zv, const float* zd, void* out,
+                       float* den_out, int bh, int n, int r, int h, int b, int degree,
+                       float scale, cudaStream_t stream) {
   if (h <= 64 && r <= 32) {
-    return launch_output<T, kLocalExact, 9, 4>(qm, km, q, k, v, zv, zd, out, bh, n, r, h, b,
-                                               degree, scale, stream);
+    return launch_output<T, kLocalExact, 9, 4>(qm, km, q, k, v, zv, zd, out, den_out, bh, n,
+                                               r, h, b, degree, scale, stream);
   }
   return launch_output<T, kLocalExact, (kMaxH + 8) / 8, kMaxR / 8>(
-      qm, km, q, k, v, zv, zd, out, bh, n, r, h, b, degree, scale, stream);
+      qm, km, q, k, v, zv, zd, out, den_out, bh, n, r, h, b, degree, scale, stream);
 }
 
 template <typename T>
 cudaError_t run(const void* qm, const void* km, const void* q, const void* k, const void* v,
-                const float* zv0, const float* zd0, void* out, float* hv, float* hd,
-                float* zv_out, float* zd_out, int bh, int n, int r, int h, int b, int degree,
-                float scale, int local_exact, cudaStream_t stream) {
-  const int t = n / b;
-  cudaError_t err = r <= 32 ? launch_fold<T, 2>(km, v, hv, hd, bh, n, r, h, b, stream)
-                            : launch_fold<T, kMaxR / 16>(km, v, hv, hd, bh, n, r, h, b, stream);
+                const float* zv0, const float* zd0, void* out, float* den_out, float* hv,
+                float* hd, float* zv_out, float* zd_out, int bh, int n, int r, int h, int b,
+                int degree, float scale, int local_exact, cudaStream_t stream) {
+  cudaError_t err =
+      r <= 32 ? launch_fold<T, 2>(km, v, nullptr, hv, hd, bh, n, r, h, b, stream)
+              : launch_fold<T, kMaxR / 16>(km, v, nullptr, hv, hd, bh, n, r, h, b, stream);
   if (err != cudaSuccess) return err;
-
-  const int rrh = r * r * h, rr = r * r;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(hv) | reinterpret_cast<uintptr_t>(hd) |
-                         reinterpret_cast<uintptr_t>(zv0) | reinterpret_cast<uintptr_t>(zd0) |
-                         reinterpret_cast<uintptr_t>(zv_out) | reinterpret_cast<uintptr_t>(zd_out);
-  if (rr % 4 == 0 && (addr & 15) == 0) {   // rr % 4 == 0 makes rrh one too
-    const dim3 grid2((rrh + rr + 4 * kPrefixThreads - 1) / (4 * kPrefixThreads), bh);
-    prefix_kernel<float4><<<grid2, kPrefixThreads, 0, stream>>>(hv, hd, zv0, zd0, zv_out,
-                                                                zd_out, t, rrh, rr);
-  } else {
-    const dim3 grid2((rrh + rr + kPrefixThreads - 1) / kPrefixThreads, bh);
-    prefix_kernel<float><<<grid2, kPrefixThreads, 0, stream>>>(hv, hd, zv0, zd0, zv_out,
-                                                               zd_out, t, rrh, rr);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
+  err = launch_prefix<false>(hv, hd, zv0, zd0, zv_out, zd_out, bh, n / b, r, h, stream);
+  if (err != cudaSuccess) return err;
   if (local_exact) {
-    return run_output<T, true>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
-                               stream);
+    return run_output<T, true>(qm, km, q, k, v, hv, hd, out, den_out, bh, n, r, h, b, degree,
+                               scale, stream);
   }
-  return run_output<T, false>(qm, km, q, k, v, hv, hd, out, bh, n, r, h, b, degree, scale,
-                              stream);
+  return run_output<T, false>(qm, km, q, k, v, hv, hd, out, den_out, bh, n, r, h, b, degree,
+                              scale, stream);
 }
 
 }  // namespace
@@ -475,15 +266,18 @@ cudaError_t run(const void* qm, const void* km, const void* q, const void* k, co
 // to contiguous tensors: qm, km (bh, n, r); q, k, v, out (bh, n, h) of one
 // type (dtype 0 = float32, 1 = bfloat16); zv0, zv_out (bh, r, r*h) and zd0,
 // zd_out (bh, r, r) float32; hv (bh, n/b, r, r*h) and hd (bh, n/b, r, r)
-// float32 scratch. Requires n % b == 0, r <= 64 and h <= 128. Returns the
-// first CUDA error (0 on success); launches on `stream` and does not
-// synchronise.
+// float32, which hold the exclusive prefix Z_l of every block on return
+// (what the backward reads); den_out (bh, n) float32, 1 + den of every row,
+// or null (serving: not written). Requires n % b == 0, r <= 64 and
+// h <= 128. Returns the first CUDA error (0 on success); launches on
+// `stream` and does not synchronise.
 extern "C" int polysketch_causal_forward(const void* qm, const void* km, const void* q,
                                          const void* k, const void* v, const float* zv0,
-                                         const float* zd0, void* out, float* hv, float* hd,
-                                         float* zv_out, float* zd_out, int bh, int n, int r,
-                                         int h, int b, int degree, float scale,
-                                         int local_exact, int dtype, void* stream) {
+                                         const float* zd0, void* out, float* den_out,
+                                         float* hv, float* hd, float* zv_out, float* zd_out,
+                                         int bh, int n, int r, int h, int b, int degree,
+                                         float scale, int local_exact, int dtype,
+                                         void* stream) {
   if (bh <= 0 || n <= 0 || b <= 0 || n % b != 0 || r <= 0 || r > kMaxR || h < 1 ||
       h > kMaxH || degree < 1 || bh > 65535 || n / b > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -491,11 +285,11 @@ extern "C" int polysketch_causal_forward(const void* qm, const void* km, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = run<float>(qm, km, q, k, v, zv0, zd0, out, hv, hd, zv_out, zd_out, bh, n, r, h, b,
-                     degree, scale, local_exact, s);
+    err = run<float>(qm, km, q, k, v, zv0, zd0, out, den_out, hv, hd, zv_out, zd_out, bh, n,
+                     r, h, b, degree, scale, local_exact, s);
   } else if (dtype == 1) {
-    err = run<__nv_bfloat16>(qm, km, q, k, v, zv0, zd0, out, hv, hd, zv_out, zd_out, bh, n, r,
-                             h, b, degree, scale, local_exact, s);
+    err = run<__nv_bfloat16>(qm, km, q, k, v, zv0, zd0, out, den_out, hv, hd, zv_out, zd_out,
+                             bh, n, r, h, b, degree, scale, local_exact, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -8,6 +8,12 @@ fallback), a CPU tensor to the kernel's plain PyTorch version.
 ``impl="torch"`` asks for the plain version on any device, so a kernel
 can be held against it on the card.
 
+Gradients: with grad on, ``polysketch_attention`` runs through
+``polysketch_causal_autograd`` (B1's forward and its backward kernel, or
+both plain versions). B2 and B3 have no backward yet: ``poly_attention``
+and ``lt_mult`` raise when a CUDA input requires grad, rather than return
+an output that autograd cannot see through.
+
 Batching convention: leading dims (B, H, ...) are flattened to one `bh`
 axis before the kernel and restored after. GQA repeats kv heads to query
 heads, as the reference does.
@@ -19,10 +25,10 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.lt_mult import lt_mult_cuda, lt_mult_torch
 from repro_torch.kernels.poly_flash import poly_flash_cuda, poly_flash_torch
-from repro_torch.kernels.polysketch_causal import (factored_to_z,
-                                                   polysketch_causal_cuda,
-                                                   polysketch_causal_torch,
-                                                   z_to_factored)
+from repro_torch.kernels.polysketch_causal import (
+    factored_to_z, polysketch_causal_autograd, polysketch_causal_backward_cuda,
+    polysketch_causal_backward_torch, polysketch_causal_cuda,
+    polysketch_causal_torch, z_to_factored)
 from repro_torch.utils import pad_to_multiple
 
 
@@ -37,6 +43,20 @@ def _pick(impl, x, cuda_fn, torch_fn):
     return cuda_fn if impl is None and x.is_cuda else torch_fn
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+def _no_backward(name, fn, cuda_fn, *xs):
+    """Raise if `fn` is a kernel without a backward and autograd would need
+    one: its output would carry no gradient to its inputs."""
+    if fn is cuda_fn and _wants_grad(*xs):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet; an input requires "
+            "grad (run under torch.no_grad, or pass impl='torch')")
+
+
 def lt_mult(a, b, c, *, block_size: int = 256, impl: str | None = None):
     """lt(A B^T) C over the last two axes; leading dims are batch.
 
@@ -44,6 +64,7 @@ def lt_mult(a, b, c, *, block_size: int = 256, impl: str | None = None):
     min(block_size, n), as the reference asserts.
     """
     fn = _pick(impl, c, lt_mult_cuda, lt_mult_torch)
+    _no_backward("lt_mult", fn, lt_mult_cuda, a, b, c)
     lead, (af, bf, cf) = _flatten_bh(a, b, c)
     out = fn(af, bf, cf, block_size=min(block_size, a.shape[-2]))
     return out.reshape(*lead, *out.shape[-2:])
@@ -64,8 +85,12 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
     partial block included (padded keys add exact zeros).
     impl: None picks by device (the CUDA kernel for CUDA tensors, the
     plain PyTorch version on the CPU); "torch" asks for the plain version.
+    With grad on, the gradient reaches qm, km, q, k, v and z0 (float32;
+    the CUDA backward takes r <= 32, h <= 64); none flows back through the
+    returned state.
     """
     fn = _pick(impl, q, polysketch_causal_cuda, polysketch_causal_torch)
+    grad = _wants_grad(qm, km, q, k, v, z0)
     hq, hkv = q.shape[-3], k.shape[-3]
     if hkv != hq:  # GQA: repeat kv to query heads
         g = hq // hkv
@@ -86,15 +111,21 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
             *lead, *z0.shape[-2:]))
         zv0 = zv0.reshape(-1, *zv0.shape[-2:]).contiguous()
         zd0 = zd0.reshape(-1, *zd0.shape[-2:]).contiguous()
-    out = fn(qmf, kmf, qf, kf, vf, zv0, zd0, degree=degree, scale=scale,
-             local_exact=local_exact, block_size=blk,
-             return_state=return_state)
-    if return_state:
-        out, zv, zd = out
-        z = factored_to_z(zv.reshape(*lead, *zv.shape[-2:]),
-                          zd.reshape(*lead, *zd.shape[-2:]))
-        return out.reshape(*lead, *out.shape[-2:])[..., :n, :], z
-    return out.reshape(*lead, *out.shape[-2:])[..., :n, :]
+    kw = dict(degree=degree, scale=scale, local_exact=local_exact,
+              block_size=blk)
+    if grad:
+        bwd = _pick(impl, q, polysketch_causal_backward_cuda,
+                    polysketch_causal_backward_torch)
+        out, zv, zd = polysketch_causal_autograd(
+            qmf, kmf, qf, kf, vf, zv0, zd0, fwd=fn, bwd=bwd, **kw)
+    else:
+        out, zv, zd = fn(qmf, kmf, qf, kf, vf, zv0, zd0, return_state=True,
+                         **kw)
+    out = out.reshape(*lead, *out.shape[-2:])[..., :n, :]
+    if not return_state:
+        return out
+    return out, factored_to_z(zv.reshape(*lead, *zv.shape[-2:]),
+                              zd.reshape(*lead, *zd.shape[-2:]))
 
 
 def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
@@ -106,6 +137,7 @@ def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
     padded.
     """
     fn = _pick(impl, q, poly_flash_cuda, poly_flash_torch)
+    _no_backward("poly_attention", fn, poly_flash_cuda, q, k, v)
     if scale is None:
         scale = 1.0 / q.shape[-1]
     hq, hkv = q.shape[-3], k.shape[-3]

@@ -12,6 +12,14 @@ here compute its function on the factored prefix state
 - ``polysketch_causal_cuda``: the hand-written Hopper kernel in
   ``csrc/polysketch_causal.cu`` (design and bound in its header), bound
   through ctypes. ``polysketch_causal_cuda.launches`` counts its launches.
+
+The backward (the JAX package has none: it trains through XLA's gradient
+of the jnp block path) comes in the same two forms:
+``polysketch_causal_backward_torch`` and ``polysketch_causal_backward_cuda``
+(``csrc/polysketch_causal_bwd.cu``). Both read what the forward saves with
+``return_saved``: the exclusive prefix state Z_l of every block and
+1 + den of every row. ``polysketch_causal_autograd`` joins a forward and a
+backward in a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -54,11 +62,15 @@ def _check_block(n, block_size):
 def polysketch_causal_torch(qm, km, q, k, v, zv0=None, zd0=None, *,
                             degree: int, scale: float,
                             local_exact: bool = True, block_size: int = 256,
-                            return_state: bool = False):
+                            return_state: bool = False,
+                            return_saved: bool = False):
     """qm, km: (bh, n, r); q, k, v: (bh, n, h) -> (bh, n, h) in v's dtype.
 
     zv0 (bh, r, r*h) / zd0 (bh, r, r): optional factored initial state.
     With return_state, also returns (zv, zd) after folding every block.
+    With return_saved, returns (out, zv, zd, saved) where saved = (hv
+    (bh, t, r, r*h), hd (bh, t, r, r), den1 (bh, n)): the exclusive prefix
+    state each block read and 1 + den of each row, what the backward needs.
     The arithmetic of the Pallas kernel's body, one block at a time.
     """
     bh, n, r = qm.shape
@@ -71,10 +83,12 @@ def polysketch_causal_torch(qm, km, q, k, v, zv0=None, zd0=None, *,
     zd = (torch.zeros(bh, r, r, dtype=f32, device=dev) if zd0 is None
           else zd0.to(f32))
     tri = torch.ones(blk, blk, dtype=f32, device=dev).tril()
-    outs = []
+    outs, hvs, hds, dens = [], [], [], []
     for t in range(n // blk):
         sl = slice(t * blk, (t + 1) * blk)
         qm_l, km_l, v_l = qm[:, sl].to(f32), km[:, sl].to(f32), v[:, sl].to(f32)
+        hvs.append(zv)
+        hds.append(zd)
         # ---- diagonal block (exact local polynomial attention, S3.2) ----
         if local_exact:
             w = int_pow(q[:, sl].to(f32) @ k[:, sl].to(f32).transpose(1, 2)
@@ -89,13 +103,108 @@ def polysketch_causal_torch(qm, km, q, k, v, zv0=None, zd0=None, *,
         tv = (qm_l @ zv).reshape(bh, blk, r, h)
         num = num + (qm_l[..., None] * tv).sum(2)
         den = den + (qm_l * (qm_l @ zd)).sum(-1)
-        outs.append((num / (1.0 + den)[..., None]).to(v.dtype))
+        dens.append(1.0 + den)
+        outs.append((num / dens[-1][..., None]).to(v.dtype))
         # ---- state update: fold this block's keys into the prefix ----
         u = (km_l[..., None] * v_l[:, :, None, :]).reshape(bh, blk, r * h)
         zv = zv + km_l.transpose(1, 2) @ u
         zd = zd + km_l.transpose(1, 2) @ km_l
     out = torch.cat(outs, dim=1)
+    if return_saved:
+        saved = (torch.stack(hvs, 1), torch.stack(hds, 1), torch.cat(dens, 1))
+        return out, zv, zd, saved
     return (out, zv, zd) if return_state else out
+
+
+def _pow0(x, p):
+    """x**p for p >= 0, x**0 == 1 (the power's derivative at degree 1)."""
+    return torch.ones_like(x) if p == 0 else int_pow(x, p)
+
+
+def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
+                                     degree: int, scale: float,
+                                     local_exact: bool = True,
+                                     block_size: int = 256):
+    """Gradients of polysketch_causal_torch's output, in the kernel's three
+    passes, from what the forward saved (float32).
+
+    dout, out: (bh, n, h); saved = (hv, hd, den1) from return_saved.
+    Returns (dqm, dkm, dq, dk, dv, dzv0, dzd0); dq and dk are zero without
+    local_exact (q and k are not read then).
+
+    With g = [dO / D | -(dO . out) / D] (D = 1 + den) and Phi(x) = x (x) x:
+      pass 1  dZ_l = sum_{i in l} Phi(qm_i) g_i^T, block by block;
+      pass 2  dH_l = sum_{l' > l} dZ_l', right to left; dz0 = sum_l dZ_l;
+      pass 3  per block: the diagonal's dq, dk, dv (and dqm, dkm without
+              local_exact); dqm = (M + M^T) qm with M = Z_l g; dkm =
+              (N + N^T) km with N = dH_l [v | 1]; dv += Phi(km) dHv_l.
+    """
+    bh, n, r = qm.shape
+    h = v.shape[-1]
+    blk = _check_block(n, block_size)
+    t = n // blk
+    f32 = torch.float32
+    if any(x.dtype != f32 for x in (dout, qm, km, q, k, v, out)):
+        raise TypeError("the backward takes float32 only")
+    hv, hd, den1 = saved
+    z = factored_to_z(hv, hd)                                # (bh, t, r*r, h+1)
+    inv = 1.0 / den1
+    dnum = dout * inv[..., None]
+    g = torch.cat([dnum, (-(dout * out).sum(-1) * inv)[..., None]], -1)
+    ones = torch.ones(bh, n, 1, dtype=f32, device=qm.device)
+    v1 = torch.cat([v, ones], -1)
+
+    def blocks(x):
+        return x.reshape(bh, t, blk, x.shape[-1])
+
+    qmb, kmb, gb, v1b = blocks(qm), blocks(km), blocks(g), blocks(v1)
+    # pass 1: dZ_l = Qm_l^T [Qm_l (x) g_l]
+    u = (qmb[..., None] * gb[..., None, :]).reshape(bh, t, blk, r * (h + 1))
+    dz = (qmb.transpose(-1, -2) @ u).reshape(bh, t, r * r, h + 1)
+    # pass 2: the exclusive suffix, right to left from zero
+    acc = torch.zeros(bh, r * r, h + 1, dtype=f32, device=qm.device)
+    dh = [None] * t
+    for l in reversed(range(t)):
+        dh[l] = acc
+        acc = acc + dz[:, l]
+    dzv0, dzd0 = z_to_factored(acc)
+    # pass 3: block by block
+    tri = torch.ones(blk, blk, dtype=f32, device=qm.device).tril()
+    dqm, dkm, dq, dk, dv = ([] for _ in range(5))
+    for l in range(t):
+        sl = slice(l * blk, (l + 1) * blk)
+        qm_l, km_l, g_l, v1_l = qmb[:, l], kmb[:, l], gb[:, l], v1b[:, l]
+        if local_exact:
+            x = q[:, sl] @ k[:, sl].transpose(1, 2) * scale
+            w = int_pow(x, degree) * tri
+            dx = degree * _pow0(x, degree - 1) * scale
+        else:
+            x = qm_l @ km_l.transpose(1, 2)
+            w = x * x * tri
+            dx = 2.0 * x
+        ds = dx * (g_l @ v1_l.transpose(1, 2)) * tri          # dS, masked
+        dv_l = w.transpose(1, 2) @ g_l[..., :h]
+        m = (g_l @ z[:, l].transpose(1, 2)).reshape(bh, blk, r, r)
+        dqm_l = ((m @ qm_l[..., None]) + (m.transpose(-1, -2) @ qm_l[..., None]))[..., 0]
+        nn = (v1_l @ dh[l].transpose(1, 2)).reshape(bh, blk, r, r)
+        dkm_l = ((nn @ km_l[..., None]) + (nn.transpose(-1, -2) @ km_l[..., None]))[..., 0]
+        phi = (km_l[..., None] * km_l[..., None, :]).reshape(bh, blk, r * r)
+        dv_l = dv_l + phi @ dh[l][..., :h]
+        if local_exact:
+            dq.append(ds @ k[:, sl])
+            dk.append(ds.transpose(1, 2) @ q[:, sl])
+        else:
+            dqm_l = dqm_l + ds @ km_l
+            dkm_l = dkm_l + ds.transpose(1, 2) @ qm_l
+        dqm.append(dqm_l)
+        dkm.append(dkm_l)
+        dv.append(dv_l)
+    cat = lambda xs: torch.cat(xs, 1)  # noqa: E731
+    if local_exact:
+        dq, dk = cat(dq), cat(dk)
+    else:
+        dq, dk = torch.zeros_like(q), torch.zeros_like(k)
+    return cat(dqm), cat(dkm), dq, dk, cat(dv), dzv0, dzd0
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,7 +215,7 @@ def _lib():
     fn = lib.polysketch_causal_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 13 + [i] * 6 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -114,7 +223,8 @@ def _lib():
 def polysketch_causal_cuda(qm, km, q, k, v, zv0=None, zd0=None, *,
                            degree: int, scale: float,
                            local_exact: bool = True, block_size: int = 256,
-                           return_state: bool = False):
+                           return_state: bool = False,
+                           return_saved: bool = False):
     """The CUDA kernel; same contract as polysketch_causal_torch.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16), with
@@ -164,8 +274,11 @@ def polysketch_causal_cuda(qm, km, q, k, v, zv0=None, zd0=None, *,
     hd = torch.empty(bh, t, r, r, dtype=f32, device=dev)
     zv = torch.empty(bh, r, r * h, dtype=f32, device=dev)
     zd = torch.empty(bh, r, r, dtype=f32, device=dev)
+    den1 = torch.empty(bh, n, dtype=f32, device=dev) if return_saved else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [x.data_ptr() for x in (*xs, zv0, zd0, out, hv, hd, zv, zd)]
+    ptrs = [x.data_ptr() for x in (*xs, zv0, zd0, out)]
+    ptrs += [None if den1 is None else den1.data_ptr()]
+    ptrs += [x.data_ptr() for x in (hv, hd, zv, zd)]
     with torch.cuda.device(dev):
         err = _lib().polysketch_causal_forward(
             *ptrs, bh, n, r, h, blk, degree, scale, int(local_exact),
@@ -174,7 +287,137 @@ def polysketch_causal_cuda(qm, km, q, k, v, zv0=None, zd0=None, *,
         raise RuntimeError(f"polysketch_causal_forward failed: CUDA error "
                            f"{err} (bh={bh}, n={n}, r={r}, h={h}, b={blk})")
     polysketch_causal_cuda.launches += 1
+    if return_saved:
+        return out, zv, zd, (hv, hd, den1)
     return (out, zv, zd) if return_state else out
 
 
 polysketch_causal_cuda.launches = 0
+
+
+def _bwd_lib():
+    lib = build.load("polysketch_causal_bwd")
+    fn = lib.polysketch_causal_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 21 + [i] * 6 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+BWD_MAX_R, BWD_MAX_H = 32, 64   # the backward kernel's widths (csrc/polysketch_causal_bwd.cu)
+
+
+def check_backward_shapes(r: int, h: int):
+    """Raise for widths the CUDA backward does not take."""
+    if r > BWD_MAX_R or h > BWD_MAX_H:
+        raise ValueError(f"the CUDA backward takes r <= {BWD_MAX_R} and "
+                         f"h <= {BWD_MAX_H}, got r={r}, h={h}")
+
+
+def polysketch_causal_backward_cuda(dout, qm, km, q, k, v, out, saved, *,
+                                    degree: int, scale: float,
+                                    local_exact: bool = True,
+                                    block_size: int = 256):
+    """The CUDA backward; same contract as polysketch_causal_backward_torch.
+
+    Takes contiguous float32 CUDA tensors with r <= 32 and h <= 64; raises
+    on anything else. Launches on the current stream and does not
+    synchronise.
+    """
+    hv, hd, den1 = saved
+    xs = (dout, qm, km, q, k, v, out, hv, hd, den1)
+    dev = qm.device
+    if dev.type != "cuda":
+        raise ValueError(f"polysketch_causal_backward_cuda takes CUDA tensors, "
+                         f"got {dev}")
+    if any(x.device != dev for x in xs):
+        raise ValueError("all inputs must be on one device")
+    if any(x.dtype != torch.float32 for x in xs):
+        raise TypeError("the backward takes float32 only (bf16 training is "
+                        f"not ported), got {[x.dtype for x in xs]}")
+    bh, n, r = qm.shape
+    h = v.shape[-1]
+    check_backward_shapes(r, h)
+    if degree < 1:
+        raise ValueError(f"degree must be >= 1, got {degree}")
+    blk = _check_block(n, block_size)
+    t = n // blk
+    shapes = {"dout": (dout, (bh, n, h)), "km": (km, (bh, n, r)),
+              "q": (q, (bh, n, h)), "k": (k, (bh, n, h)), "v": (v, (bh, n, h)),
+              "out": (out, (bh, n, h)), "hv": (hv, (bh, t, r, r * h)),
+              "hd": (hd, (bh, t, r, r)), "den1": (den1, (bh, n))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(x.shape)}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("inputs must be contiguous")
+    f32 = torch.float32
+    dnum = torch.empty(bh, n, h, dtype=f32, device=dev)
+    dden = torch.empty(bh, n, dtype=f32, device=dev)
+    dhv, dhd = torch.empty_like(hv), torch.empty_like(hd)
+    dqm, dkm = torch.empty_like(qm), torch.empty_like(km)
+    make = torch.empty_like if local_exact else torch.zeros_like
+    dq, dk, dv = make(q), make(k), torch.empty_like(v)
+    dzv0 = torch.empty(bh, r, r * h, dtype=f32, device=dev)
+    dzd0 = torch.empty(bh, r, r, dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in (qm, km, q, k, v, out, dout, den1, hv, hd, dnum,
+                                   dden, dhv, dhd, dqm, dkm, dq, dk, dv, dzv0,
+                                   dzd0)]
+    with torch.cuda.device(dev):
+        err = _bwd_lib().polysketch_causal_backward(
+            *ptrs, bh, n, r, h, blk, degree, scale, int(local_exact), stream)
+    if err != 0:
+        raise RuntimeError(f"polysketch_causal_backward failed: CUDA error "
+                           f"{err} (bh={bh}, n={n}, r={r}, h={h}, b={blk})")
+    polysketch_causal_backward_cuda.launches += 1
+    return dqm, dkm, dq, dk, dv, dzv0, dzd0
+
+
+polysketch_causal_backward_cuda.launches = 0
+
+
+class _PolysketchCausal(torch.autograd.Function):
+    """B1 with a gradient: `fwd` saves the prefix states and 1 + den, and
+    `bwd` (the kernel or its plain version) turns them into the inputs'
+    gradients. A gradient through the returned state raises."""
+
+    @staticmethod
+    def forward(ctx, qm, km, q, k, v, zv0, zd0, kw, fwd, bwd):
+        out, zv, zd, saved = fwd(qm, km, q, k, v, zv0, zd0, return_saved=True,
+                                 **kw)
+        ctx.save_for_backward(qm, km, q, k, v, out, *saved)
+        ctx.kw, ctx.bwd = kw, bwd
+        ctx.set_materialize_grads(False)
+        return out, zv, zd
+
+    @staticmethod
+    def backward(ctx, dout, dzv, dzd):
+        if dzv is not None or dzd is not None:
+            raise NotImplementedError(
+                "no gradient flows through polysketch attention's returned "
+                "state; use its output")
+        qm, km, q, k, v, out, *saved = ctx.saved_tensors
+        grads = ctx.bwd(dout.contiguous(), qm, km, q, k, v, out, tuple(saved),
+                        **ctx.kw)
+        grads = [g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad)]
+        return (*grads, None, None, None)
+
+
+def polysketch_causal_autograd(qm, km, q, k, v, zv0, zd0, *, fwd, bwd,
+                               degree: int, scale: float,
+                               local_exact: bool = True,
+                               block_size: int = 256):
+    """(out, zv, zd) of `fwd` (polysketch_causal_cuda or _torch) with a
+    gradient from `bwd` (polysketch_causal_backward_cuda or _torch) to qm,
+    km, q, k, v and, when given, zv0 and zd0. float32 only."""
+    if any(x.dtype != torch.float32 for x in (qm, km, q, k, v)):
+        raise TypeError("polysketch attention trains in float32 only (bf16 "
+                        "training is not ported)")
+    if bwd is polysketch_causal_backward_cuda:
+        check_backward_shapes(qm.shape[-1], v.shape[-1])
+    kw = dict(degree=degree, scale=scale, local_exact=local_exact,
+              block_size=block_size)
+    return _PolysketchCausal.apply(qm, km, q, k, v, zv0, zd0, kw, fwd, bwd)

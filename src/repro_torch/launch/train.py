@@ -1,0 +1,111 @@
+"""Training launcher of the port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2s-polysketch \
+        --steps 50 --batch 8 --seq 128 --ckpt-dir build/run1
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+
+The port of the JAX package's ``launch/train.py`` on one device: config
+registry, seeded model init, the synthetic Markov data pipeline, AdamW
+and its schedule, the train step, the checkpoint manager (atomic, async,
+keep-k, auto-resume), the preemption guard and the straggler detector.
+It takes the reference's flags except ``--mesh``, plus ``--device``
+(default cuda; raises when there is no card).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.data import DataIterator, make_markov_lm
+from repro_torch.distributed.fault import PreemptionGuard, StragglerDetector
+from repro_torch.models.model_zoo import build_model
+from repro_torch.train import init_train_state, make_train_step
+
+log = logging.getLogger("repro_torch.train")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="gpt2s-polysketch")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda)")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    base = get_config(args.arch, smoke=args.smoke)
+    overrides = {}
+    for kv in args.set:
+        k, _, v = kv.partition("=")
+        overrides[k] = type(getattr(base, k))(v) if hasattr(base, k) else v
+    cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    model = build_model(cfg, device=args.device, seed=args.seed,
+                        trainable=True)
+    dev = model.device
+    tcfg = TrainConfig(seq_len=args.seq, global_batch=args.batch,
+                       steps=args.steps, peak_lr=args.lr,
+                       microbatches=args.microbatches, seed=args.seed)
+    state = init_train_state(model.lm)
+    step_fn = make_train_step(cfg, tcfg)
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=args.seed + 1),
+                      args.batch, args.seq, seed=args.seed, device=dev)
+
+    ckpt = None
+    start_step = 0
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+        latest, restored, extras = ckpt.restore_latest(state)
+        if latest is not None:
+            state, start_step = restored, latest
+            it.restore(extras["data"])
+            log.info("resumed from step %d", start_step)
+
+    guard = PreemptionGuard().install()
+    straggler = StragglerDetector()
+    t_start = time.perf_counter()
+    try:
+        for i in range(start_step, args.steps):
+            batch = next(it)
+            straggler.start()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])          # waits for the device
+            straggler.stop()
+            if (i + 1) % args.log_every == 0 or i == start_step:
+                log.info("step %d loss %.4f lr %.2e grad_norm %.3f", i + 1,
+                         loss, float(metrics["lr"]), float(metrics["grad_norm"]))
+            save_now = ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0
+            if save_now or (ckpt and guard.preempted):
+                ckpt.save(i + 1, state, extras={"data": it.state()})
+            if guard.preempted:
+                log.warning("preempted: checkpoint written at step %d", i + 1)
+                break
+        if ckpt:
+            ckpt.save(state.step, state, extras={"data": it.state()}, block=True)
+            ckpt.wait()
+    finally:
+        guard.uninstall()
+    dt = time.perf_counter() - t_start
+    n = state.step - start_step
+    log.info("done: %d steps on %s, %.2f s/step, %d flagged stragglers", n,
+             torch.device(dev), dt / max(n, 1), len(straggler.flagged))
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,10 @@
 
 Port of the JAX package's ``models/model_zoo.py`` for the dense
 polysketch family: the LM module (which holds the parameters) and its
-``DecodeState``.
+``DecodeState``. A served model is frozen and in eval mode; with
+``trainable=True`` every parameter takes a gradient except a random
+sketch's projection ``g``, which the reference keeps frozen with
+``stop_gradient``.
 """
 from __future__ import annotations
 
@@ -27,13 +30,16 @@ class Model:
 
 
 def build_model(cfg, *, device=None, seed: int = 0,
-                params: dict[str, torch.Tensor] | None = None) -> Model:
+                params: dict[str, torch.Tensor] | None = None,
+                trainable: bool = False) -> Model:
     """Build the LM on `device` (default cuda; raises with no card).
 
     Weights are drawn from a CPU torch.Generator seeded with `seed`, with
     the reference's init distributions, so a seed gives the same weights
     on every device; on the meta device nothing is drawn. `params` (a
     state dict, e.g. from bridge.params_from_jax) replaces them.
+    trainable: train mode, gradients on (the random sketch's g excepted);
+    otherwise eval mode with every parameter frozen.
     """
     dev = (torch.device("meta") if device == "meta"
            else resolve_device(device))
@@ -41,6 +47,12 @@ def build_model(cfg, *, device=None, seed: int = 0,
     lm = LM(cfg, generator=gen, device=dev)
     if params is not None:
         lm.load_state_dict(params, strict=True)
-    lm.eval()
-    lm.requires_grad_(False)
+    lm.train(trainable)
+    for name, p in lm.named_parameters():
+        p.requires_grad_(trainable and not _frozen(name))
     return Model(cfg, lm, DecodeState(lm))
+
+
+def _frozen(name: str) -> bool:
+    """A random sketch projection (RandomProjection.g): frozen in training."""
+    return name.endswith(".g")

@@ -33,6 +33,9 @@ def check_supported(cfg):
         raise NotImplementedError("untied embeddings are not ported")
     if cfg.d_ff <= 0:
         raise NotImplementedError("mixer-only blocks are not ported")
+    if cfg.remat != "none":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported; the "
+                                  "port trains with remat='none'")
 
 
 class Block(nn.Module):

@@ -25,6 +25,8 @@ CASES = [
     ("b3_bound", (4, 2048, 32, 64, 256), 0.001878, "bytes", 0.004019, "operations"),
     ("b1_bound", (48, 2048, 32, 64, 1024, 4), 0.2491, "operations", 0.5954, "operations"),
     ("b2_bound", (48, 2040, 64, 4), 0.1611, "operations", 0.3879, "operations"),
+    ("b1_bwd_bound", (24, 4096, 32, 64, 1024, 4), 0.4938, "operations", 1.1852,
+     "operations"),
 ]
 
 

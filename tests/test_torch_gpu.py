@@ -244,3 +244,85 @@ def test_lt_mult_kernel_edge_widths_match_plain_version(card, n, m, k, blk, dtyp
     tol = 2e-2 if dtype == "bfloat16" else 2e-3
     torch.testing.assert_close(got.float(), want.float(), atol=tol * n,
                                rtol=tol)
+
+
+def _grads(fn, xs, dout):
+    leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+def _assert_grads_close(got, want, rel=1e-4):
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= rel * w.abs().max().item()
+
+
+@pytest.mark.parametrize("degree", [2, 4, 8])
+@pytest.mark.parametrize("local_exact", [True, False])
+def test_backward_kernel_matches_plain_version(card, degree, local_exact):
+    """ops.polysketch_attention's gradients through B1's backward kernel
+    against the plain backward, GQA 4:2, each within 1e-4 of its max|.|."""
+    xs = _inputs(degree, (2, 4, 96), (2, 2, 96), 16, 8, torch.float32, card)
+    dout = _normal(degree + 1, card)(2, 4, 96, 16)
+    kw = dict(degree=degree, scale=1.0 / 16, local_exact=local_exact, block_size=32)
+    before = pc.polysketch_causal_backward_cuda.launches
+    got = _grads(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    want = _grads(lambda *a: ops.polysketch_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pc.polysketch_causal_backward_cuda.launches == before + 1
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("n,r,h,blk", [
+    (1016, 32, 64, 1016),   # a ragged last 64-row tile, one block
+    (64, 4, 8, 16),         # r, h and b below one mma tile
+    (2048, 32, 64, 512),    # four blocks: the suffix over three hops
+])
+def test_backward_kernel_tile_shapes_and_z0_match_plain_version(card, n, r, h, blk):
+    rnd = _normal(n + r, card)
+    kw = dict(degree=4, scale=1.0 / h, block_size=blk)
+    _, zv0, zd0 = pc.polysketch_causal_torch(
+        rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5, rnd(2, n, h), rnd(2, n, h),
+        rnd(2, n, h), return_state=True, **kw)
+    xs = (rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5, rnd(2, n, h), rnd(2, n, h),
+          rnd(2, n, h), zv0, zd0)
+    dout = rnd(2, n, h)
+
+    def run(fwd, bwd):
+        return lambda *a: pc.polysketch_causal_autograd(
+            *a, fwd=fwd, bwd=bwd, **kw)[0]
+    got = _grads(run(pc.polysketch_causal_cuda, pc.polysketch_causal_backward_cuda),
+                 xs, dout)
+    want = _grads(run(pc.polysketch_causal_torch, pc.polysketch_causal_backward_torch),
+                  xs, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+
+
+def test_backward_kernel_is_bit_stable(card):
+    xs = _inputs(5, (1, 4, 2048), (1, 4, 2048), 64, 32, torch.float32, card)
+    dout = _normal(6, card)(1, 4, 2048, 64)
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    a = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
+    b = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_smoke_training_grads_on_card_match_cpu(card):
+    """One SMOKE loss's gradients: the card (B1's kernels) against the CPU
+    (plain versions), per leaf within 1e-4 of the leaf's max|.|."""
+    from repro_torch.train import make_loss_fn
+    cfg = get_config("gpt2s-polysketch", smoke=True)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 41)))
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        lm = build_model(cfg, device=dev, seed=3, trainable=True).lm
+        before = pc.polysketch_causal_backward_cuda.launches
+        loss, _ = make_loss_fn(cfg)(lm, {"tokens": toks.to(dev)})
+        loss.backward()
+        launched = pc.polysketch_causal_backward_cuda.launches - before
+        assert launched == (cfg.n_layers if dev.type == "cuda" else 0)
+        grads[dev.type] = {n: p.grad.cpu() for n, p in lm.named_parameters()}
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name

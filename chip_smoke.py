@@ -41,7 +41,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
   4. each kernel's time at its path's shapes beside its plain version's
      and its bounds (B1 also at the two calls a prefill's layer makes);
      B3's device time per pass (torch.profiler) and host time per call;
-     B1's backward at the training shape, per pass.
+     B1's backward kernels' registers, spills, shared memory and CTAs an
+     SM, and its time at the training shape, per pass.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -899,13 +900,13 @@ def phase_train(cfg, batches):
     return bwd, float(np.median(times))
 
 
-# (group, substrings of a kernel's name) for the split of a training step
+# (group, substrings of a kernel's name) for the split of a training step;
+# no backward kernel's name holds a forward kernel's (fold_kernel,
+# prefix_kernel, output_kernel)
 STEP_GROUPS = (
-    ("B1 backward (prep, suffix, query, key)", ("prep_kernel", "query_kernel",
-                                               "key_kernel", "prefix_kernel<float4, true>",
-                                               "prefix_kernel<float, true>")),
+    ("B1 backward (all 7 kernels)", pc.BWD_KERNELS),
     ("B1 forward (prefix, outputs)", ("output_kernel", "prefix_kernel")),
-    ("B1 folds (forward and backward)", ("fold_kernel",)),
+    ("B1 forward fold", ("fold_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "Gemm", "GEMM", "xmma", "cutlass")),
     ("other (elementwise, reductions, copies)", ("",)),
 )
@@ -1070,9 +1071,10 @@ def b1_bwd_bound(bh, n, r, h, b, degree, itemsize=4):
     the fold's qm (x) g (r (h + 1)); the suffix's adds. Bytes: qm, km, q,
     k, v, out, dO, 1 + den and the saved Z_l read once; dqm, dkm, dq, dk,
     dv and dz0 written once. csrc/polysketch_causal_bwd.cu does more: its
-    query and key kernels each rebuild S and dW (and dS), the price of
-    having no atomics; that recomputation is part of the gap between the
-    kernel and this bound."""
+    query-diagonal and key-diagonal kernels each rebuild S and dW (and dS),
+    ~13 GFLOP at the training shape, the price of having no atomics; that
+    recomputation is part of the gap between the kernel and this bound. The
+    state kernels (M, N and Phi(km) dHv) and the fold recompute nothing."""
     t = n // b
     pairs = t * b * (b + 1) // 2
     rr = r * r
@@ -1125,11 +1127,33 @@ def phase_timing():
     return out
 
 
-# B1's backward passes (a substring of their kernels' names); the fold and
-# the suffix are the forward's kernels, run on g and right to left
-B1_BWD_PASSES = (("prep", "prep_kernel"), ("fold", "fold_kernel"),
-                 ("suffix", "prefix_kernel"), ("query tiles", "query_kernel"),
-                 ("key tiles", "key_kernel"))
+# B1's backward passes (a substring of their kernels' names)
+B1_BWD_PASSES = (("prep", "grad_prep"), ("fold", "grad_fold"), ("suffix", "grad_suffix"),
+                 ("query state", "grad_query_state"), ("key state", "grad_key_state"),
+                 ("query diagonal", "grad_query_diag"), ("key diagonal", "grad_key_diag"))
+# the kernels that carry the backward's products: each should hold 8 warps
+# an SM with no spills
+B1_BWD_HEAVY = ("grad_query_state", "grad_key_state", "grad_query_diag", "grad_key_diag")
+
+
+def backward_occupancy(ptxas):
+    """Print each backward kernel's registers a thread and spills (the
+    build's ptxas -v log, `ptxas` from build_kernels), and its shared memory
+    a CTA and CTAs an SM (pc.backward_occupancy), at the training widths."""
+    log("phase 4: B1 backward kernels on the card (local_exact, h 64)")
+    logged = ptxas.get("polysketch_causal_bwd", {})
+    for name, row in pc.backward_occupancy(local_exact=True, h=64).items():
+        spills = [v for k, v in logged.items() if k.startswith(name)
+                  and k[len(name):len(name) + 1] in ("", "I")]
+        spill = max((s["spill_stores"] + s["spill_loads"] for s in spills), default=None)
+        flag = ""
+        if name in B1_BWD_HEAVY:
+            ok = row["warps_per_sm"] >= 8 and spill == 0
+            flag = "  (8 warps an SM, no spills: " + ("yes)" if ok else "NO)")
+        log(f"  {name:17s} {row['registers']:3d} registers, {row['local_bytes']} B local, "
+            f"spill bytes {spill if spill is not None else 'not in the log'}, "
+            f"{row['smem_bytes']} B shared a CTA, {row['threads']} threads, "
+            f"{row['ctas_per_sm']} CTAs = {row['warps_per_sm']} warps an SM{flag}")
 
 
 def phase_timing_backward():
@@ -1285,19 +1309,27 @@ def phase_lt_mult_breakdown():
 
 def build_kernels():
     """Build every kernel from this checkout (one nvcc a source, in
-    parallel) and log each kernel's registers and spills."""
+    parallel) and log each kernel's registers and spills. Returns {source:
+    {kernel (name and mangled template arguments): {"spill_stores",
+    "spill_loads"}}} from ptxas -v."""
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s, nvcc per source: "
         + ", ".join(f"{n} {b.seconds:.1f} s" for n, b in libs.items()))
+    ptxas = {}
     for name, built in libs.items():
         kernel = "?"
         for line in built.log.splitlines():
-            entry = re.search(r"\d([a-z_]+_kernel)(I\w*?E)?\w*' for", line)
+            entry = re.search(r"\d([a-z_]+_kernel|grad_[a-z_]+)(I\w*?E)?\w*' for", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if entry:
                 kernel = entry.group(1) + (entry.group(2) or "")
             elif "registers" in line or "spill" in line:
                 log(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
+            if spill and not entry:
+                ptxas.setdefault(name, {})[kernel] = {"spill_stores": int(spill.group(1)),
+                                                      "spill_loads": int(spill.group(2))}
+    return ptxas
 
 
 def main():
@@ -1308,7 +1340,7 @@ def main():
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    build_kernels()
+    ptxas = build_kernels()
 
     max_err = phase_kernel_grid()
     bwd_err = phase_b1_backward_grid()
@@ -1334,6 +1366,7 @@ def main():
     del batches
     torch.cuda.empty_cache()
     b1_times = phase_timing()
+    backward_occupancy(ptxas)
     bwd_times = phase_timing_backward()
     times = phase_timing_poly_lt()
     phase_lt_mult_breakdown()

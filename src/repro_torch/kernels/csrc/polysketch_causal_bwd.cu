@@ -17,29 +17,28 @@
 // dS^T Q. Without local_exact, S = Qm Km^T, W = S^2, and the diagonal's
 // gradient goes to qm and km.
 //
-// Five launches, no atomics, every sum in a fixed order (two calls give
+// Seven launches, no atomics, every sum in a fixed order (two calls give
 // the same bits):
-//   pass 0  prep_kernel: g from dO, out and D (one warp a row).
-//   pass 1  fold_kernel (polysketch_state.cuh, shared with the forward):
-//           dZ_l = Qm_l^T [Qm_l (x) dNum_l | Qm_l (.) dDen_l], the forward's
-//           fold with the ones column replaced by dDen.
-//   pass 2  prefix_kernel, right to left from zero: dH_l over dZ_l in
-//           place, and dz0.
-//   pass 3  query_kernel, (64-query tile, block, bh): dq (or the
-//           diagonal's part of dqm) FlashAttention-2 style over the key
-//           tiles up to the diagonal, recomputing S; then dqm through Z_l,
-//           one row block e at a time: N = G Z_l[e]^T (16 x r a warp, K =
-//           h + 1) on the tensor cores, contracted with qm in registers.
-//           key_kernel, (64-key tile, block, bh): dk and dv over the query
-//           tiles from the diagonal on; then, through dH_l (blocks before
-//           the last), dv += Phi(km) dHv (the forward's cross term) and dkm
-//           as dqm is made.
-// Every product is mma.sync m16n8k8 in 3xTF32 (common.cuh). Tiles are
-// zero-padded to compile-time widths (r <= 32, h <= 64), so each loop has a
-// fixed trip count; dNum and V carry dDen and the ones column at column 64,
-// so dW = G V1^T is one product of K = 72. Z_l and dH_l (r^2 (h + 1) f32,
-// 266 KB at r 32, h 64: more than an SM's 227 KB) are streamed two row
-// blocks at a time through a ring that reuses the diagonal's tile rings.
+//   grad_prep         g from dO, out and D (one warp a row).
+//   grad_fold         dZ_l = Qm_l^T [Qm_l (x) dNum_l | Qm_l (.) dDen_l]: the
+//                     forward's fold (polysketch_state.cuh's fold_block)
+//                     with the ones column replaced by dDen.
+//   grad_suffix       right to left from zero: dH_l over dZ_l in place, and
+//                     dz0 (prefix_scan).
+//   grad_query_state  dqm's state part, (M + M^T) qm with M = G Z_l^T, a
+//                     128-row tile of block l a CTA; writes dqm.
+//   grad_key_state    dkm's state part, (N + N^T) km with N = V1 dH_l^T,
+//                     and dv's, Phi(km) dHv_l, likewise; writes dkm and dv
+//                     (zeros for the last block, whose dH is zero).
+//   grad_query_diag   dq = dS K over the key stages up to the diagonal, a
+//                     128-query tile a CTA, recomputing S and dW; writes dq
+//                     (without local_exact, adds dS Km to dqm).
+//   grad_key_diag     dk = dS^T Q and dv += W^T dNum over the query stages
+//                     from the diagonal on, a 128-key tile a CTA,
+//                     recomputing S and dW; writes dk and adds to dv
+//                     (without local_exact, adds dS^T Qm to dkm).
+// The state kernels run before the diagonal kernels, so that each output
+// element is the state part plus the diagonal part, in that order.
 //
 // What bounds it. At the training shape (bh 24, n 4096, r 32, h 64, b 1024,
 // f32) the function needs ~78 GFLOP of products: four r^2-wide ones (the
@@ -47,8 +46,35 @@
 // before the last) and five over the diagonal's pairs (S, dW, dq, dk, dv).
 // In 3xTF32 at 495 TFLOP/s that is ~0.49 ms, bound by operations (1.2 ms
 // on the f32 FMA pipes); chip_smoke.py's b1_bwd_bound counts it from the
-// shapes. This design does ~13 GFLOP more: the query and the key kernel
-// each rebuild S and dW, so that neither needs atomics.
+// shapes. Each product is three TF32 products (common.cuh's split rule).
+// The seven kernels take 2.63 ms there on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/port_b1_bwd_ab.py, PERF.md), 19 % of that bound. What holds a
+// kernel back from it is less the tensor cores than the instructions
+// around them: splitting operands, the scores' powers and masks, staging.
+// The design:
+// - Every CTA has 8 warps (two warpgroups of 64 own rows) and one CTA an
+//   SM: the other side's rows stream through shared memory in stages that
+//   both warpgroups share, so each stage is copied and split once for 128
+//   own rows.
+// - The state work has kernels of its own, tiled for it: a 266 KB Z_l or
+//   dH_l crosses L2 into shared memory 8 times per (bh, block), one sketch
+//   row e (r x (h + 1)) a stage, through a cp.async ring of 3 stages; the
+//   warp's own rows of G (or V1) stay split in registers for all r stages.
+// - Every staged operand is split into its TF32 high and low halves once,
+//   by the thread that copied it, into "planes" of 8 x 4 core matrices, in
+//   the layout each product reads (see Plane). An operand read along both
+//   of its axes (K for S and for dq; Q for S^T and for dk; dNum for dW^T
+//   and for dv) gets a second, transposed plane whose key order is
+//   permuted within each 8, so that the scores' accumulator is the next
+//   product's A operand as it stands.
+// - The products are wgmma (m64n32k8 and m64n64k8, B from the planes by
+//   descriptor, A from registers), each k-step its own group so that few
+//   A fragments are live. Two plane sets: stage st + 1 is split while
+//   stage st's last wgmma run.
+// - The scores' powers are taken over the whole fragment, the loop over
+//   the degree's bits outside (as the forward's PowWeight).
+// - The query and the key kernel each rebuild S and dW (~13 GFLOP over the
+//   bound), the price of having no atomics.
 // Only float32 is taken in this slice.
 
 #include <stddef.h>
@@ -61,11 +87,17 @@ namespace {
 constexpr int kBwdR = 32;             // sketch width r, zero-padded (r <= 32)
 constexpr int kBwdH = 64;             // head width h, zero-padded (h <= 64)
 constexpr int kBwdKg = kBwdH + 8;     // [Y | y | 0]: y at column kBwdH
-constexpr int kZPer = 2;              // state row blocks per staged chunk
-constexpr int kDxs = kBwdR + 1;       // row stride of the dx scratch
 constexpr int kPrepWarps = 8;
-constexpr int kGs = pair_frag_stride(kBwdKg);   // stride of G, V1 and state tiles
-constexpr int kMs = pair_frag_stride(kBwdR);    // stride of sketch tiles
+constexpr int kDiagWarps = 8;         // a diagonal CTA: 128 own rows, 16 a warp
+constexpr int kDiagThreads = 32 * kDiagWarps;
+constexpr int kDiagRows = 16 * kDiagWarps;
+constexpr int kStage = 32;            // the other side's rows a stage
+constexpr int kStateWarps = 8;        // a state CTA: 128 own rows, 16 a warp
+constexpr int kStateThreads = 32 * kStateWarps;
+constexpr int kStateRows = 16 * kStateWarps;
+constexpr int kZRing = 3;             // cp.async stages of the state kernels
+constexpr int kSks = kBwdR + 4;       // row stride of a state CTA's sketch tile
+constexpr int kDxs = kBwdR + 1;       // row stride of the dx scratch
 
 template <int kN>
 __device__ __forceinline__ void zero(float (&x)[kN][4]) {
@@ -75,74 +107,479 @@ __device__ __forceinline__ void zero(float (&x)[kN][4]) {
     for (int c = 0; c < 4; ++c) x[i][c] = 0.f;
 }
 
-// x^p for p >= 0 by repeated squaring (x^0 = 1), in PowWeight's order.
-__device__ __forceinline__ float pow_int(float x, int p) {
-  float w = 1.f;
+// y = x^p element by element for p >= 0 (x^0 = 1), by repeated squaring
+// in PowWeight's order; x is consumed. The loop over the bits of p runs
+// once for the whole fragment.
+template <int kN>
+__device__ __forceinline__ void pow_frag(float (&y)[kN][4], float (&x)[kN][4], int p) {
   bool have = false;
-  while (p > 0) {
+  for (; p > 0;) {
     if (p & 1) {
-      w = have ? w * x : x;
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[i][c] = have ? y[i][c] * x[i][c] : x[i][c];
       have = true;
     }
     p >>= 1;
-    if (p > 0) x *= x;
-  }
-  return w;
-}
-
-// s[nt] += A B^T for the calling warp in 3xTF32: A = 16 rows at a (stride
-// as), B = 8 kN rows at b (stride bs), over kK columns (a multiple of 8,
-// zero past the data in both). s[nt][c] is element (g + 8 (c >> 1),
-// 8 nt + 2t + (c & 1)).
-template <int kN, int kK>
-__device__ __forceinline__ void warp_abt(float (&s)[kN][4], const float* a, int as,
-                                         const float* b, int bs) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* pa = a + g * as + t;
-  const float* pb = b + g * bs + t;
+    if (p > 0) {
 #pragma unroll
-  for (int kk = 0; kk < kK; kk += 8) {
-    const FragA fa = split_a(pa[kk], pa[kk + 8 * as], pa[kk + 4], pa[kk + 8 * as + 4]);
-    FragB fb[kN];
+      for (int i = 0; i < kN; ++i)
 #pragma unroll
-    for (int nt = 0; nt < kN; ++nt) {
-      fb[nt] = split_b(pb[nt * 8 * bs + kk], pb[nt * 8 * bs + kk + 4]);
+        for (int c = 0; c < 4; ++c) x[i][c] *= x[i][c];
     }
-    mma_3xtf32(s, 0, fa, fb, kN);
   }
-}
-
-// acc[nd] += S B for the calling warp: S is the 16 x 64 accumulator s taken
-// as the A operand in place (k index t stands for column 2t of each group of
-// 8, t + 4 for 2t + 1, as tc_tile_accumulate takes W), B = 64 rows at b
-// (stride bs), n-tiles nd < kNO.
-template <int kNO>
-__device__ __forceinline__ void warp_sb(float (&acc)[kNO][4], const float (&s)[8][4],
-                                        const float* b, int bs) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if (!have) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
-    mma_3xtf32_cols(acc, a, b + (kk * 8 + 2 * t) * bs + g, bs, kNO);
+    for (int i = 0; i < kN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y[i][c] = 1.f;
   }
 }
 
-// The gradient of x through row block e of a state Y (rows c < kBwdR at
-// slot, columns d < kBwdKg, stride kGs), for the warp's 16 rows: with
-// N[row, c] = sum_d Y[e, c, d] w[row, d] (w: the warp's rows of [W | w],
-// stride kGs),
+// The scores' transforms at the diagonal, in place: s = S (or S^T), w =
+// dW: with x = s * scale (local_exact) or s,
+//   w <- dS = p x^(p-1) scale dW (or 2 x dW),
+//   s <- W = x^p (or x^2) when kW,
+// both zero where keep(nt, c) is false. Half the n-tiles at a time, so
+// that the powers' temporaries take few registers.
+template <bool kLocalExact, bool kW, int kN, typename Keep>
+__device__ __forceinline__ void score_grads(float (&s)[kN][4], float (&w)[kN][4], int degree,
+                                            float scale, Keep keep) {
+  constexpr int kH = kN / 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float(&sh)[kH][4] = *reinterpret_cast<float(*)[kH][4]>(&s[half * kH]);
+    float(&wh)[kH][4] = *reinterpret_cast<float(*)[kH][4]>(&w[half * kH]);
+    if (kLocalExact) {
+      float x[kH][4], y[kH][4];
+#pragma unroll
+      for (int i = 0; i < kH; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[i][c] = sh[i][c] * scale;
+      pow_frag(y, x, degree - 1);
+#pragma unroll
+      for (int i = 0; i < kH; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wh[i][c] = (float)degree * y[i][c] * scale * wh[i][c];
+      if (kW) {
+#pragma unroll
+        for (int i = 0; i < kH; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) x[i][c] = sh[i][c] * scale;
+        pow_frag(sh, x, degree);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kH; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          wh[i][c] = 2.f * sh[i][c] * wh[i][c];
+          if (kW) sh[i][c] = sh[i][c] * sh[i][c];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kH; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool k = keep(half * kH + i, c);
+        wh[i][c] = k ? wh[i][c] : 0.f;
+        if (kW) sh[i][c] = k ? sh[i][c] : 0.f;
+      }
+  }
+}
+
+// Warpgroup products (wgmma, sm_90a): d (this warp's 16 rows of the 64 x n
+// result, in mma.sync's accumulator layout, n-tile j in d[j]) += A B^T,
+// A (64 x 8) from registers in mma.sync's A fragment layout (warp w: rows
+// 16w ..), B (n x 8, K-major) from shared memory by descriptor. Async: the
+// results are in d after wg_commit, wg_wait and reg_fence.
+__device__ __forceinline__ void wgmma_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most one committed group is in flight: the A registers of
+// the groups before it are free again.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads (wgmma's) of it.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving uses of d above wg_wait.
+template <int kN>
+__device__ __forceinline__ void reg_fence(float (&d)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[i][c])::"memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void wg_mma(float (&d)[kN][4], const uint32_t (&a)[4], uint64_t desc) {
+  static_assert(kN == 4 || kN == 8, "wgmma n32 or n64");
+  if constexpr (kN == 4) {
+    wgmma_n32(d, a, desc);
+  } else {
+    wgmma_n64(d, a, desc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Split planes. An operand of kR rows (the mma's m or n index) by kC columns
+// (its k index) is kept as two planes, its TF32 high halves and its low
+// halves (split_tf32's bits), each in 8 x 4 core matrices of 128
+// contiguous bytes: element (row, col) at
+//   (col / 4) * kCS + (row / 8) * kGS + (row % 8) * 4 + col % 4.
+// This is the canonical K-major layout of wgmma without swizzle (see
+// plane_desc). A transposed plane (kT) is
+// written one element at a time by lanes that hold 8 consecutive rows of
+// 4 consecutive chunks of its source; kGS = 36 and kCS = 8 (mod 32) make
+// those writes free of conflicts too.
+// ---------------------------------------------------------------------------
+
+template <int kR, int kC, bool kT>
+struct Plane {
+  static_assert(kR % 16 == 0 && kC % 8 == 0, "planes hold whole fragments");
+  static constexpr int kGS = kT ? 36 : 32;
+  static constexpr int kCS0 = kR / 8 * kGS;
+  static constexpr int kCS = kT ? kCS0 + (40 - kCS0 % 32) % 32 : kCS0;
+  static constexpr int kFloats = kC / 4 * kCS;   // one plane
+  __device__ static int off(int row, int col) {
+    return (col >> 2) * kCS + (row >> 3) * kGS + (row & 7) * 4 + (col & 3);
+  }
+};
+
+// The descriptor of a plane at p for wgmma: K-major, no swizzle; the
+// leading byte offset is the step between the two core matrices of a
+// k-step (kCS), the stride byte offset the step between 8-row groups (kGS).
+template <class P>
+__device__ __forceinline__ uint64_t plane_desc(const float* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a >> 4) & 0x3fff) | ((uint64_t)(P::kCS >> 2) << 16) |
+         ((uint64_t)(P::kGS >> 2) << 32);
+}
+
+// The position of key j of a stage in a transposed plane: within each 8,
+// key 2u at u and key 2u + 1 at u + 4, the order in which an accumulator
+// of scores holds them as an A operand.
+__device__ __forceinline__ int perm8(int j) {
+  return (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+}
+
+// Row stride of a raw staged tile of kNC 16-byte chunks a row: odd in
+// chunks, so that 8 lanes reading one chunk of 8 rows hit distinct banks.
+__host__ __device__ constexpr int raw_stride(int nc) { return 4 * (nc | 1); }
+
+// The (row, chunk) pairs of a kRows x kNC tile that this thread copies and
+// later splits: 8 consecutive rows of one chunk for each 8 lanes, 4 chunks
+// a warp. Unrolled: a rolled loop between a wgmma's issue and its wait
+// makes ptxas serialize the wgmma.
+template <int kThreads, int kRows, int kNC, typename F>
+__device__ __forceinline__ void for_chunks(F fn) {
+  constexpr int kTotal = kRows * kNC;
+#pragma unroll
+  for (int i = 0; i < (kTotal + kThreads - 1) / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (kTotal % kThreads == 0 || idx < kTotal) {
+      const int u = idx >> 3;
+      fn((u / kNC) * 8 + (idx & 7), u % kNC);
+    }
+  }
+}
+
+// Issue the copy of chunk `chunk` of one row (`width` values of `src`, a
+// row of global memory) into `dst` (the row in the raw tile): 16 bytes
+// when `vec`, else one value at a time; columns past width are not copied.
+__device__ __forceinline__ void copy_chunk(float* dst, const float* src, int chunk, int width,
+                                           bool vec) {
+  const int c0 = 4 * chunk;
+  if (c0 >= width) return;
+  if (vec) {
+    cp_async16(dst + c0, src + c0, true);
+  } else {
+    for (int i = 0; i < 4 && c0 + i < width; ++i) cp_async4(dst + c0 + i, src + c0 + i, true);
+  }
+}
+
+// 16-byte copies are possible when every row starts 16-byte aligned.
+__device__ __forceinline__ bool vec_ok(const float* src, int width) {
+  return (width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+}
+
+// The chunk `chunk` of a raw row as 4 values: zero past `width` columns and
+// for rows past the staged ones (their raw memory is stale).
+__device__ __forceinline__ float4 read_chunk(const float* raw_row, int chunk, int width,
+                                             bool valid) {
+  const int c0 = 4 * chunk;
+  if (!valid || c0 >= width) return make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x = *reinterpret_cast<const float4*>(raw_row + c0);
+  if (c0 + 4 > width) {
+    if (c0 + 1 >= width) x.y = 0.f;
+    if (c0 + 2 >= width) x.z = 0.f;
+    x.w = 0.f;
+  }
+  return x;
+}
+
+// Split 4 values into the hi and lo planes at offset o (16 bytes each).
+__device__ __forceinline__ void put4(float* hi, float* lo, int o, float4 x) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+__device__ __forceinline__ void put1(float* hi, float* lo, int o, float x) {
+  uint32_t h, l;
+  split_tf32(x, h, l);
+  hi[o] = __uint_as_float(h);
+  lo[o] = __uint_as_float(l);
+}
+
+// Split one chunk (4 columns c0 .. c0 + 3 of source row `row`) into the
+// transposed plane PT: element (row, c) at PT row c, column perm8(row)
+// (kPerm) or row.
+template <class PT, bool kPerm>
+__device__ __forceinline__ void put_t(float* hi, float* lo, int row, int c0, float4 x) {
+  const int col = kPerm ? perm8(row) : row;
+  put1(hi, lo, PT::off(c0, col), x.x);
+  put1(hi, lo, PT::off(c0 + 1, col), x.y);
+  put1(hi, lo, PT::off(c0 + 2, col), x.z);
+  put1(hi, lo, PT::off(c0 + 3, col), x.w);
+}
+
+// Two products at once for the warpgroup: acc1 += A1 B1^T and acc2 += A2
+// B2^T, the three products of each k-step wgmma over all n-tiles, B read
+// from the planes by descriptor, the two products' wgmma alternating. A
+// operands are split per k-step. kAcc: A is a 16 x 8 kKS block of scores
+// in accumulator layout, taken as the A operand in place (k index t stands
+// for column 2t of each 8, t + 4 for 2t + 1), which B's transposed plane
+// matches by its permuted columns (perm8). kKS2 may be 0. Each
+// k-step is a group of its own, and the one before it is waited for: a
+// group's A registers stay allocated until it completes, so no more than
+// two k-steps' fragments are live. The caller commits and waits for the
+// last.
+template <bool kAcc>
+__device__ __forceinline__ FragA split_frag(const float (&x)[4]) {
+  return kAcc ? split_a(x[0], x[2], x[1], x[3]) : split_a(x[0], x[1], x[2], x[3]);
+}
+
+template <bool kAcc, int kN1, int kKS1, class P1, int kN2, int kKS2, class P2, class A2>
+__device__ __forceinline__ void wg_pair(float (&acc1)[kN1][4], const float (&a1)[kKS1][4],
+                                        const float* hi1, const float* lo1,
+                                        float (&acc2)[kN2][4], const A2& a2, const float* hi2,
+                                        const float* lo2) {
+  constexpr int kKS = kKS1 > kKS2 ? kKS1 : kKS2;
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    FragA f1, f2;
+    uint64_t h1 = 0, l1 = 0, h2 = 0, l2 = 0;
+    if (kk < kKS1) {
+      f1 = split_frag<kAcc>(a1[kk]);
+      h1 = plane_desc<P1>(hi1 + 2 * kk * P1::kCS);
+      l1 = plane_desc<P1>(lo1 + 2 * kk * P1::kCS);
+    }
+    if (kk < kKS2) {
+      f2 = split_frag<kAcc>(a2[kk]);
+      h2 = plane_desc<P2>(hi2 + 2 * kk * P2::kCS);
+      l2 = plane_desc<P2>(lo2 + 2 * kk * P2::kCS);
+    }
+    wg_fence();
+    if (kk < kKS1) wg_mma(acc1, f1.lo, h1);
+    if (kk < kKS2) wg_mma(acc2, f2.lo, h2);
+    if (kk < kKS1) wg_mma(acc1, f1.hi, l1);
+    if (kk < kKS2) wg_mma(acc2, f2.hi, l2);
+    if (kk < kKS1) wg_mma(acc1, f1.hi, h1);
+    if (kk < kKS2) wg_mma(acc2, f2.hi, h2);
+    wg_commit();
+    wg_wait1();
+  }
+}
+
+// The warp's A fragments of rows `row` and `row + 8` of a tile, columns
+// 8kk + t and 8kk + t + 4 of a `width`-wide row-major matrix (stride
+// `width`), zero past `rows` and `width`.
+template <int kKS>
+__device__ __forceinline__ void load_a(float (&a)[kKS][4], const float* src, int row, int rows,
+                                       int width) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = row + 8 * (i & 1), c = 8 * kk + t + 4 * (i >> 1);
+      a[kk][i] = rr < rows && c < width ? src[(size_t)rr * width + c] : 0.f;
+    }
+  }
+}
+
+// The warp's A fragments of [Y | y | 0] (kBwdKg columns): Y `width` wide,
+// y at column kBwdH from `last` or, when last is null, 1 for rows < rows.
+__device__ __forceinline__ void load_a_y1(float (&a)[kBwdKg / 8][4], const float* y,
+                                          const float* last, int row, int rows, int width) {
+  load_a<kBwdH / 8>(reinterpret_cast<float(&)[kBwdH / 8][4]>(a), y, row, rows, width);
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = row + 8 * (i & 1);
+    const bool at_y = t == 0 && i < 2;   // column kBwdH = 8 * 8 + 0
+    a[kBwdKg / 8 - 1][i] =
+        at_y && rr < rows ? (last == nullptr ? 1.f : last[rr]) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// grad_prep: g = [dO / D | -(dO . out) / D], one warp a row.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32 * kPrepWarps)
+grad_prep(const float* __restrict__ dout, const float* __restrict__ out,
+          const float* __restrict__ den1, float* __restrict__ dnum, float* __restrict__ dden,
+          int rows, int h) {
+  const int row = blockIdx.x * kPrepWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float inv = 1.f / den1[row];
+  const size_t base = (size_t)row * h;
+  float dot = 0.f;
+  for (int d = lane; d < h; d += 32) {
+    const float go = dout[base + d];
+    dot += go * out[base + d];
+    dnum[base + d] = go * inv;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+  if (lane == 0) dden[row] = -dot * inv;
+}
+
+// grad_fold and grad_suffix: the forward's fold and prefix scan under the
+// backward's own names (see the header).
+__global__ void __launch_bounds__(kFoldThreads)
+grad_fold(const float* __restrict__ qm, const float* __restrict__ dnum,
+          const float* __restrict__ dden, float* __restrict__ dhv, float* __restrict__ dhd,
+          int n, int r, int h, int b) {
+  fold_block<float, 2>(qm, dnum, dden, dhv, dhd, n, r, h, b);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kPrefixThreads)
+grad_suffix(float* __restrict__ hv, float* __restrict__ hd, float* __restrict__ zv_out,
+            float* __restrict__ zd_out, int t, int rrh, int rr) {
+  prefix_scan<V, true>(hv, hd, nullptr, nullptr, zv_out, zd_out, t, rrh, rr);
+}
+
+// ---------------------------------------------------------------------------
+// The state kernels: one sketch row e of Z_l (or dH_l) a stage, r stages.
+// Stage e is Yv[e] (r rows c of h values) beside Yd[e] (r values, column
+// kBwdH): the raw tile kBwdR x raw_stride(17), split into the direct plane
+// PZ (c x d, for N = W Y[e]^T) and, for the key side, the transposed PZt
+// (d x c, for Phi_e(x) Yv[e]).
+// ---------------------------------------------------------------------------
+
+using PZ = Plane<kBwdR, kBwdKg, false>;
+using PZt = Plane<kBwdH, kBwdR, true>;
+constexpr int kZNC = kBwdH / 4 + 1;            // raw chunks a row: Yv, then Yd
+constexpr int kZRs = raw_stride(kZNC);
+constexpr int kZRaw = kBwdR * kZRs;
+
+template <bool kKey>
+struct StateSmem {
+  static constexpr int kPlanes = 2 * PZ::kFloats + (kKey ? 2 * PZt::kFloats : 0);
+  static constexpr int kFloats =
+      kZRing * kZRaw + 2 * kPlanes + kStateRows * (kSks + kDxs);
+  static constexpr size_t kBytes = (size_t)kFloats * sizeof(float);
+};
+
+// Issue the copies of stage e of a state (zv (., r, r*h), zd (., r, r); state
+// index `state`) into raw slot `raw`, and commit them as one group.
+__device__ __forceinline__ void issue_state(float* raw, const float* zv, const float* zd,
+                                            size_t state, int e, int r, int h, bool vec) {
+  const size_t zrow = state * r + e;
+  const float* yv = zv + zrow * r * h;
+  const float* yd = zd + zrow * r;
+  for_chunks<kStateThreads, kBwdR, kZNC>([&](int c, int chunk) {
+    if (c >= r) return;
+    if (chunk < kZNC - 1) {
+      copy_chunk(raw + c * kZRs, yv + (size_t)c * h, chunk, h, vec);
+    } else {
+      cp_async4(raw + c * kZRs + kBwdH, yd + c, true);
+    }
+  });
+  cp_async_commit();
+}
+
+// Split this thread's chunks of a raw state stage into the planes.
+template <bool kKey>
+__device__ __forceinline__ void split_state(const float* raw, float* p, int r, int h) {
+  float* z_hi = p;
+  float* z_lo = z_hi + PZ::kFloats;
+  float* t_hi = z_lo + PZ::kFloats;
+  float* t_lo = t_hi + PZt::kFloats;
+  for_chunks<kStateThreads, kBwdR, kZNC>([&](int c, int chunk) {
+    const float* row = raw + c * kZRs;
+    if (chunk < kZNC - 1) {
+      const float4 x = read_chunk(row, chunk, h, c < r);
+      put4(z_hi, z_lo, PZ::off(c, 4 * chunk), x);
+      if (kKey) put_t<PZt, false>(t_hi, t_lo, c, 4 * chunk, x);
+    } else {
+      put4(z_hi, z_lo, PZ::off(c, kBwdH), make_float4(c < r ? row[kBwdH] : 0.f, 0.f, 0.f, 0.f));
+    }
+  });
+}
+
+// The gradient of x through one row block e, for the warp's 16 rows: with
+// N[row, c] = nb (accumulator layout),
 //   dx[row, e] = sum_c N[row, c] x[row, c]   -> dx_s[row][e] (the quad's first thread)
-//   dx[row, c] += x[row, e] N[row, c]        -> acc (accumulator layout)
+//   dx[row, c] += x[row, e] N[row, c]        -> acc
 // xa: the thread's x[row, 8 (j / 2) + 2t + (j & 1)], rows g and g + 8;
 // xe: x[row, e].
-__device__ __forceinline__ void sym_block(float (&acc)[kBwdR / 8][4], float* dx_s, int e,
-                                          const float* w, const float* slot,
-                                          const float (&xa)[2][kBwdR / 4],
-                                          const float (&xe)[2]) {
+__device__ __forceinline__ void sym_contract(float (&acc)[kBwdR / 8][4],
+                                             const float (&nb)[kBwdR / 8][4], float* dx_s,
+                                             int e, const float (&xa)[2][kBwdR / 4],
+                                             const float (&xe)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float nb[kBwdR / 8][4];
-  zero(nb);
-  warp_abt<kBwdR / 8, kBwdKg>(nb, w, kGs, slot, kGs);
   float part[2] = {0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < kBwdR / 8; ++nt) {
@@ -159,375 +596,522 @@ __device__ __forceinline__ void sym_block(float (&acc)[kBwdR / 8][4], float* dx_
   }
 }
 
-// Stage the r row blocks [e0, e0 + ne) of a state (zv (., r, r*h), zd
-// (., r, r), state index `state`) into slots of kBwdR x kGs: [c][d] = Yv[e,
-// c*h + d], [c][kBwdH] = Yd[e, c]. The rest of each slot stays as zeroed.
-__device__ __forceinline__ void stage_state(float* zb, const float* zv, const float* zd,
-                                            size_t state, int e0, int ne, int r, int h) {
-  for (int i = 0; i < ne; ++i) {
-    const size_t zrow = state * r + e0 + i;
-    float* slot = zb + i * kBwdR * kGs;
-    stage_rows<kTcThreads>(slot, zv + zrow * r * h, r, r, h, kGs);
-    for (int c = threadIdx.x; c < r; c += kTcThreads) {
-      cp_async4(slot + c * kGs + kBwdH, zd + zrow * r + c, true);
-    }
-  }
-  cp_async_commit();
-}
-
-// Stage `rows` rows of dNum and dDen (from row `row0`) as a kTcTile x kGs
-// tile [dNum | dDen at kBwdH], zero past `rows`.
-__device__ __forceinline__ void stage_g(float* gd, const float* dnum, const float* dden,
-                                        size_t row0, int rows, int h) {
-  stage_rows<kTcThreads>(gd, dnum + row0 * h, rows, kTcTile, h, kGs);
-  for (int s = threadIdx.x; s < kTcTile; s += kTcThreads) {
-    cp_async4(gd + s * kGs + kBwdH, dden + row0 + (s < rows ? s : 0), s < rows);
-  }
-}
-
-// dS (or W) of one score and its dW at the diagonal: x = s * scale
-// (local_exact) or s; dS = p x^(p-1) scale dW, or 2 x dW.
-template <bool kLocalExact>
-__device__ __forceinline__ float dscore(float s, float dw, int degree, float scale) {
-  if (kLocalExact) return (float)degree * pow_int(s * scale, degree - 1) * scale * dw;
-  return 2.f * s * dw;
-}
-
-// Pass 0: g = [dO / D | -(dO . out) / D], one warp a row.
-__global__ void __launch_bounds__(32 * kPrepWarps)
-prep_kernel(const float* __restrict__ dout, const float* __restrict__ out,
-            const float* __restrict__ den1, float* __restrict__ dnum, float* __restrict__ dden,
-            int rows, int h) {
-  const int row = blockIdx.x * kPrepWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float inv = 1.f / den1[row];
-  const size_t base = (size_t)row * h;
-  float dot = 0.f;
-  for (int d = lane; d < h; d += 32) {
-    const float go = dout[base + d];
-    dot += go * out[base + d];
-    dnum[base + d] = go * inv;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-  if (lane == 0) dden[row] = -dot * inv;
-}
-
-// The shared-memory layout of both tile kernels: the CTA's own tile (G or
-// V1, the sketch x, the scores' features, dx scratch) and a ring of two of
-// the other side's tiles, reused as the state ring after the diagonal.
-template <bool kLocalExact>
-struct TileSmem {
-  static constexpr int kF = kLocalExact ? kBwdH : kBwdR;   // the scores' features
-  static constexpr int kFs = pair_frag_stride(kF);
-  static constexpr int kOwn = kTcTile * (kGs + kMs + (kLocalExact ? kFs : 0) + kDxs);
-  static constexpr int kRing = 2 * kKeyTile * (kFs + kGs);
-  static constexpr int kZRing = 2 * kZPer * kBwdR * kGs;
-  static constexpr size_t kBytes =
-      (size_t)(kOwn + (kRing > kZRing ? kRing : kZRing)) * sizeof(float);
-};
-
-// Zero the own tiles' padding and the rings, then wait for every thread:
-// the staging that follows rewrites some of the zeroed columns (dDen, the
-// ones) with cp.async or plain stores of other threads.
-template <bool kLocalExact>
-__device__ __forceinline__ void zero_tiles(float* smem) {
-  using L = TileSmem<kLocalExact>;
-  for (int idx = threadIdx.x; idx < L::kOwn + L::kRing; idx += kTcThreads) smem[idx] = 0.f;
-  __syncthreads();
-}
-
-// Pass 3a: dqm (and dq) of one 64-query tile of block l. grid (ceil(b/64),
-// t, bh), the last tile first; warp w owns rows 16w .. 16w + 15.
-template <bool kLocalExact>
-__global__ void __launch_bounds__(kTcThreads)
-query_kernel(const float* __restrict__ qm, const float* __restrict__ km,
-             const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dnum,
-             const float* __restrict__ dden, const float* __restrict__ zv,
-             const float* __restrict__ zd, float* __restrict__ dqm, float* __restrict__ dq,
-             int n, int r, int h, int b, int degree, float scale) {
-  using L = TileSmem<kLocalExact>;
-  constexpr int kF = L::kF, kFs = L::kFs;
-  const int qt = gridDim.x - 1 - blockIdx.x, l = blockIdx.y, bh = blockIdx.z, t = gridDim.y;
+// grad_query_state (kKey false): dqm = (M + M^T) qm, M = G Z_l^T.
+// grad_key_state (kKey true): dkm = (N + N^T) km, N = V1 dH_l^T, and
+// dv = Phi(km) dHv_l; zeros for the last block.
+// grid (ceil(b / 128), t, bh); warp w owns rows 16w .. 16w + 15 of the tile.
+template <bool kKey>
+__device__ __forceinline__ void state_tile(const float* __restrict__ x,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ wlast,
+                                           const float* __restrict__ zv,
+                                           const float* __restrict__ zd, float* __restrict__ dx,
+                                           float* __restrict__ dv, int n, int r, int h, int b) {
+  const int l = blockIdx.y, t = gridDim.y, bh = blockIdx.z;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int wrow = (threadIdx.x >> 5) * 16;
-  const int q0 = qt * kTcTile, qrows = min(kTcTile, b - q0);
-  const int f = kLocalExact ? h : r;
+  const int r0 = blockIdx.x * kStateRows, rows = min(kStateRows, b - r0);
+  const size_t row0 = (size_t)bh * n + (size_t)l * b + r0;
+  if (kKey && l + 1 == t) {   // dH of the last block is zero
+    for (int i = threadIdx.x; i < rows * r; i += kStateThreads) dx[row0 * r + i] = 0.f;
+    for (int i = threadIdx.x; i < rows * h; i += kStateThreads) dv[row0 * h + i] = 0.f;
+    return;
+  }
+  using L = StateSmem<kKey>;
   extern __shared__ __align__(16) float smem[];
-  float* g_s = smem;                                        // kTcTile x kGs
-  float* qm_s = g_s + kTcTile * kGs;                        // kTcTile x kMs
-  float* qf_s = kLocalExact ? qm_s + kTcTile * kMs : qm_s;  // kTcTile x kFs
-  float* dx_s = qf_s + kTcTile * kFs;                       // kTcTile x kDxs
-  float* k_ring = dx_s + kTcTile * kDxs;                    // 2 x kKeyTile x kFs
-  float* v_ring = k_ring + 2 * kKeyTile * kFs;              // 2 x kKeyTile x kGs
-  float* z_ring = k_ring;                                   // after the diagonal
+  float* raw = smem;                                   // kZRing x kZRaw
+  float* planes = raw + kZRing * kZRaw;                // 2 x L::kPlanes
+  float* x_s = planes + 2 * L::kPlanes;                // kStateRows x kSks
+  float* dx_s = x_s + kStateRows * kSks;               // kStateRows x kDxs
 
-  zero_tiles<kLocalExact>(smem);
-  const size_t row0 = (size_t)bh * n + (size_t)l * b;
-  const float* kf_src = kLocalExact ? k : km;
-  stage_g(g_s, dnum, dden, row0 + q0, qrows, h);
-  stage_rows<kTcThreads>(qm_s, qm + (row0 + q0) * r, qrows, kTcTile, r, kMs);
-  if (kLocalExact) stage_rows<kTcThreads>(qf_s, q + (row0 + q0) * h, qrows, kTcTile, h, kFs);
+  // PZ's last chunk (columns kBwdH + 4 ..) and x_s's columns past r stay
+  // zero: no copy or split writes them.
+  for (int i = threadIdx.x; i < 4 * PZ::kCS; i += kStateThreads) {
+    const int j = i / PZ::kCS;   // buffer j / 2, hi or lo plane j % 2
+    planes[(j >> 1) * L::kPlanes + (j & 1) * PZ::kFloats + (kBwdKg / 4 - 1) * PZ::kCS +
+           i % PZ::kCS] = 0.f;
+  }
+  zero_pad_cols<kStateThreads>(x_s, kStateRows, r, kSks);
+  stage_rows<kStateThreads>(x_s, x + row0 * r, rows, kStateRows, r, kSks);
+  const size_t state = (size_t)bh * t + l;
+  const bool vec = vec_ok(zv, h);
+  issue_state(raw, zv, zd, state, 0, r, h, vec);       // closes the group of x_s
+  if (r > 1) issue_state(raw + kZRaw, zv, zd, state, 1, r, h, vec);
 
-  // ---- diagonal block: dq = dS K over the key tiles up to the diagonal ----
-  float acc[kF / 8][4];
-  zero(acc);
-  const int ktiles = (q0 + qrows + kKeyTile - 1) / kKeyTile;
-  const auto stage = [&](int kt) {
-    const int k0 = kt * kKeyTile, rows = min(kKeyTile, b - k0);
-    float* kd = k_ring + (kt & 1) * kKeyTile * kFs;
-    float* vd = v_ring + (kt & 1) * kKeyTile * kGs;
-    stage_rows<kTcThreads>(kd, kf_src + (row0 + k0) * f, rows, kKeyTile, f, kFs);
-    stage_rows<kTcThreads>(vd, v + (row0 + k0) * h, rows, kKeyTile, h, kGs);
-    for (int s = threadIdx.x; s < kKeyTile; s += kTcThreads) {
-      vd[s * kGs + kBwdH] = s < rows ? 1.f : 0.f;
-    }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) {
-      stage(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = kt * kKeyTile, krows = min(kKeyTile, b - k0);
-    const float* k_s = k_ring + (kt & 1) * kKeyTile * kFs;
-    const float* v_s = v_ring + (kt & 1) * kKeyTile * kGs;
-    float s[8][4], w[8][4];
-    zero(s);
-    zero(w);
-    warp_abt<8, kF>(s, qf_s + wrow * kFs, kFs, k_s, kFs);        // S = Q K^T
-    warp_abt<8, kBwdKg>(w, g_s + wrow * kGs, kGs, v_s, kGs);     // dW = G V1^T
+  // The warp's rows of W = [w | wlast or 1], split once for all r stages.
+  FragA wa[kBwdKg / 8];
+  {
+    float a[kBwdKg / 8][4];
+    load_a_y1(a, w + row0 * h + (size_t)wrow * h, wlast == nullptr ? nullptr : wlast + row0 + wrow,
+              g, rows - wrow, h);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = wrow + g + 8 * (c >> 1), j = nt * 8 + 2 * t4 + (c & 1);
-        const bool keep = row < qrows && j < krows && k0 + j <= q0 + row;
-        s[nt][c] = keep ? dscore<kLocalExact>(s[nt][c], w[nt][c], degree, scale) : 0.f;
-      }
+    for (int kk = 0; kk < kBwdKg / 8; ++kk) {
+      wa[kk] = split_a(a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
     }
-    warp_sb<kF / 8>(acc, s, k_s, kFs);
-    __syncthreads();
   }
 
-  // ---- through the prefix: dqm = (M + M^T) qm, M = Z_l g ----
-  float xa[2][kBwdR / 4];
+  // Stage 0 into planes 0; then, each stage e, stage e + 1 is split into
+  // the other planes while the products of stage e run, and stage e + 3 is
+  // copied.
+  if (r > 1) {
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  split_state<kKey>(raw, planes, r, h);
+  if (r > 2) issue_state(raw + 2 * kZRaw, zv, zd, state, 2, r, h, vec);
+  fence_async_smem();
+  __syncthreads();
+  float xa[2][kBwdR / 4], xk[2][kBwdR / 4];   // accumulator layout; A layout (c = t + 4j)
 #pragma unroll
   for (int j = 0; j < kBwdR / 4; ++j) {
     const int c = (j >> 1) * 8 + 2 * t4 + (j & 1);
-    xa[0][j] = qm_s[(wrow + g) * kMs + c];
-    xa[1][j] = qm_s[(wrow + g + 8) * kMs + c];
+    xa[0][j] = x_s[(wrow + g) * kSks + c];
+    xa[1][j] = x_s[(wrow + g + 8) * kSks + c];
+    xk[0][j] = x_s[(wrow + g) * kSks + t4 + 4 * j];
+    xk[1][j] = x_s[(wrow + g + 8) * kSks + t4 + 4 * j];
   }
-  float acc2[kBwdR / 8][4];
-  zero(acc2);
-  for (int idx = threadIdx.x; idx < L::kZRing; idx += kTcThreads) z_ring[idx] = 0.f;
-  __syncthreads();
-  const size_t state = (size_t)bh * t + l;
-  const int zchunks = (r + kZPer - 1) / kZPer;
-  const auto stage_z = [&](int ch) {
-    const int e0 = ch * kZPer;
-    stage_state(z_ring + (ch & 1) * kZPer * kBwdR * kGs, zv, zd, state, e0,
-                min(kZPer, r - e0), r, h);
-  };
-  stage_z(0);
-  for (int ch = 0; ch < zchunks; ++ch) {
-    if (ch + 1 < zchunks) {
-      stage_z(ch + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int e0 = ch * kZPer, ne = min(kZPer, r - e0);
-    for (int i = 0; i < ne; ++i) {
-      const int e = e0 + i;
-      const float xe[2] = {qm_s[(wrow + g) * kMs + e], qm_s[(wrow + g + 8) * kMs + e]};
-      sym_block(acc2, dx_s + wrow * kDxs, e, g_s + wrow * kGs,
-                z_ring + ((ch & 1) * kZPer + i) * kBwdR * kGs, xa, xe);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int nd = 0; nd < kBwdR / 8; ++nd) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
-      if (row < qrows && col < r) {
-        float x = acc2[nd][c] + dx_s[row * kDxs + col];
-        if (!kLocalExact) x += acc[nd][c];
-        dqm[(row0 + q0 + row) * r + col] = x;
-      }
-    }
-  }
-  if (kLocalExact) {
-#pragma unroll
-    for (int nd = 0; nd < kF / 8; ++nd) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
-        if (row < qrows && col < h) dq[(row0 + q0 + row) * h + col] = acc[nd][c];
-      }
-    }
-  }
-}
-
-// Pass 3b: dkm, dv (and dk) of one 64-key tile of block l. grid
-// (ceil(b/64), t, bh), the first tile (most query tiles) first; warp w owns
-// keys 16w .. 16w + 15.
-template <bool kLocalExact>
-__global__ void __launch_bounds__(kTcThreads)
-key_kernel(const float* __restrict__ qm, const float* __restrict__ km,
-           const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dnum,
-           const float* __restrict__ dden, const float* __restrict__ dhv,
-           const float* __restrict__ dhd, float* __restrict__ dkm, float* __restrict__ dk,
-           float* __restrict__ dv, int n, int r, int h, int b, int degree, float scale) {
-  using L = TileSmem<kLocalExact>;
-  constexpr int kF = L::kF, kFs = L::kFs;
-  const int kt = blockIdx.x, l = blockIdx.y, bh = blockIdx.z, t = gridDim.y;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int wrow = (threadIdx.x >> 5) * 16;
-  const int k0 = kt * kKeyTile, krows = min(kKeyTile, b - k0);
-  const int f = kLocalExact ? h : r;
-  extern __shared__ __align__(16) float smem[];
-  float* v1_s = smem;                                       // kTcTile x kGs
-  float* km_s = v1_s + kTcTile * kGs;                       // kTcTile x kMs
-  float* kf_s = kLocalExact ? km_s + kTcTile * kMs : km_s;  // kTcTile x kFs
-  float* dx_s = kf_s + kTcTile * kFs;                       // kTcTile x kDxs
-  float* q_ring = dx_s + kTcTile * kDxs;                    // 2 x kTcTile x kFs
-  float* g_ring = q_ring + 2 * kTcTile * kFs;               // 2 x kTcTile x kGs
-  float* z_ring = q_ring;                                   // after the diagonal
-
-  zero_tiles<kLocalExact>(smem);
-  const size_t row0 = (size_t)bh * n + (size_t)l * b;
-  const float* qf_src = kLocalExact ? q : qm;
-  stage_rows<kTcThreads>(v1_s, v + (row0 + k0) * h, krows, kTcTile, h, kGs);
-  for (int s = threadIdx.x; s < kTcTile; s += kTcThreads) {
-    v1_s[s * kGs + kBwdH] = s < krows ? 1.f : 0.f;
-  }
-  stage_rows<kTcThreads>(km_s, km + (row0 + k0) * r, krows, kTcTile, r, kMs);
-  if (kLocalExact) stage_rows<kTcThreads>(kf_s, k + (row0 + k0) * h, krows, kTcTile, h, kFs);
-
-  // ---- diagonal block: dv = W^T dNum, dk = dS^T Q from the diagonal on ----
-  float dva[kBwdH / 8][4], dka[kF / 8][4];
+  float acc[kBwdR / 8][4], dva[kBwdH / 8][4];
+  zero(acc);
   zero(dva);
-  zero(dka);
-  const int nqt = (b + kTcTile - 1) / kTcTile;
-  const auto stage = [&](int qt) {
-    const int q0 = qt * kTcTile, rows = min(kTcTile, b - q0);
-    float* qd = q_ring + (qt & 1) * kTcTile * kFs;
-    stage_rows<kTcThreads>(qd, qf_src + (row0 + q0) * f, rows, kTcTile, f, kFs);
-    stage_g(g_ring + (qt & 1) * kTcTile * kGs, dnum, dden, row0 + q0, rows, h);
-    cp_async_commit();
-  };
-  stage(kt);
-  for (int qt = kt; qt < nqt; ++qt) {
-    if (qt + 1 < nqt) {
-      stage(qt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = qt * kTcTile, qrows = min(kTcTile, b - q0);
-    const float* q_s = q_ring + (qt & 1) * kTcTile * kFs;
-    const float* g_s = g_ring + (qt & 1) * kTcTile * kGs;
-    float s[8][4], w[8][4];
-    zero(s);
-    zero(w);
-    warp_abt<8, kF>(s, kf_s + wrow * kFs, kFs, q_s, kFs);       // S^T = K Q^T
-    warp_abt<8, kBwdKg>(w, v1_s + wrow * kGs, kGs, g_s, kGs);   // dW^T = V1 G^T
+  for (int e = 0; e < r; ++e) {
+    const float* p = planes + (e & 1) * L::kPlanes;
+    const float* t_hi = p + 2 * PZ::kFloats;
+    const float xe[2] = {x_s[(wrow + g) * kSks + e], x_s[(wrow + g + 8) * kSks + e]};
+    // Phi_e(km) as the cross product's A operand: A[row, c] = km[row, e] km[row, c]
+    FragA phi[kBwdR / 8];
+    if (kKey) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = wrow + g + 8 * (c >> 1), i = nt * 8 + 2 * t4 + (c & 1);
-        const bool keep = key < krows && i < qrows && k0 + key <= q0 + i;
-        const float x = kLocalExact ? s[nt][c] * scale : s[nt][c];
-        const float wgt = kLocalExact ? pow_int(x, degree) : x * x;
-        w[nt][c] = keep ? dscore<kLocalExact>(s[nt][c], w[nt][c], degree, scale) : 0.f;
-        s[nt][c] = keep ? wgt : 0.f;
+      for (int kk = 0; kk < kBwdR / 8; ++kk) {
+        phi[kk] = split_a(xe[0] * xk[0][2 * kk], xe[1] * xk[1][2 * kk],
+                          xe[0] * xk[0][2 * kk + 1], xe[1] * xk[1][2 * kk + 1]);
       }
     }
-    warp_sb<kBwdH / 8>(dva, s, g_s, kGs);   // the first h columns of G: dNum
-    warp_sb<kF / 8>(dka, w, q_s, kFs);
-    __syncthreads();
-  }
-
-  // ---- through dH_l (zero for the last block) ----
-  float acc2[kBwdR / 8][4];
-  zero(acc2);
-  const bool through_dh = l + 1 < t;
-  if (through_dh) {
-    float xa[2][kBwdR / 4], xk[2][kBwdR / 4];   // accumulator layout; A layout (c = t + 4j)
+    // N = W Y[e]^T beside dv += Phi_e(km) dHv[e], the two chains' wgmma
+    // alternating
+    float nb[kBwdR / 8][4];
+    zero(nb);
+    wg_fence();
 #pragma unroll
-    for (int j = 0; j < kBwdR / 4; ++j) {
-      const int c = (j >> 1) * 8 + 2 * t4 + (j & 1);
-      xa[0][j] = km_s[(wrow + g) * kMs + c];
-      xa[1][j] = km_s[(wrow + g + 8) * kMs + c];
-      xk[0][j] = km_s[(wrow + g) * kMs + t4 + 4 * j];
-      xk[1][j] = km_s[(wrow + g + 8) * kMs + t4 + 4 * j];
+    for (int kk = 0; kk < kBwdKg / 8; ++kk) {
+      const uint64_t dh = plane_desc<PZ>(p + 2 * kk * PZ::kCS);
+      const uint64_t dl = plane_desc<PZ>(p + PZ::kFloats + 2 * kk * PZ::kCS);
+      const int kc = kk >> 1;   // the cross product's k-step beside this pair
+      const bool cross = kKey && (kk & 1) == 0 && kc < kBwdR / 8;
+      const uint64_t th = cross ? plane_desc<PZt>(t_hi + 2 * kc * PZt::kCS) : 0;
+      const uint64_t tl = cross ? plane_desc<PZt>(t_hi + PZt::kFloats + 2 * kc * PZt::kCS) : 0;
+      wg_mma(nb, wa[kk].lo, dh);
+      if (cross) wg_mma(dva, phi[kc].lo, th);
+      wg_mma(nb, wa[kk].hi, dl);
+      if (cross) wg_mma(dva, phi[kc].hi, tl);
+      wg_mma(nb, wa[kk].hi, dh);
+      if (cross) wg_mma(dva, phi[kc].hi, th);
     }
-    for (int idx = threadIdx.x; idx < L::kZRing; idx += kTcThreads) z_ring[idx] = 0.f;
-    __syncthreads();
-    const size_t state = (size_t)bh * t + l;
-    const int zchunks = (r + kZPer - 1) / kZPer;
-    const auto stage_z = [&](int ch) {
-      const int e0 = ch * kZPer;
-      stage_state(z_ring + (ch & 1) * kZPer * kBwdR * kGs, dhv, dhd, state, e0,
-                  min(kZPer, r - e0), r, h);
-    };
-    stage_z(0);
-    for (int ch = 0; ch < zchunks; ++ch) {
-      if (ch + 1 < zchunks) {
-        stage_z(ch + 1);
+    wg_commit();
+    if (e + 1 < r) {
+      if (e + 2 < r) {
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
-      __syncthreads();
-      const int e0 = ch * kZPer, ne = min(kZPer, r - e0);
-      for (int i = 0; i < ne; ++i) {
-        const int e = e0 + i;
-        const float xe[2] = {km_s[(wrow + g) * kMs + e], km_s[(wrow + g + 8) * kMs + e]};
-        const float* slot = z_ring + ((ch & 1) * kZPer + i) * kBwdR * kGs;
-        cross_block<kBwdR / 8, true>(dva, xk, xe, slot + t4 * kGs + g, kGs, r);
-        sym_block(acc2, dx_s + wrow * kDxs, e, v1_s + wrow * kGs, slot, xa, xe);
+      split_state<kKey>(raw + ((e + 1) % kZRing) * kZRaw, planes + ((e + 1) & 1) * L::kPlanes,
+                        r, h);
+      if (e + 3 < r) {
+        issue_state(raw + ((e + 3) % kZRing) * kZRaw, zv, zd, state, e + 3, r, h, vec);
       }
-      __syncthreads();
     }
+    wg_wait();
+    reg_fence(nb);
+    if (kKey) reg_fence(dva);
+    sym_contract(acc, nb, dx_s + wrow * kDxs, e, xa, xe);
+    fence_async_smem();
+    __syncthreads();   // planes (e + 1) & 1 complete; planes e & 1 free
   }
-
+  __syncwarp();
 #pragma unroll
   for (int nd = 0; nd < kBwdR / 8; ++nd) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
-      if (row < krows && col < r) {
-        float x = acc2[nd][c];
-        if (through_dh) x += dx_s[row * kDxs + col];
-        if (!kLocalExact) x += dka[nd][c];
-        dkm[(row0 + k0 + row) * r + col] = x;
+      if (row < rows && col < r) dx[(row0 + row) * r + col] = acc[nd][c] + dx_s[row * kDxs + col];
+    }
+  }
+  if (kKey) {
+#pragma unroll
+    for (int nd = 0; nd < kBwdH / 8; ++nd) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
+        if (row < rows && col < h) dv[(row0 + row) * h + col] = dva[nd][c];
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kStateThreads)
+grad_query_state(const float* __restrict__ qm, const float* __restrict__ dnum,
+                 const float* __restrict__ dden, const float* __restrict__ zv,
+                 const float* __restrict__ zd, float* __restrict__ dqm, int n, int r, int h,
+                 int b) {
+  state_tile<false>(qm, dnum, dden, zv, zd, dqm, nullptr, n, r, h, b);
+}
+
+__global__ void __launch_bounds__(kStateThreads)
+grad_key_state(const float* __restrict__ km, const float* __restrict__ v,
+               const float* __restrict__ dhv, const float* __restrict__ dhd,
+               float* __restrict__ dkm, float* __restrict__ dv, int n, int r, int h, int b) {
+  state_tile<true>(km, v, nullptr, dhv, dhd, dkm, dv, n, r, h, b);
+}
+
+// ---------------------------------------------------------------------------
+// The diagonal kernels. A CTA owns 128 rows of block l (its A operands stay
+// in registers, split per k-step) and streams the other side's rows of the
+// block kStage at a time: a raw tile copied with cp.async (two slots), then
+// split into one of two plane sets while the last products of the stage
+// before run on the other; one __syncthreads a stage.
+// ---------------------------------------------------------------------------
+
+template <bool kLocalExact>
+struct DiagSmem {
+  static constexpr int kF = kLocalExact ? kBwdH : kBwdR;   // the scores' features
+  using PF = Plane<kStage, kF, false>;       // the other side's features: S's B
+  using PFt = Plane<kF, kStage, true>;       // transposed, permuted: dq's / dk's B
+  using PY = Plane<kStage, kBwdKg, false>;   // [V | 1] or [dNum | dDen]: dW's B
+  using PYt = Plane<kBwdH, kStage, true>;    // dNum transposed, permuted: dv's B
+  static constexpr int kFNC = kF / 4, kYNC = kBwdH / 4 + 1;
+  static constexpr int kFRs = raw_stride(kFNC), kYRs = raw_stride(kYNC);
+  static constexpr int kRaw = kStage * (kFRs + kYRs);
+  static constexpr int kQPlanes = 2 * (PF::kFloats + PFt::kFloats + PY::kFloats);
+  static constexpr int kKPlanes = kQPlanes + 2 * PYt::kFloats;
+  // two sets of planes (the next stage is split under this one's products)
+  // and two raw slots
+  static constexpr size_t kQBytes = (size_t)(2 * kQPlanes + 2 * kRaw) * sizeof(float);
+  static constexpr size_t kKBytes = (size_t)(2 * kKPlanes + 2 * kRaw) * sizeof(float);
+};
+
+// Issue the copies of stage rows [s0, s0 + rows) into a raw slot: the
+// features (f wide) and Y (h wide) beside y (from `last`, or nothing when
+// y is the ones column).
+template <bool kLocalExact>
+__device__ __forceinline__ void issue_diag(float* raw, const float* feat, int f, bool fvec,
+                                           const float* y, const float* last, int h, bool yvec,
+                                           int rows) {
+  using L = DiagSmem<kLocalExact>;
+  float* rf = raw;
+  float* ry = raw + kStage * L::kFRs;
+  for_chunks<kDiagThreads, kStage, L::kFNC>([&](int row, int chunk) {
+    if (row < rows) copy_chunk(rf + row * L::kFRs, feat + (size_t)row * f, chunk, f, fvec);
+  });
+  for_chunks<kDiagThreads, kStage, L::kYNC>([&](int row, int chunk) {
+    if (row >= rows) return;
+    if (chunk < L::kYNC - 1) {
+      copy_chunk(ry + row * L::kYRs, y + (size_t)row * h, chunk, h, yvec);
+    } else if (last != nullptr) {
+      cp_async4(ry + row * L::kYRs + kBwdH, last + row, true);
+    }
+  });
+  cp_async_commit();
+}
+
+// Split this thread's chunks of a raw slot into the planes at p: PF and
+// PFt from the features, PY from [Y | y] (y the ones column when `ones`),
+// and PYt from Y when kYt.
+template <bool kLocalExact, bool kYt>
+__device__ __forceinline__ void split_diag(const float* raw, float* p, int f, int h, int rows,
+                                           bool ones) {
+  using L = DiagSmem<kLocalExact>;
+  using PF = typename L::PF;
+  using PFt = typename L::PFt;
+  using PY = typename L::PY;
+  using PYt = typename L::PYt;
+  float* f_hi = p;
+  float* f_lo = f_hi + PF::kFloats;
+  float* ft_hi = f_lo + PF::kFloats;
+  float* ft_lo = ft_hi + PFt::kFloats;
+  float* y_hi = ft_lo + PFt::kFloats;
+  float* y_lo = y_hi + PY::kFloats;
+  float* yt_hi = y_lo + PY::kFloats;
+  float* yt_lo = yt_hi + PYt::kFloats;
+  const float* rf = raw;
+  const float* ry = raw + kStage * L::kFRs;
+  for_chunks<kDiagThreads, kStage, L::kFNC>([&](int row, int chunk) {
+    const float4 x = read_chunk(rf + row * L::kFRs, chunk, f, row < rows);
+    put4(f_hi, f_lo, PF::off(row, 4 * chunk), x);
+    put_t<PFt, true>(ft_hi, ft_lo, row, 4 * chunk, x);
+  });
+  for_chunks<kDiagThreads, kStage, L::kYNC>([&](int row, int chunk) {
+    if (chunk < L::kYNC - 1) {
+      const float4 x = read_chunk(ry + row * L::kYRs, chunk, h, row < rows);
+      put4(y_hi, y_lo, PY::off(row, 4 * chunk), x);
+      if (kYt) put_t<PYt, true>(yt_hi, yt_lo, row, 4 * chunk, x);
+    } else {
+      const float y = row < rows ? (ones ? 1.f : ry[row * L::kYRs + kBwdH]) : 0.f;
+      put4(y_hi, y_lo, PY::off(row, kBwdH), make_float4(y, 0.f, 0.f, 0.f));
+    }
+  });
+}
+
+// grad_query_diag: dq (or dqm's diagonal part) of one 128-query tile of
+// block l. grid (ceil(b / 128), t, bh), the last tile (most key stages)
+// first; warp w owns query rows 16w .. 16w + 15.
+template <bool kLocalExact>
+__global__ void __launch_bounds__(kDiagThreads, 1)
+grad_query_diag(const float* __restrict__ qm, const float* __restrict__ km,
+                const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dnum,
+                const float* __restrict__ dden, float* __restrict__ dqm, float* __restrict__ dq,
+                int n, int r, int h, int b, int degree, float scale) {
+  using L = DiagSmem<kLocalExact>;
+  constexpr int kF = L::kF;
+  const int qt = gridDim.x - 1 - blockIdx.x, l = blockIdx.y, bh = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int wrow = (threadIdx.x >> 5) * 16, wg0 = (threadIdx.x >> 7) * 64;
+  const int q0 = qt * kDiagRows, qrows = min(kDiagRows, b - q0);
+  const int f = kLocalExact ? h : r;
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem;                    // 2 sets of L::kQPlanes
+  float* raw = smem + 2 * L::kQPlanes;     // 2 slots of L::kRaw
+
+  const size_t row0 = (size_t)bh * n + (size_t)l * b;
+  const float* kf = (kLocalExact ? k : km) + row0 * f;
+  const float* vb = v + row0 * h;
+  const bool fvec = vec_ok(kf, f), yvec = vec_ok(vb, h);
+  const auto issue = [&](int st) {   // key stage st into raw slot st & 1
+    const int k0 = st * kStage;
+    issue_diag<kLocalExact>(raw + (st & 1) * L::kRaw, kf + (size_t)k0 * f, f, fvec,
+                            vb + (size_t)k0 * h, nullptr, h, yvec, min(kStage, b - k0));
+  };
+  const auto split = [&](int st) {   // raw slot st & 1 into plane set st & 1
+    split_diag<kLocalExact, false>(raw + (st & 1) * L::kRaw, planes + (st & 1) * L::kQPlanes, f,
+                                   h, min(kStage, b - st * kStage), true);
+  };
+  for (int i = threadIdx.x; i < 2 * L::kQPlanes; i += kDiagThreads) planes[i] = 0.f;
+  issue(0);
+
+  float qa[kF / 8][4], ga[kBwdKg / 8][4];
+  load_a<kF / 8>(qa, (kLocalExact ? q : qm) + (row0 + q0 + wrow) * f, g, qrows - wrow, f);
+  load_a_y1(ga, dnum + (row0 + q0 + wrow) * h, dden + row0 + q0 + wrow, g, qrows - wrow, h);
+
+  float acc[kF / 8][4];
+  zero(acc);
+  const int nst = (q0 + qrows + kStage - 1) / kStage;   // key stages up to the diagonal
+  cp_async_wait<0>();
+  __syncthreads();   // the zeroed planes, before any split writes them
+  split(0);
+  if (nst > 1) issue(1);
+  fence_async_smem();
+  __syncthreads();
+  for (int st = 0; st < nst; ++st) {
+    const int k0 = st * kStage, krows = min(kStage, b - k0);
+    const float* k_hi = planes + (st & 1) * L::kQPlanes;
+    const float* k_lo = k_hi + L::PF::kFloats;
+    const float* kt_hi = k_lo + L::PF::kFloats;
+    const float* kt_lo = kt_hi + L::PFt::kFloats;
+    const float* v_hi = kt_lo + L::PFt::kFloats;
+    const float* v_lo = v_hi + L::PY::kFloats;
+    // no key of the stage is visible to the warpgroup's rows
+    const bool skip = wg0 >= qrows || k0 > q0 + wg0 + 63;
+    float s[kStage / 8][4], w[kStage / 8][4];
+    zero(s);
+    zero(w);
+    if (!skip) {
+      // S = Q K^T beside dW = G V1^T
+      wg_pair<false, kStage / 8, kF / 8, typename L::PF, kStage / 8, kBwdKg / 8,
+              typename L::PY>(s, qa, k_hi, k_lo, w, ga, v_hi, v_lo);
+      wg_commit();
+      wg_wait();
+      reg_fence(s);
+      reg_fence(w);
+      const bool full = k0 + kStage - 1 <= q0 + wrow && krows == kStage;
+      score_grads<kLocalExact, false>(s, w, degree, scale, [&](int nt, int c) {
+        const int row = wrow + g + 8 * (c >> 1), j = nt * 8 + 2 * t4 + (c & 1);
+        return full || (j < krows && k0 + j <= q0 + row);
+      });
+      // dq += dS K, waited for below
+      wg_pair<true, kF / 8, kStage / 8, typename L::PFt, kF / 8, 0, typename L::PFt>(
+          acc, w, kt_hi, kt_lo, acc, w, kt_hi, kt_lo);
+      wg_commit();
+    }
+    if (st + 1 < nst) {   // the next stage, split while dq's last products run
+      cp_async_wait<0>();
+      split(st + 1);
+      if (st + 2 < nst) issue(st + 2);   // into the slot split at st - 1
+    }
+    if (!skip) {
+      wg_wait();
+      reg_fence(acc);
+    }
+    fence_async_smem();
+    __syncthreads();   // plane set st + 1 complete; set st free for stage st + 2
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < kF / 8; ++nd) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
+      if (row < qrows && col < f) {
+        const size_t i = (row0 + q0 + row) * f + col;
+        if (kLocalExact) {
+          dq[i] = acc[nd][c];
+        } else {
+          dqm[i] += acc[nd][c];
+        }
+      }
+    }
+  }
+}
+
+// grad_key_diag: dk (or dkm's diagonal part) and dv's diagonal part of one
+// 128-key tile of block l. grid (ceil(b / 128), t, bh), the first tile (most
+// query stages) first; warp w owns keys 16w .. 16w + 15.
+template <bool kLocalExact>
+__global__ void __launch_bounds__(kDiagThreads, 1)
+grad_key_diag(const float* __restrict__ qm, const float* __restrict__ km,
+              const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dnum,
+              const float* __restrict__ dden, float* __restrict__ dkm, float* __restrict__ dk,
+              float* __restrict__ dv, int n, int r, int h, int b, int degree, float scale) {
+  using L = DiagSmem<kLocalExact>;
+  constexpr int kF = L::kF;
+  const int kt = blockIdx.x, l = blockIdx.y, bh = blockIdx.z;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int wrow = (threadIdx.x >> 5) * 16, wg0 = (threadIdx.x >> 7) * 64;
+  const int k0 = kt * kDiagRows, krows = min(kDiagRows, b - k0);
+  const int f = kLocalExact ? h : r;
+  extern __shared__ __align__(16) float smem[];
+  float* planes = smem;                    // 2 sets of L::kKPlanes
+  float* raw = smem + 2 * L::kKPlanes;     // 2 slots of L::kRaw
+
+  const size_t row0 = (size_t)bh * n + (size_t)l * b;
+  const float* qf = (kLocalExact ? q : qm) + row0 * f;
+  const float* gb = dnum + row0 * h;
+  const float* db = dden + row0;
+  const bool fvec = vec_ok(qf, f), yvec = vec_ok(gb, h);
+  const int st0 = k0 / kStage, nst = (b + kStage - 1) / kStage;
+  const auto issue = [&](int st) {   // query stage st into raw slot (st - st0) & 1
+    const int s0 = st * kStage;
+    issue_diag<kLocalExact>(raw + ((st - st0) & 1) * L::kRaw, qf + (size_t)s0 * f, f, fvec,
+                            gb + (size_t)s0 * h, db + s0, h, yvec, min(kStage, b - s0));
+  };
+  const auto split = [&](int st) {   // raw slot (st - st0) & 1 into plane set (st - st0) & 1
+    split_diag<kLocalExact, true>(raw + ((st - st0) & 1) * L::kRaw,
+                                  planes + ((st - st0) & 1) * L::kKPlanes, f, h,
+                                  min(kStage, b - st * kStage), false);
+  };
+  for (int i = threadIdx.x; i < 2 * L::kKPlanes; i += kDiagThreads) planes[i] = 0.f;
+  issue(st0);
+
+  float ka[kF / 8][4];
+  load_a<kF / 8>(ka, (kLocalExact ? k : km) + (row0 + k0 + wrow) * f, g, krows - wrow, f);
+
+  float dva[kBwdH / 8][4], dka[kF / 8][4];
+  zero(dva);
+  zero(dka);
+  cp_async_wait<0>();
+  __syncthreads();   // the zeroed planes, before any split writes them
+  split(st0);
+  if (st0 + 1 < nst) issue(st0 + 1);
+  fence_async_smem();
+  __syncthreads();
+  for (int st = st0; st < nst; ++st) {
+    const int s0 = st * kStage, qrows = min(kStage, b - s0);
+    const float* q_hi = planes + ((st - st0) & 1) * L::kKPlanes;
+    const float* q_lo = q_hi + L::PF::kFloats;
+    const float* qt_hi = q_lo + L::PF::kFloats;
+    const float* qt_lo = qt_hi + L::PFt::kFloats;
+    const float* g_hi = qt_lo + L::PFt::kFloats;
+    const float* g_lo = g_hi + L::PY::kFloats;
+    const float* gt_hi = g_lo + L::PY::kFloats;
+    const float* gt_lo = gt_hi + L::PYt::kFloats;
+    // no query of the stage sees the warpgroup's keys
+    const bool skip = wg0 >= krows || s0 + kStage - 1 < k0 + wg0;
+    float s[kStage / 8][4], w[kStage / 8][4];
+    zero(s);
+    zero(w);
+    if (!skip) {
+      // S^T = K Q^T beside dW^T = V1 G^T. The own rows of V1 are read again
+      // each stage (from L1): kept in registers for the whole loop, they
+      // would make this kernel spill.
+      float va[kBwdKg / 8][4];
+      load_a_y1(va, v + (row0 + k0 + wrow) * h, nullptr, g, krows - wrow, h);
+      wg_pair<false, kStage / 8, kF / 8, typename L::PF, kStage / 8, kBwdKg / 8,
+              typename L::PY>(s, ka, q_hi, q_lo, w, va, g_hi, g_lo);
+      wg_commit();
+      wg_wait();
+      reg_fence(s);
+      reg_fence(w);
+      const bool full = s0 >= k0 + wrow + 15 && qrows == kStage;
+      score_grads<kLocalExact, true>(s, w, degree, scale, [&](int nt, int c) {
+        const int key = wrow + g + 8 * (c >> 1), i = nt * 8 + 2 * t4 + (c & 1);
+        return full || (i < qrows && k0 + key <= s0 + i);
+      });
+      // dv += W^T dNum beside dk += dS^T Q, waited for below
+      wg_pair<true, kBwdH / 8, kStage / 8, typename L::PYt, kF / 8, kStage / 8,
+              typename L::PFt>(dva, s, gt_hi, gt_lo, dka, w, qt_hi, qt_lo);
+      wg_commit();
+    }
+    if (st + 1 < nst) {   // the next stage, split while dv's and dk's last products run
+      cp_async_wait<0>();
+      split(st + 1);
+      if (st + 2 < nst) issue(st + 2);   // into the slot split at st - 1
+    }
+    if (!skip) {
+      wg_wait();
+      reg_fence(dva);
+      reg_fence(dka);
+    }
+    fence_async_smem();
+    __syncthreads();   // plane set st + 1 complete; set st free for stage st + 2
+  }
+
 #pragma unroll
   for (int nd = 0; nd < kBwdH / 8; ++nd) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
       if (row < krows && col < h) {
-        dv[(row0 + k0 + row) * h + col] = dva[nd][c];
-        if (kLocalExact) dk[(row0 + k0 + row) * h + col] = dka[nd][c];
+        const size_t i = (row0 + k0 + row) * h + col;
+        dv[i] += dva[nd][c];
+        if (kLocalExact) dk[i] = dka[nd][c];
       }
     }
   }
+  if (!kLocalExact) {
+#pragma unroll
+    for (int nd = 0; nd < kF / 8; ++nd) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = wrow + g + 8 * (c >> 1), col = nd * 8 + 2 * t4 + (c & 1);
+        if (row < krows && col < r) dkm[(row0 + k0 + row) * r + col] += dka[nd][c];
+      }
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Every kernel of the backward with its launch shape, in launch order
+// (grad_suffix's float4 form stands for both).
+struct KernelInfo {
+  const void* fn;
+  int threads;
+  size_t smem;
+};
+
+template <bool kLocalExact>
+void kernel_table(KernelInfo (&k)[7], int h) {
+  using L = DiagSmem<kLocalExact>;
+  k[0] = {(const void*)grad_prep, 32 * kPrepWarps, 0};
+  k[1] = {(const void*)grad_fold, kFoldThreads, fold_smem_bytes<2>(h)};
+  k[2] = {(const void*)grad_suffix<float4>, kPrefixThreads, 0};
+  k[3] = {(const void*)grad_query_state, kStateThreads, StateSmem<false>::kBytes};
+  k[4] = {(const void*)grad_key_state, kStateThreads, StateSmem<true>::kBytes};
+  k[5] = {(const void*)grad_query_diag<kLocalExact>, kDiagThreads, L::kQBytes};
+  k[6] = {(const void*)grad_key_diag<kLocalExact>, kDiagThreads, L::kKBytes};
 }
 
 template <bool kLocalExact>
@@ -536,19 +1120,42 @@ cudaError_t run_tiles(const float* qm, const float* km, const float* q, const fl
                       const float* zd, const float* dhv, const float* dhd, float* dqm,
                       float* dkm, float* dq, float* dk, float* dv, int bh, int n, int r, int h,
                       int b, int degree, float scale, cudaStream_t stream) {
-  const size_t smem = TileSmem<kLocalExact>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(query_kernel<kLocalExact>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(key_kernel<kLocalExact>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((b + kTcTile - 1) / kTcTile, n / b, bh);
-  query_kernel<kLocalExact><<<grid, kTcThreads, smem, stream>>>(
-      qm, km, q, k, v, dnum, dden, zv, zd, dqm, dq, n, r, h, b, degree, scale);
+  using L = DiagSmem<kLocalExact>;
+  cudaError_t err;
+  if ((err = allow_smem(grad_query_state, StateSmem<false>::kBytes)) != cudaSuccess ||
+      (err = allow_smem(grad_key_state, StateSmem<true>::kBytes)) != cudaSuccess ||
+      (err = allow_smem(grad_query_diag<kLocalExact>, L::kQBytes)) != cudaSuccess ||
+      (err = allow_smem(grad_key_diag<kLocalExact>, L::kKBytes)) != cudaSuccess) {
+    return err;
+  }
+  const dim3 sgrid((b + kStateRows - 1) / kStateRows, n / b, bh);
+  grad_query_state<<<sgrid, kStateThreads, StateSmem<false>::kBytes, stream>>>(
+      qm, dnum, dden, zv, zd, dqm, n, r, h, b);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  key_kernel<kLocalExact><<<grid, kTcThreads, smem, stream>>>(
-      qm, km, q, k, v, dnum, dden, dhv, dhd, dkm, dk, dv, n, r, h, b, degree, scale);
+  grad_key_state<<<sgrid, kStateThreads, StateSmem<true>::kBytes, stream>>>(
+      km, v, dhv, dhd, dkm, dv, n, r, h, b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 dgrid((b + kDiagRows - 1) / kDiagRows, n / b, bh);
+  grad_query_diag<kLocalExact><<<dgrid, kDiagThreads, L::kQBytes, stream>>>(
+      qm, km, q, k, v, dnum, dden, dqm, dq, n, r, h, b, degree, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  grad_key_diag<kLocalExact><<<dgrid, kDiagThreads, L::kKBytes, stream>>>(
+      qm, km, q, k, v, dnum, dden, dkm, dk, dv, n, r, h, b, degree, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t run_suffix(float* dhv, float* dhd, float* dzv0, float* dzd0, int bh, int t, int r,
+                       int h, cudaStream_t stream) {
+  const int rrh = r * r * h, rr = r * r;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dhv) | reinterpret_cast<uintptr_t>(dhd) |
+                         reinterpret_cast<uintptr_t>(dzv0) | reinterpret_cast<uintptr_t>(dzd0);
+  if (rr % 4 == 0 && (addr & 15) == 0) {   // rr % 4 == 0 makes rrh one too
+    const dim3 grid((rrh + rr + 4 * kPrefixThreads - 1) / (4 * kPrefixThreads), bh);
+    grad_suffix<float4><<<grid, kPrefixThreads, 0, stream>>>(dhv, dhd, dzv0, dzd0, t, rrh, rr);
+  } else {
+    const dim3 grid((rrh + rr + kPrefixThreads - 1) / kPrefixThreads, bh);
+    grad_suffix<float><<<grid, kPrefixThreads, 0, stream>>>(dhv, dhd, dzv0, dzd0, t, rrh, rr);
+  }
   return cudaGetLastError();
 }
 
@@ -574,21 +1181,48 @@ extern "C" int polysketch_causal_backward(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = bh * n, t = n / b;
-  prep_kernel<<<(rows + kPrepWarps - 1) / kPrepWarps, 32 * kPrepWarps, 0, s>>>(
+  grad_prep<<<(rows + kPrepWarps - 1) / kPrepWarps, 32 * kPrepWarps, 0, s>>>(
       dout, out, den1, dnum, dden, rows, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if ((err = launch_fold<float, 2>(qm, dnum, dden, dhv, dhd, bh, n, r, h, b, s)) != cudaSuccess) {
-    return (int)err;
-  }
-  if ((err = launch_prefix<true>(dhv, dhd, nullptr, nullptr, dzv0, dzd0, bh, t, r, h, s)) !=
-      cudaSuccess) {
-    return (int)err;
-  }
+  const size_t fold_smem = fold_smem_bytes<2>(h);
+  if ((err = allow_smem(grad_fold, fold_smem)) != cudaSuccess) return (int)err;
+  grad_fold<<<dim3((r * h + r + kFoldCols - 1) / kFoldCols, t, bh), kFoldThreads, fold_smem, s>>>(
+      qm, dnum, dden, dhv, dhd, n, r, h, b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = run_suffix(dhv, dhd, dzv0, dzd0, bh, t, r, h, s)) != cudaSuccess) return (int)err;
   err = local_exact
             ? run_tiles<true>(qm, km, q, k, v, dnum, dden, zv, zd, dhv, dhd, dqm, dkm, dq, dk,
                               dv, bh, n, r, h, b, degree, scale, s)
             : run_tiles<false>(qm, km, q, k, v, dnum, dden, zv, zd, dhv, dhd, dqm, dkm, dq,
                                dk, dv, bh, n, r, h, b, degree, scale, s);
   return (int)err;
+}
+
+// What each kernel of the backward holds on the card, in launch order
+// (grad_prep, grad_fold, grad_suffix, grad_query_state, grad_key_state,
+// grad_query_diag, grad_key_diag) at head width h: five ints each into
+// out[7 * 5] (registers a thread, local memory bytes a thread, dynamic
+// shared memory bytes a CTA, threads a CTA, CTAs resident an SM). Returns
+// the first CUDA error (0 on success).
+extern "C" int polysketch_causal_backward_occupancy(int local_exact, int h, int* out) {
+  KernelInfo k[7];
+  if (local_exact) {
+    kernel_table<true>(k, h);
+  } else {
+    kernel_table<false>(k, h);
+  }
+  for (int i = 0; i < 7; ++i) {
+    cudaError_t err = cudaFuncSetAttribute(k[i].fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)k[i].smem);
+    if (err != cudaSuccess) return (int)err;
+    cudaFuncAttributes a;
+    if ((err = cudaFuncGetAttributes(&a, k[i].fn)) != cudaSuccess) return (int)err;
+    int ctas = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, k[i].fn, k[i].threads, k[i].smem);
+    if (err != cudaSuccess) return (int)err;
+    const int row[5] = {a.numRegs, (int)a.localSizeBytes, (int)k[i].smem, k[i].threads, ctas};
+    for (int j = 0; j < 5; ++j) out[5 * i + j] = row[j];
+  }
+  return 0;
 }

@@ -1,13 +1,15 @@
 // The factored polysketch state's passes, shared by B1's forward
 // (polysketch_causal.cu) and its backward (polysketch_causal_bwd.cu).
 //
-// - fold_kernel: per block l, H_l = X_l^T [X_l (x) Y_l | X_l (.) y_l] as one
+// - fold_block: per block l, H_l = X_l^T [X_l (x) Y_l | X_l (.) y_l] as one
 //   product on the tensor cores (3xTF32), y_l being a ones column (the
 //   forward: X = km, Y = v, so H_l is the block's Zv and Zd) or a given
 //   column (the backward: X = qm, Y = dNum, y = dDen, so H_l is dZ_l).
-// - prefix_kernel: the exclusive prefix over blocks, left to right from z0
-//   (the forward's Z_l), or the exclusive suffix, right to left from zero
-//   (the backward's dH_l); the full sum is the returned state (or dz0).
+//   The forward launches it as fold_kernel, the backward as grad_fold.
+// - prefix_scan: the exclusive prefix over blocks, left to right from z0
+//   (the forward's Z_l, as prefix_kernel), or the exclusive suffix, right
+//   to left from zero (the backward's dH_l, as grad_suffix); the full sum
+//   is the returned state (or dz0).
 // - cross_block: one sketch index e of Phi(x) Z, Phi(x)[i, e*r + c] =
 //   x_ie x_ic, on the tensor cores (the forward's cross term; the
 //   backward's gradient of v through dH).
@@ -74,9 +76,10 @@ __device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float*
 // the staged x chunk, B = x (x) [Y | y] formed in registers from the
 // staged chunks, both split in registers.
 template <typename T, int kMT>
-__global__ void __launch_bounds__(kFoldThreads)
-fold_kernel(const T* __restrict__ km, const T* __restrict__ v, const float* __restrict__ last,
-            float* __restrict__ hv, float* __restrict__ hd, int n, int r, int h, int b) {
+__device__ __forceinline__ void fold_block(const T* __restrict__ km, const T* __restrict__ v,
+                                           const float* __restrict__ last,
+                                           float* __restrict__ hv, float* __restrict__ hd,
+                                           int n, int r, int h, int b) {
   const int l = blockIdx.y, t = gridDim.y, bh = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
   const int rh = r * h, ncols = rh + r;
@@ -160,6 +163,13 @@ fold_kernel(const T* __restrict__ km, const T* __restrict__ v, const float* __re
   }
 }
 
+template <typename T, int kMT>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_kernel(const T* __restrict__ km, const T* __restrict__ v, const float* __restrict__ last,
+            float* __restrict__ hv, float* __restrict__ hd, int n, int r, int h, int b) {
+  fold_block<T, kMT>(km, v, last, hv, hd, n, r, h, b);
+}
+
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 vadd(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -178,10 +188,11 @@ template <> __device__ __forceinline__ float4 vzero<float4>() {
 // a thread (V = float4 when r*r*h and r*r are multiples of 4, else float),
 // so that enough bytes are in flight to keep device memory busy.
 template <typename V, bool kReverse>
-__global__ void __launch_bounds__(kPrefixThreads)
-prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __restrict__ zv0,
-              const float* __restrict__ zd0, float* __restrict__ zv_out,
-              float* __restrict__ zd_out, int t, int rrh, int rr) {
+__device__ __forceinline__ void prefix_scan(float* __restrict__ hv, float* __restrict__ hd,
+                                            const float* __restrict__ zv0,
+                                            const float* __restrict__ zd0,
+                                            float* __restrict__ zv_out,
+                                            float* __restrict__ zd_out, int t, int rrh, int rr) {
   constexpr int kVec = sizeof(V) / sizeof(float);
   const int e = (blockIdx.x * kPrefixThreads + threadIdx.x) * kVec;
   if (e >= rrh + rr) return;
@@ -199,6 +210,14 @@ prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __res
     z = vadd(z, h_l);
   }
   *reinterpret_cast<V*>((zv_part ? zv_out : zd_out) + off) = z;
+}
+
+template <typename V, bool kReverse>
+__global__ void __launch_bounds__(kPrefixThreads)
+prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __restrict__ zv0,
+              const float* __restrict__ zd0, float* __restrict__ zv_out,
+              float* __restrict__ zd_out, int t, int rrh, int rr) {
+  prefix_scan<V, kReverse>(hv, hd, zv0, zd0, zv_out, zd_out, t, rrh, rr);
 }
 
 // The cross term's row block e for the calling warp: acc += Phi_e Z_e, with
@@ -219,11 +238,16 @@ __device__ __forceinline__ void cross_block(float (&acc)[kNT][4], const float (&
   }
 }
 
+// Dynamic shared memory of a fold CTA (the two rings).
+template <int kMT>
+size_t fold_smem_bytes(int h) {
+  return (size_t)2 * kFoldKeys * (k_frag_stride(16 * kMT) + k_frag_stride(h + 1)) * sizeof(float);
+}
+
 template <typename T, int kMT>
 cudaError_t launch_fold(const void* x, const void* y, const float* last, float* hv, float* hd,
                         int bh, int n, int r, int h, int b, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)2 * kFoldKeys * (k_frag_stride(16 * kMT) + k_frag_stride(h + 1)) * sizeof(float);
+  const size_t smem = fold_smem_bytes<kMT>(h);
   cudaError_t err = cudaFuncSetAttribute(fold_kernel<T, kMT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

@@ -377,6 +377,32 @@ def polysketch_causal_backward_cuda(dout, qm, km, q, k, v, out, saved, *,
 
 polysketch_causal_backward_cuda.launches = 0
 
+# The backward's kernels in launch order (csrc/polysketch_causal_bwd.cu).
+BWD_KERNELS = ("grad_prep", "grad_fold", "grad_suffix", "grad_query_state",
+               "grad_key_state", "grad_query_diag", "grad_key_diag")
+
+
+def backward_occupancy(local_exact: bool = True, h: int = BWD_MAX_H) -> dict:
+    """What each backward kernel holds on the current card at head width h:
+    {name: {"registers", "local_bytes", "smem_bytes", "threads",
+    "ctas_per_sm", "warps_per_sm"}} (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a CUDA card."""
+    fn = _bwd_lib().polysketch_causal_backward_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (5 * len(BWD_KERNELS)))()
+    err = fn(int(local_exact), h, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"polysketch_causal_backward_occupancy failed: CUDA error {err}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads", "ctas_per_sm")
+    table = {}
+    for i, name in enumerate(BWD_KERNELS):
+        row = dict(zip(keys, out[5 * i:5 * i + 5]))
+        row["warps_per_sm"] = row["ctas_per_sm"] * row["threads"] // 32
+        table[name] = row
+    return table
+
 
 class _PolysketchCausal(torch.autograd.Function):
     """B1 with a gradient: `fwd` saves the prefix states and 1 + den, and

@@ -37,3 +37,21 @@ def test_kernel_bounds(chip_smoke, fn, args, tc_ms, tc_by, fma_ms, fma_by):
     assert bd.fma_ms == pytest.approx(fma_ms, rel=0.01)
     assert (bd.tc_by, bd.fma_by) == (tc_by, fma_by)
     assert bd.tc_ms < bd.fma_ms
+
+
+def test_backward_kernel_names_are_its_own(chip_smoke):
+    """The training step's split counts a kernel under the first group whose
+    substrings its name holds: every backward kernel is a __global__ of
+    polysketch_causal_bwd.cu, lands in the backward's group and pass, and
+    holds no forward kernel's name."""
+    from repro_torch.kernels import polysketch_causal as pc
+    src = (ROOT / "src/repro_torch/kernels/csrc/polysketch_causal_bwd.cu").read_text()
+    groups = chip_smoke.STEP_GROUPS
+    passes = dict((key, name) for name, key in chip_smoke.B1_BWD_PASSES)
+    for kernel in pc.BWD_KERNELS:
+        assert f"\n{kernel}(" in src, kernel
+        assert not any(f in kernel for f in ("output_kernel", "prefix_kernel", "fold_kernel"))
+        first = next(g for g, keys in groups if any(k in kernel for k in keys))
+        assert first.startswith("B1 backward"), (kernel, first)
+        assert kernel in passes
+    assert set(chip_smoke.B1_BWD_HEAVY) <= set(pc.BWD_KERNELS)

@@ -326,3 +326,68 @@ def test_smoke_training_grads_on_card_match_cpu(card):
     for name, want in grads["cpu"].items():
         got = grads["cuda"][name]
         assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name
+
+
+# B1's backward tiles its state work 128 rows a CTA and its diagonal 64
+# rows a CTA against 32-row stages of the other side: blocks smaller than
+# one state tile, ragged tiles and stages, the training shape at other
+# degrees and without local_exact.
+@pytest.mark.parametrize("n,b,degree,local_exact", [
+    (192, 96, 4, True),      # a block smaller than one 128-row state tile
+    (400, 200, 4, True),     # a ragged second state tile (and 64-row tile)
+    (2032, 1016, 4, True),   # ragged at 128-row tiles and at 32-row stages
+    (4096, 1024, 8, True),   # the training shape at degree 8
+    (4096, 1024, 1, True),   # degree 1: dS takes x^0 = 1
+    (4096, 1024, 4, False),  # the training shape without local_exact
+])
+def test_backward_kernel_state_and_diagonal_tiling_match_plain_version(
+        card, n, b, degree, local_exact):
+    xs = _inputs(n + degree, (2, 12, n), (2, 12, n), 64, 32, torch.float32, card)
+    if degree == 1:
+        # At degree 1 the weights are signed (W = S scale); over 1024 keys
+        # 1 + den then crosses zero and both versions' f32 gradients blow up
+        # (to ~1e9). Nonnegative q and k keep every weight >= 0 and 1 + den
+        # >= 1, so that the case holds the kernel, not the conditioning.
+        qm, km, q, k, v = xs
+        xs = (qm, km, q.abs(), k.abs(), v)
+    dout = _normal(n + 1, card)(2, 12, n, 64)
+    kw = dict(degree=degree, scale=1.0 / 64, local_exact=local_exact, block_size=b)
+    before = pc.polysketch_causal_backward_cuda.launches
+    got = _grads(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    want = _grads(lambda *a: ops.polysketch_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pc.polysketch_causal_backward_cuda.launches == before + 1
+    _assert_grads_close(got, want)
+
+
+def test_backward_kernel_seeded_z0_over_four_blocks_matches_plain_version(card):
+    """A seeded z0 over 4 blocks of 1024 (the suffix over 3 hops), its
+    gradient included."""
+    rnd = _normal(31, card)
+    n, r, h, b = 4096, 32, 64, 1024
+    kw = dict(degree=4, scale=1.0 / h, block_size=b)
+    _, zv0, zd0 = pc.polysketch_causal_torch(
+        rnd(4, n, r) * 0.5, rnd(4, n, r) * 0.5, rnd(4, n, h), rnd(4, n, h),
+        rnd(4, n, h), return_state=True, **kw)
+    xs = (rnd(4, n, r) * 0.5, rnd(4, n, r) * 0.5, rnd(4, n, h), rnd(4, n, h),
+          rnd(4, n, h), zv0, zd0)
+    dout = rnd(4, n, h)
+
+    def run(fwd, bwd):
+        return lambda *a: pc.polysketch_causal_autograd(
+            *a, fwd=fwd, bwd=bwd, **kw)[0]
+    got = _grads(run(pc.polysketch_causal_cuda, pc.polysketch_causal_backward_cuda),
+                 xs, dout)
+    want = _grads(run(pc.polysketch_causal_torch, pc.polysketch_causal_backward_torch),
+                  xs, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+
+
+def test_backward_kernel_is_bit_stable_over_four_blocks(card):
+    xs = _inputs(8, (1, 4, 4096), (1, 4, 4096), 64, 32, torch.float32, card)
+    dout = _normal(9, card)(1, 4, 4096, 64)
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    a = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
+    b = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -1,6 +1,7 @@
 """Chip smoke of the PyTorch port: build its kernels, hold each against its
-plain version on the card, serve gpt2s-polysketch and gpt2s-poly4 and
-train gpt2s-polysketch at full width, and check the port against itself.
+plain version on the card, serve gpt2s-polysketch, gpt2s-poly4 and
+gpt2s-softmax and train all three at full width, and check the port
+against itself.
 
     python3 chip_smoke.py
 
@@ -20,29 +21,38 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      the kernels) over degree 2/4/8 x local_exact, GQA 4:2, n 77, a seeded
      z0, the forward's mma tile shapes and the training shape, two calls
      bit for bit, and the forward's outputs with and without the saved
-     den; and one line of tolerance study: the plain B1, B2 and B3 with
-     single-pass TF32 matmuls against full f32, beside the kernels'
-     (3xTF32) errors;
+     den; B2's backward kernel likewise (the gradients of
+     ops.poly_attention) over degree 1 (|q|, |k|)/2/4/8 x n 64/77/200/
+     2040/4096, GQA 4:2, h 16 and the training shape, two calls bit for
+     bit, and B2's forward with and without den_out bit for bit; and one
+     line of tolerance study: the plain B1, B2 and B3 with single-pass
+     TF32 matmuls against full f32, beside the kernels' (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
      tokens + 16 new ones, of gpt2s-polysketch (the decode fold at
-     position 2047 runs) and of gpt2s-poly4 (exact polynomial attention,
-     one prefill call into a KV cache of 2056), with every kernel's
+     position 2047 runs), of gpt2s-poly4 (exact polynomial attention,
+     one prefill call into a KV cache of 2056) and of gpt2s-softmax
+     (plain ops: no port kernel may launch), with every kernel's
      launches counted over exactly each run; B3's own path, ops.lt_mult
-     at the kernel benchmark's shapes, likewise;
+     at the kernel benchmark's shapes, likewise; training of the three
+     at batch 2 x 4096 (1 warm-up + 4 timed steps, launches counted: B1
+     13 + 13 a step, B2 12 + 12, softmax none; step time, tokens/s, peak
+     memory, a profiled step);
   3. self-checks: a polysketch prefill resumed at a block boundary equals
      a cold one bit for bit; a train-mode forward at full width launches
      its kernel once per layer and agrees with the plain path, for both
-     models; the poly4 prefill's logits, kernel vs plain; SMOKE greedy
-     tokens on the card equal those on the CPU, for both mechanisms; one
-     training step's gradients through the kernels against the plain
-     path's; 2 steps + checkpoint save/restore + 2 steps equal 4 straight
-     steps, and two runs equal, bit for bit (under
-     torch.use_deterministic_algorithms, CUBLAS_WORKSPACE_CONFIG=:4096:8);
+     polynomial models; the poly4 prefill's logits, kernel vs plain; the
+     softmax prefill + decode logits against its train-mode logits; SMOKE
+     greedy tokens on the card equal those on the CPU, for the three
+     mechanisms; one training step's gradients through the kernels
+     against the plain path's (polysketch and poly4); 2 steps +
+     checkpoint save/restore + 2 steps equal 4 straight steps, and two
+     runs equal, bit for bit (under torch.use_deterministic_algorithms,
+     CUBLAS_WORKSPACE_CONFIG=:4096:8);
   4. each kernel's time at its path's shapes beside its plain version's
      and its bounds (B1 also at the two calls a prefill's layer makes);
      B3's device time per pass (torch.profiler) and host time per call;
-     B1's backward kernels' registers, spills, shared memory and CTAs an
-     SM, and its time at the training shape, per pass.
+     B1's and B2's backward kernels' registers, spills, shared memory and
+     CTAs an SM, and their time at the training shape, per pass.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -73,7 +83,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.bridge import train_state_to_jax  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import TrainConfig, get_config  # noqa: E402
-from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4  # noqa: E402
+from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4, GPT2_SMALL_SOFTMAX  # noqa: E402
 from repro_torch.core import decode as dec  # noqa: E402
 from repro_torch.data import DataIterator, make_markov_lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -92,7 +102,8 @@ H100_TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense (data shee
 H100_BYTES_PER_S = 3.35e12          # HBM3 (data sheet)
 KERNELS = {"polysketch_causal": pc.polysketch_causal_cuda,
            "polysketch_causal_backward": pc.polysketch_causal_backward_cuda,
-           "poly_flash": pf.poly_flash_cuda, "lt_mult": lt.lt_mult_cuda}
+           "poly_flash": pf.poly_flash_cuda,
+           "poly_flash_backward": pf.poly_flash_backward_cuda, "lt_mult": lt.lt_mult_cuda}
 NO_LIBRARY = "none: no single PyTorch call computes this function"
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096    # phase 2's training traffic: 4 blocks a row
 
@@ -268,16 +279,17 @@ def grad_err(got, want):
     return max(err(g, w) / max(w.abs().max().item(), 1e-30) for g, w in zip(got, want))
 
 
-def check_grads(name, fn, xs, dout, **kw):
-    """The kernel path's gradients (ops.polysketch_attention through B1's
-    forward and backward) against the plain path's, each within F32_TOL
-    of its own max|.|; returns (error, kernel gradients)."""
-    before = pc.polysketch_causal_backward_cuda.launches
+def check_grads(name, fn, xs, dout, kernel=pc.polysketch_causal_backward_cuda, **kw):
+    """The kernel path's gradients (an ops entry point through a forward
+    kernel and the backward `kernel`) against the plain path's, each within
+    F32_TOL of its own max|.|; returns (relative error, absolute error,
+    kernel gradients)."""
+    before = kernel.launches
     got = grads_of(lambda *a: fn(*a, **kw), xs, dout)
-    launched = pc.polysketch_causal_backward_cuda.launches - before
+    launched = kernel.launches - before
     want = grads_of(lambda *a: fn(*a, impl="torch", **kw), xs, dout)
     torch.cuda.synchronize()
-    if launched != 1 or pc.polysketch_causal_backward_cuda.launches != before + 1:
+    if launched != 1 or kernel.launches != before + 1:
         raise AssertionError(f"{name}: the kernel path launched the backward "
                              f"{launched} times, or the plain path launched it")
     e = grad_err(got, want)
@@ -363,6 +375,66 @@ def train_attention_inputs():
     B, H, n, r, h = 2, 12, 4096, 32, 64
     return ((rnd(B, H, n, r, scale=0.5), rnd(B, H, n, r, scale=0.5), rnd(B, H, n, h),
              rnd(B, H, n, h), rnd(B, H, n, h)), rnd(B, H, n, h))
+
+
+def b2_grad_inputs(seed, b, hq, hkv, n, h, degree):
+    """q, k, v and dout for B2's backward, LayerNorm'd like the model's q
+    and k; at odd degree |q| and |k|, so that 1 + den stays >= 1 (with
+    signed inputs it can cross zero, in either version)."""
+    rnd = seeded(seed)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (h,), eps=1e-6)  # noqa: E731
+    q, k, v = ln(rnd(b, hq, n, h)), ln(rnd(b, hkv, n, h)), rnd(b, hkv, n, h)
+    if degree % 2:
+        q, k = q.abs(), k.abs()
+    return (q, k, v), rnd(b, hq, n, h)
+
+
+def phase_b2_backward_grid():
+    """B2's backward kernel against its plain version, through the
+    gradients of ops.poly_attention with and without the kernels. Returns
+    the worst max|err| of any gradient over the grid."""
+    log("phase 1: poly_flash backward kernel vs plain PyTorch (gradients of "
+        "ops.poly_attention)")
+    kernel = pf.poly_flash_backward_cuda
+    worst, worst_rel = 0.0, 0.0
+    for degree in (1, 2, 4, 8):
+        for n in (64, 77, 200, 2040, 4096):
+            xs, dout = b2_grad_inputs(200 + degree + n, 1, 2, 2, n, 64, degree)
+            rel, e, _ = check_grads(f"f32 p={degree} bh=2 n={n} h=64", ops.poly_attention,
+                                    xs, dout, kernel=kernel, degree=degree, scale=1.0 / 64)
+            worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    for name, shape in (("GQA 4:2, n=200 h=64", (2, 4, 2, 200, 64)),
+                        ("h=16 n=77 (widths below a tile)", (1, 2, 2, 77, 16))):
+        xs, dout = b2_grad_inputs(17, *shape, 4)
+        rel, e, _ = check_grads(f"f32 p=4 {name}", ops.poly_attention, xs, dout,
+                                kernel=kernel, degree=4, scale=1.0 / shape[-1])
+        worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    # the training shape, and two calls bit for bit
+    xs, dout = b2_grad_inputs(16, 2, 12, 12, TRAIN_SEQ, 64, 4)
+    kw = dict(degree=4, scale=1.0 / 64)
+    rel, e, got = check_grads(f"f32 training shape B=2 H=12 n={TRAIN_SEQ} h=64 p=4",
+                              ops.poly_attention, xs, dout, kernel=kernel, **kw)
+    worst, worst_rel = max(worst, e), max(worst_rel, rel)
+    again = grads_of(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  training shape: two backward calls equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("B2 backward: two calls differ")
+    flat = [x.reshape(24, TRAIN_SEQ, 64).contiguous() for x in xs]
+    out_a = pf.poly_flash_cuda(*flat, **kw)
+    out_b, den = pf.poly_flash_cuda(*flat, return_den=True, **kw)
+    _, want_den = pf.poly_flash_torch(*flat, return_den=True, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(out_a, out_b)
+    log(f"  B2 forward with den_out on and off: outputs equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("B2 forward: den_out changed the outputs")
+    check("B2 forward's den_out D = 1 + den vs plain (rel.)",
+          err(den, want_den) / want_den.abs().max().item(), F32_TOL)
+    log(f"  backward grid: worst gradient error {worst_rel:.3e} of its max|.|, "
+        f"{worst:.3e} absolute")
+    return worst
 
 
 def phase_poly_flash_grid():
@@ -675,10 +747,12 @@ def phase_self_checks(model, prompts):
         raise AssertionError("SMOKE greedy tokens differ between card and CPU")
 
 
-def phase_serve_poly(model, prompts):
-    """gpt2s-poly4 served as phase 2 serves polysketch: B2 launched once
-    per layer by the one prefill call; decode timed with and without the
-    KV cache's copy per step."""
+def phase_serve_kv(model, prompts, kernel=None):
+    """A model with a full KV cache served as phase 2 serves polysketch:
+    gpt2s-poly4 (kernel "poly_flash": B2 launched once per layer by the one
+    prefill call; decode timed with and without the KV cache's copy per
+    step), or gpt2s-softmax (kernel None: plain ops, no port kernel
+    launched)."""
     cfg = model.cfg
     steps, max_len = 16, prompts.shape[1] + 16
     log(f"phase 2: {cfg.name} full width, greedy generate, 4 x ({prompts.shape[1]} + "
@@ -688,27 +762,30 @@ def phase_serve_poly(model, prompts):
     zero_counts()
     res, dt = timed(lambda: gen(steps))
     run_counts = counts()
-    launches = run_counts["poly_flash"]
+    launches = run_counts[kernel] if kernel else 0
     toks = res.tokens.cpu().numpy()
     if toks.shape != (4, steps) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {toks.shape} [{toks.min()}, {toks.max()}]")
     if not torch.isfinite(res.logits_last).all():
         raise AssertionError("non-finite logits")
+    mech = (f"exact polynomial attention p={cfg.poly_degree}"
+            if cfg.attention == "polynomial" else f"{cfg.attention} attention")
     log(f"  layers {cfg.n_layers} x d_model {cfg.d_model}, {cfg.n_heads} heads of "
-        f"{cfg.resolved_head_dim}, exact polynomial attention p={cfg.poly_degree}")
-    log(f"  generate: {dt * 1e3:.1f} ms for 4 x {steps} tokens; B2 launches in the "
-        f"run: {launches} (all kernels: {run_counts}; expected one per layer, "
-        f"{cfg.n_layers})")
-    if launches != cfg.n_layers or run_counts["polysketch_causal"] or run_counts["lt_mult"]:
-        raise AssertionError("the poly4 generate did not launch B2 exactly once per "
-                             "layer, or launched another kernel")
+        f"{cfg.resolved_head_dim}, {mech}")
+    expected = {name: cfg.n_layers if name == kernel else 0 for name in KERNELS}
+    log(f"  generate: {dt * 1e3:.1f} ms for 4 x {steps} tokens; launches in the run: "
+        f"{run_counts} (expected {expected})")
+    if run_counts != expected:
+        raise AssertionError(f"the {cfg.name} generate did not launch "
+                             f"{kernel or 'no port kernel'} exactly as expected")
     _, t_pre = timed(lambda: gen(0))
     _, t_all = timed(lambda: gen(steps))
     log(f"  prefill (generate, 0 new tokens): {t_pre * 1e3:.1f} ms; decode "
         f"{(t_all - t_pre) * 1e3 / steps:.2f} ms/token-step; {4 * steps / t_all:.1f} "
         f"generated tok/s ({4 * (prompts.shape[1] + steps) / t_all:.0f} tok/s prompt "
         f"included)")
-    decode_copy_cost(model, prompts, steps, max_len)
+    if kernel:
+        decode_copy_cost(model, prompts, steps, max_len)
     for i, row in enumerate(toks):
         log(f"  req{i}: {' '.join(map(str, row.tolist()))}")
     profile_generate(model, prompts)
@@ -802,6 +879,39 @@ def phase_poly_self_checks(model, prompts):
                                  "and CPU")
 
 
+def phase_softmax_self_checks(model):
+    """gpt2s-softmax at full width: a prefill of 2040 tokens and 8 decode
+    steps fed the true next tokens give the train-mode logits at the same
+    positions; SMOKE-softmax greedy tokens on the card equal the CPU's."""
+    log("phase 3: gpt2s-softmax self-checks")
+    cfg = model.cfg
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, size=(2, 2048))).cuda()
+    s0 = 2040
+    with torch.inference_mode():
+        want, _ = model.lm(x, mode="train")
+        last, cache = model.state.prefill(x[:, :s0], max_len=2048)
+        got = [last]
+        for pos in range(s0, 2047):
+            last, cache = model.state.decode_step(x[:, pos:pos + 1], pos, cache)
+            got.append(last)
+    torch.cuda.synchronize()
+    got, want = torch.stack(got, 1), want[:, s0 - 1:2047]
+    check("prefill 2 x 2040 + 7 decode steps vs train-mode logits (rel.)",
+          err(got, want) / want.abs().max().item(), F32_TOL)
+    smoke = get_config("gpt2s-polysketch", smoke=True, attention="softmax")
+    prompt = np.random.default_rng(2).integers(0, smoke.vocab_size, size=(2, 13))
+    on_card = generate(build_model(smoke, device="cuda", seed=3), prompt, 8)
+    on_cpu = generate(build_model(smoke, device="cpu", seed=3), prompt, 8)
+    same = torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+    check("SMOKE-softmax generate logits, card vs CPU",
+          err(on_card.logits_last.cpu(), on_cpu.logits_last), F32_TOL)
+    log(f"  SMOKE-softmax greedy tokens (13-token prompt, 8 steps) equal on card and "
+        f"CPU: {same}")
+    if not same:
+        raise AssertionError("SMOKE-softmax greedy tokens differ between card and CPU")
+
+
 def phase_lt_mult_path():
     """B3's path: its public entry point ops.lt_mult, called as a user (or
     benchmarks/kernel_bench.py) calls it, at the benchmark's shapes."""
@@ -839,8 +949,13 @@ def train_setup(cfg, seed=0):
     return init_train_state(model.lm), make_train_step(cfg, tcfg)
 
 
+# the plain versions ops picks on the CPU or with impl="torch"
+PLAIN_FNS = ("polysketch_causal_torch", "polysketch_causal_backward_torch",
+             "poly_flash_torch", "poly_flash_backward_torch", "lt_mult_torch")
+
+
 class PlainCalls:
-    """Counts calls of B1's plain versions through ops while active."""
+    """Counts calls of the kernels' plain versions through ops while active."""
 
     def __enter__(self):
         self.calls = 0
@@ -851,8 +966,7 @@ class PlainCalls:
                 return fn(*a, **k)
             return wrapper
         self._patches = [mock.patch.object(ops, name, counted(getattr(ops, name)))
-                         for name in ("polysketch_causal_torch",
-                                      "polysketch_causal_backward_torch")]
+                         for name in PLAIN_FNS]
         for p in self._patches:
             p.start()
         return self
@@ -862,9 +976,12 @@ class PlainCalls:
             p.stop()
 
 
-def phase_train(cfg, batches):
+def phase_train(cfg, batches, kernels=()):
     """The training path: a warm-up step, then 4 timed steps with every
-    kernel's launches counted over exactly those steps."""
+    kernel's launches counted over exactly those steps: each of `kernels`
+    (names in KERNELS) once per layer a step, every other kernel never, and
+    no plain version. Returns (the last of `kernels`' launches, median step
+    seconds, peak GiB)."""
     steps = len(batches) - 1
     log(f"phase 2: {cfg.name} training, full width and depth ({cfg.n_layers} layers), "
         f"seed 0, f32, Markov data (vocab {cfg.vocab_size}), batch {TRAIN_BATCH} x "
@@ -882,32 +999,37 @@ def phase_train(cfg, batches):
             losses.append(float(metrics["loss"]))     # waits for the step
             times.append(time.perf_counter() - t0)
     run_counts = counts()
-    fwd, bwd = run_counts["polysketch_causal"], run_counts["polysketch_causal_backward"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  losses: {[round(x, 4) for x in losses]}; lr at the last step "
         f"{float(metrics['lr']):.2e}, grad norm {float(metrics['grad_norm']):.3f}")
     log(f"  step time: median {np.median(times) * 1e3:.1f} ms "
         f"{[round(t * 1e3, 1) for t in times]} (host clock, synchronised by the loss); "
         f"{TRAIN_BATCH * TRAIN_SEQ / np.median(times):.0f} tokens/s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  launches over the {steps} steps: {run_counts}; plain-version calls: "
-        f"{plain.calls}")
+        f"{peak:.2f} GiB")
+    expected = {name: cfg.n_layers * steps if name in kernels else 0 for name in KERNELS}
+    log(f"  launches over the {steps} steps: {run_counts} (expected {expected}); "
+        f"plain-version calls: {plain.calls}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if fwd != cfg.n_layers * steps or bwd != cfg.n_layers * steps or plain.calls:
-        raise AssertionError("a training step did not run B1's forward and backward "
-                             "kernels once per layer, or called a plain version")
+    if run_counts != expected or plain.calls:
+        raise AssertionError(f"a {cfg.name} training step did not launch "
+                             f"{', '.join(kernels) or 'no port kernel'} exactly once per "
+                             "layer and nothing else, or called a plain version")
     profile_train_step(step, state, batches[-1])
-    return bwd, float(np.median(times))
+    return (run_counts[kernels[-1]] if kernels else 0), float(np.median(times)), peak
 
 
 # (group, substrings of a kernel's name) for the split of a training step;
 # no backward kernel's name holds a forward kernel's (fold_kernel,
 # prefix_kernel, output_kernel)
 STEP_GROUPS = (
+    ("B2 backward (3 kernels)", pf.BWD_KERNELS),
+    ("B2 forward", ("poly_flash_kernel",)),
     ("B1 backward (all 7 kernels)", pc.BWD_KERNELS),
     ("B1 forward (prefix, outputs)", ("output_kernel", "prefix_kernel")),
     ("B1 forward fold", ("fold_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "Gemm", "GEMM", "xmma", "cutlass")),
+    ("softmax and log-softmax (PyTorch)", ("softmax", "SoftMax")),
     ("other (elementwise, reductions, copies)", ("",)),
 )
 
@@ -940,8 +1062,11 @@ def profile_train_step(step, state, batch):
         log(f"    {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:80]}")
 
 
-def phase_train_checks(cfg, batches):
-    log("phase 3: training self-checks")
+def phase_train_checks(cfg, batches, entry="polysketch_attention"):
+    """One step's gradients through the kernels against the plain path's
+    (ops.`entry` with impl="torch"), per leaf; and bit-for-bit resume and
+    repeat of 4 steps."""
+    log(f"phase 3: {cfg.name} training self-checks")
     state, step = train_setup(cfg)
     lm, loss_fn = state.lm, make_loss_fn(cfg)
 
@@ -956,8 +1081,8 @@ def phase_train_checks(cfg, batches):
         return out
 
     got = grads()
-    plain = functools.partial(ops.polysketch_attention, impl="torch")
-    with mock.patch.object(ops, "polysketch_attention", plain):
+    plain = functools.partial(getattr(ops, entry), impl="torch")
+    with mock.patch.object(ops, entry, plain):
         want = grads()
     torch.cuda.synchronize()
     worst = max((err(got[n], want[n]) / max(want[n].abs().max().item(), 1e-30), n)
@@ -1136,30 +1261,60 @@ B1_BWD_PASSES = (("prep", "grad_prep"), ("fold", "grad_fold"), ("suffix", "grad_
 B1_BWD_HEAVY = ("grad_query_state", "grad_key_state", "grad_query_diag", "grad_key_diag")
 
 
-def backward_occupancy(ptxas):
-    """Print each backward kernel's registers a thread and spills (the
-    build's ptxas -v log, `ptxas` from build_kernels), and its shared memory
-    a CTA and CTAs an SM (pc.backward_occupancy), at the training widths."""
-    log("phase 4: B1 backward kernels on the card (local_exact, h 64)")
-    logged = ptxas.get("polysketch_causal_bwd", {})
-    for name, row in pc.backward_occupancy(local_exact=True, h=64).items():
+def kernel_occupancy(label, rows, logged, heavy=()):
+    """Print each kernel of `rows` (a wrapper's backward_occupancy()): its
+    registers a thread and spills (the most over its template instantiations
+    in `logged`, its source's ptxas -v entries from build_kernels), shared
+    memory a CTA and CTAs an SM. A kernel in `heavy` is flagged unless it
+    holds 8 warps an SM with no spills."""
+    log(f"phase 4: {label}")
+    for name, row in rows.items():
         spills = [v for k, v in logged.items() if k.startswith(name)
                   and k[len(name):len(name) + 1] in ("", "I")]
         spill = max((s["spill_stores"] + s["spill_loads"] for s in spills), default=None)
         flag = ""
-        if name in B1_BWD_HEAVY:
+        if name in heavy:
             ok = row["warps_per_sm"] >= 8 and spill == 0
             flag = "  (8 warps an SM, no spills: " + ("yes)" if ok else "NO)")
-        log(f"  {name:17s} {row['registers']:3d} registers, {row['local_bytes']} B local, "
+        log(f"  {name:28s} {row['registers']:3d} registers, {row['local_bytes']} B local, "
             f"spill bytes {spill if spill is not None else 'not in the log'}, "
             f"{row['smem_bytes']} B shared a CTA, {row['threads']} threads, "
             f"{row['ctas_per_sm']} CTAs = {row['warps_per_sm']} warps an SM{flag}")
 
 
-def phase_timing_backward():
+def time_backward(label, run, plain, passes, bd):
+    """A backward kernel's call `run` and its plain version `plain` on the
+    same inputs: kernel, plain, kernel with CUDA events, then the kernel
+    per pass (torch.profiler, `passes` as profile_passes takes them),
+    against the bound `bd`, and with CUDA events once more after the
+    profile, so that the split's sum can be read against a time taken just
+    after it. Returns (best kernel ms of the first two, plain ms, bd)."""
+    ms = event_ms(run)
+    plain_ms = event_ms(plain, iters=5, warmup=1)
+    ms2 = event_ms(run)
+    per_pass = profile_passes(run, passes)
+    ms3 = event_ms(run)
+    best = min(ms, ms2)
+    split = sum(per_pass.values())
+    log(f"  {label}: kernel {best:.3f} ms (runs {ms:.3f}, {ms2:.3f}; the plain version ran "
+        f"between them), plain PyTorch {plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by "
+        f"{bd.tc_by} on the tensor cores ({bd.flops / 1e9:.1f} GFLOP, {bd.nbytes / 1e6:.1f} "
+        f"MB), {bd.tc_ms / best:.1%} of it; f32-FMA bound {bd.fma_ms:.3f} ms, "
+        f"{bd.fma_ms / best:.1%} of it; library call: {NO_LIBRARY}")
+    log("  per pass (torch.profiler, device ms a call): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_pass.items())
+        + f"; sum {split:.3f}, {split / best:.1%} of the CUDA-event time; CUDA events "
+        f"just after the profile {ms3:.3f} ms")
+    return best, plain_ms, bd
+
+
+def phase_timing_backward(ptxas):
     """B1's backward at the training shape (bh 24, n 4096, r 32, h 64,
-    b 1024): kernel, plain, kernel with CUDA events, the kernel per pass
-    (torch.profiler), and the forward that saves its inputs."""
+    b 1024): its kernels' occupancy, its time (time_backward), and the
+    forward that saves its inputs."""
+    kernel_occupancy("B1 backward kernels on the card (local_exact, h 64)",
+                     pc.backward_occupancy(local_exact=True, h=64),
+                     ptxas.get("polysketch_causal_bwd", {}), B1_BWD_HEAVY)
     log("phase 4: B1 backward time at the training shape (CUDA events, warmed up)")
     xs, dout = train_attention_inputs()
     flat = [x.reshape(24, 4096, -1).contiguous() for x in xs]
@@ -1167,28 +1322,16 @@ def phase_timing_backward():
     kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
     before = counts()
     out, _, _, saved = pc.polysketch_causal_cuda(*flat, return_saved=True, **kw)
-    run = lambda: pc.polysketch_causal_backward_cuda(dout, *flat, out, saved, **kw)  # noqa: E731
-    ms = event_ms(run)
-    plain_ms = event_ms(lambda: pc.polysketch_causal_backward_torch(
-        dout, *flat, out, saved, **kw), iters=5, warmup=1)
-    ms2 = event_ms(run)
+    timing = time_backward(
+        "B1 backward bh=24 n=4096 r=32 h=64 b=1024",
+        lambda: pc.polysketch_causal_backward_cuda(dout, *flat, out, saved, **kw),
+        lambda: pc.polysketch_causal_backward_torch(dout, *flat, out, saved, **kw),
+        B1_BWD_PASSES, b1_bwd_bound(24, 4096, 32, 64, 1024, 4))
     fwd_ms = event_ms(lambda: pc.polysketch_causal_cuda(*flat, return_saved=True, **kw))
-    passes = profile_passes(run, B1_BWD_PASSES)
     for name, fn in KERNELS.items():   # timing launches do not count
         fn.launches = before[name]
-    bd = b1_bwd_bound(24, 4096, 32, 64, 1024, 4)
-    best = min(ms, ms2)
-    log(f"  B1 backward bh=24 n=4096 r=32 h=64 b=1024: kernel {best:.3f} ms (runs "
-        f"{ms:.3f}, {ms2:.3f}; the plain version ran between them), plain PyTorch "
-        f"{plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by {bd.tc_by} on the tensor cores "
-        f"({bd.flops / 1e9:.1f} GFLOP, {bd.nbytes / 1e6:.1f} MB), {bd.tc_ms / best:.1%} of "
-        f"it; f32-FMA bound {bd.fma_ms:.3f} ms, {bd.fma_ms / best:.1%} of it; library "
-        f"call: {NO_LIBRARY}")
-    log("  per pass (torch.profiler, device ms a call): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in passes.items())
-        + f"; sum {sum(passes.values()):.3f}")
     log(f"  B1 forward at the same shape, saving Z_l and 1 + den: {fwd_ms:.3f} ms")
-    return best, plain_ms, bd
+    return timing
 
 
 def b2_bound(bh, n, h, degree, itemsize=4):
@@ -1199,6 +1342,20 @@ def b2_bound(bh, n, h, degree, itemsize=4):
     prod = pairs * 4 * h
     rest = pairs * (2 + pow_muls(degree)) + bh * n * (h + 2)
     return bounds(prod, rest, 4 * bh * n * h * itemsize)
+
+
+def b2_bwd_bound(bh, n, h, degree, itemsize=4):
+    """Causal B2's backward as the function needs it, each product counted
+    once: per pair S = Q K^T, dW = dNum V^T, dv, dq and dk (2h each); the
+    rest per pair dS = p x^(p-1) scale dW, W = x^p, dDen's add and the mask,
+    per row dNum, dDen and Delta. Bytes: q, k, v, out, dO and D read once,
+    dq, dk and dv written once. csrc/poly_flash_bwd.cu does more: its key
+    and query kernels each rebuild S and dW, 4h flops a pair over the bound,
+    the price of having no atomics."""
+    pairs = bh * n * (n + 1) // 2
+    prod = pairs * 5 * 2 * h
+    rest = pairs * (4 + pow_muls(degree - 1) + pow_muls(degree)) + bh * n * (3 * h + 2)
+    return bounds(prod, rest, bh * n * (8 * h * itemsize + 4))
 
 
 def b3_bound(bh, n, m, k, b, itemsize=4):
@@ -1248,6 +1405,38 @@ def phase_timing_poly_lt():
     for name, fn in KERNELS.items():   # timing launches do not count
         fn.launches = before[name]
     return out
+
+
+B2_BWD_PASSES = (("prep", "poly_flash_bwd_prep"), ("key tiles (dk, dv)", "poly_flash_bwd_key"),
+                 ("query tiles (dq)", "poly_flash_bwd_query"))
+
+
+def phase_timing_b2_backward(ptxas):
+    """B2's backward at the training shape (bh 24, n 4096, h 64, p 4): its
+    kernels' occupancy, its time (time_backward), and B2's forward at the
+    same shape with and without den_out."""
+    kernel_occupancy("B2 backward kernels on the card (h 64)", pf.backward_occupancy(64),
+                     ptxas.get("poly_flash_bwd", {}))
+    log("phase 4: B2 backward and forward time at the training shape (CUDA events, "
+        "warmed up)")
+    xs, dout = b2_grad_inputs(16, 2, 12, 12, TRAIN_SEQ, 64, 4)
+    q, k, v, dout = (x.reshape(24, TRAIN_SEQ, 64).contiguous() for x in (*xs, dout))
+    kw = dict(degree=4, scale=1.0 / 64)
+    before = counts()
+    out, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    timing = time_backward(
+        f"B2 backward bh=24 n={TRAIN_SEQ} h=64 p=4",
+        lambda: pf.poly_flash_backward_cuda(dout, q, k, v, out, den, **kw),
+        lambda: pf.poly_flash_backward_torch(dout, q, k, v, out, den, **kw),
+        B2_BWD_PASSES, b2_bwd_bound(24, TRAIN_SEQ, 64, 4))
+    fwd_ms = event_ms(lambda: pf.poly_flash_cuda(q, k, v, **kw))
+    fwd_den_ms = event_ms(lambda: pf.poly_flash_cuda(q, k, v, return_den=True, **kw))
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    fbd = b2_bound(24, TRAIN_SEQ, 64, 4)
+    log(f"  B2 forward at the same shape: {fwd_ms:.3f} ms, with den_out {fwd_den_ms:.3f} ms; "
+        f"bound {fbd.tc_ms:.3f} ms ({fbd.tc_ms / fwd_ms:.1%} of it)")
+    return timing
 
 
 # (pass, a substring of its kernels' names)
@@ -1336,6 +1525,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1345,6 +1535,7 @@ def main():
     max_err = phase_kernel_grid()
     bwd_err = phase_b1_backward_grid()
     b2_err = phase_poly_flash_grid()
+    b2_bwd_err = phase_b2_backward_grid()
     b3_err = phase_lt_mult_grid()
     phase_tolerance_study()
     model = build_model(get_config("gpt2s-polysketch"), device="cuda", seed=0)
@@ -1353,22 +1544,35 @@ def main():
     del model
     torch.cuda.empty_cache()
     poly = build_model(GPT2_SMALL_POLY4, device="cuda", seed=0)
-    b2_launches = phase_serve_poly(poly, prompts)
+    b2_launches = phase_serve_kv(poly, prompts, "poly_flash")
     phase_poly_self_checks(poly, prompts)
     del poly
     torch.cuda.empty_cache()
+    soft = build_model(GPT2_SMALL_SOFTMAX, device="cuda", seed=0)
+    phase_serve_kv(soft, prompts)
+    phase_softmax_self_checks(soft)
+    del soft
+    torch.cuda.empty_cache()
     b3_launches = phase_lt_mult_path()
     train_cfg = get_config("gpt2s-polysketch")
-    batches = train_batches(train_cfg, 5)
-    bwd_launches, _ = phase_train(train_cfg, batches)
+    batches = train_batches(train_cfg, 5)   # one stream: the three share the vocabulary
+    bwd_launches, _, _ = phase_train(train_cfg, batches,
+                                     ("polysketch_causal", "polysketch_causal_backward"))
     torch.cuda.empty_cache()
     phase_train_checks(train_cfg, batches)
+    torch.cuda.empty_cache()
+    b2_bwd_launches, _, _ = phase_train(GPT2_SMALL_POLY4, batches,
+                                        ("poly_flash", "poly_flash_backward"))
+    torch.cuda.empty_cache()
+    phase_train_checks(GPT2_SMALL_POLY4, batches, "poly_attention")
+    torch.cuda.empty_cache()
+    phase_train(GPT2_SMALL_SOFTMAX, batches)
     del batches
     torch.cuda.empty_cache()
     b1_times = phase_timing()
-    backward_occupancy(ptxas)
-    bwd_times = phase_timing_backward()
+    bwd_times = phase_timing_backward(ptxas)
     times = phase_timing_poly_lt()
+    b2_bwd_times = phase_timing_b2_backward(ptxas)
     phase_lt_mult_breakdown()
 
     def row(name, replaces, launches, max_abs_err, timing, source=None):
@@ -1380,6 +1584,8 @@ def main():
                 "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
                 "library_ms": None}
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build "
+        f"included")
     log(card)                     # as nvidia-smi prints it: name, power limit
     log(json.dumps({"kernels": [
         row("polysketch_causal", "src/repro/kernels/polysketch_causal.py:118",
@@ -1388,6 +1594,8 @@ def main():
             bwd_launches, bwd_err, bwd_times, source="polysketch_causal_bwd"),
         row("poly_flash", "src/repro/kernels/poly_flash.py:59", b2_launches, b2_err,
             times["poly_flash"][2040]),
+        row("poly_flash_backward", "src/repro/core/poly_attention.py:33", b2_bwd_launches,
+            b2_bwd_err, b2_bwd_times, source="poly_flash_bwd"),
         row("lt_mult", "src/repro/kernels/lt_mult.py:45", b3_launches, b3_err,
             times["lt_mult"][16384])]}))
     print(json.dumps({"ok": True, "device": {

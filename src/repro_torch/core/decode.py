@@ -11,6 +11,8 @@ Port of two kinds of the JAX package's ``core/decode.py``:
 - poly_kv: the full ``KVCache`` of exact polynomial attention (the
   paper's quadratic baseline), filled by the prefill and read whole by
   ``poly_kv_decode_step``.
+- kv_full: the same ``KVCache`` for softmax attention (the paper's
+  softmax baseline), read by ``kv_decode_step``.
 
 `pos` is a host int (the JAX package keeps a device scalar): the fold and
 the cache slot are decided on the host, with no device sync.
@@ -176,6 +178,19 @@ def fill_kv(cache: KVCache, k, v) -> KVCache:
     return KVCache(kc, vc, s)
 
 
+def _append_kv(cache: KVCache, k, v):
+    """Copies of the cache's buffers with the token's k, v (B, Hkv, h)
+    written at its position; returns (k, v, that position)."""
+    pos = cache.pos
+    if pos >= cache.k.shape[2]:
+        raise ValueError(f"KV cache of {cache.k.shape[2]} is full at "
+                         f"position {pos}")
+    kc, vc = _writable(cache.k), _writable(cache.v)
+    kc[:, :, pos] = k.to(kc.dtype)
+    vc[:, :, pos] = v.to(vc.dtype)
+    return kc, vc, pos
+
+
 def poly_kv_decode_step(cache: KVCache, q, k, v, *, degree: int,
                         scale: float):
     """Exact polynomial attention decode over a full KV cache (the
@@ -186,14 +201,8 @@ def poly_kv_decode_step(cache: KVCache, q, k, v, *, degree: int,
     bsz, hq, hd = q.shape
     hkv = k.shape[1]
     g = hq // hkv
-    pos = cache.pos
-    if pos >= cache.k.shape[2]:
-        raise ValueError(f"KV cache of {cache.k.shape[2]} is full at "
-                         f"position {pos}")
     f32 = torch.float32
-    kc, vc = _writable(cache.k), _writable(cache.v)
-    kc[:, :, pos] = k.to(kc.dtype)
-    vc[:, :, pos] = v.to(vc.dtype)
+    kc, vc, pos = _append_kv(cache, k, v)
     qg = q.reshape(bsz, hkv, g, hd).to(f32)
     wts = int_pow(torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * scale,
                   degree)
@@ -202,4 +211,25 @@ def poly_kv_decode_step(cache: KVCache, q, k, v, *, degree: int,
     wts = torch.where(mask, wts, torch.zeros((), device=wts.device))
     den = 1.0 + wts.sum(-1, keepdim=True)
     out = torch.einsum("bngs,bnsh->bngh", wts / den, vc.to(f32))
+    return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)
+
+
+def kv_decode_step(cache: KVCache, q, k, v):
+    """One softmax decode step over a KV cache, scale 1/sqrt(h).
+
+    q: (B, Hq, h); k, v: (B, Hkv, h). Every slot of the cache is scored and
+    the slots past `pos` are masked; query heads are grouped onto their kv
+    head (GQA). Returns (out (B, Hq, h), new_cache); `cache` is left as it
+    was."""
+    bsz, hq, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    f32 = torch.float32
+    kc, vc, pos = _append_kv(cache, k, v)
+    qg = q.reshape(bsz, hkv, g, hd).to(f32)
+    logits = torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * (1.0 / hd ** 0.5)
+    idx = torch.arange(kc.shape[2], device=kc.device)
+    logits = logits.masked_fill(idx > pos, torch.finfo(f32).min)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngs,bnsh->bngh", w, vc.to(f32))
     return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)

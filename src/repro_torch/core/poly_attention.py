@@ -1,10 +1,12 @@
-"""Exact polynomial attention (paper Section 2.1), the port's oracle.
+"""Exact polynomial attention (paper Section 2.1), the port's oracle, and
+the softmax baseline.
 
 A^(p)_{ij} = <q'_i, k'_j>^p / (1 + sum_j' <q'_i, k'_j'>^p)   (causal: j <= i)
 
 where q', k' are LayerNorm'd queries/keys and scale = 1/h sits inside the
 power (the paper's beta). Port of the JAX package's
-``core/poly_attention.py`` (``qk_layernorm``, ``poly_attention_full``).
+``core/poly_attention.py`` (``qk_layernorm``, ``poly_attention_full``,
+``softmax_attention_full``).
 """
 from __future__ import annotations
 
@@ -44,4 +46,28 @@ def poly_attention_full(q, k, v, *, degree: int, scale: float | None = None,
         weights = torch.where(mask, weights, torch.zeros((), device=q.device))
     denom = 1.0 + weights.sum(-1, keepdim=True)
     out = torch.einsum("...st,...th->...sh", weights / denom, v.float())
+    return out.to(v.dtype)
+
+
+def softmax_attention_full(q, k, v, *, scale: float | None = None,
+                           causal: bool = True, window: int | None = None):
+    """Reference softmax attention (optionally sliding-window), in plain
+    ops as the JAX package computes it: f32 logits, masked entries set to
+    the f32 minimum (not -inf), the causal mask offset by t - s.
+    q: (..., S, h); k, v: (..., T, h) -> (..., S, h) in v's dtype."""
+    h = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / h ** 0.5
+    f32 = torch.float32
+    logits = torch.einsum("...sh,...th->...st", q.to(f32), k.to(f32)) * scale
+    s, t = logits.shape[-2], logits.shape[-1]
+    if causal:
+        mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
+        if window is not None:
+            rows = torch.arange(s, device=q.device)[:, None] + (t - s)
+            cols = torch.arange(t, device=q.device)[None, :]
+            mask = mask & (cols > rows - window)
+        logits = logits.masked_fill(~mask, torch.finfo(f32).min)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("...st,...th->...sh", weights, v.to(f32))
     return out.to(v.dtype)

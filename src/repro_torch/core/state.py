@@ -14,24 +14,25 @@ stacking are not ported yet.
   same bits. A one-shot call over the whole prompt would not: cuBLAS picks
   its kernel by shape, and a product over 2040 rows need not round like
   one over 1024 + 1016 rows (seen on an H100).
-- ``poly_kv`` (not resumable): the full KV cache of exact polynomial
-  attention. Prefill is one call over the whole prompt, which attends to
-  itself and is written into the cache at position 0, as in the
-  reference; a prefill cannot continue from a state, so ``resume`` at a
-  position past 0 raises. The cache is sized at init, so ``prefill``
-  needs ``max_len`` or a pre-built state.
+- ``poly_kv`` and ``kv_full`` (not resumable): the full KV cache of exact
+  polynomial attention and of softmax attention. Prefill is one call
+  over the whole prompt, which attends to itself and is written into the
+  cache at position 0, as in the reference; a prefill cannot continue
+  from a state, so ``resume`` at a position past 0 raises. The cache is
+  sized at init, so ``prefill`` needs ``max_len`` or a pre-built state.
 """
 from __future__ import annotations
 
 import torch
 
 # kind -> resumable (the reference's StateSpec.resumable)
-_RESUMABLE = {"polysketch": True, "poly_kv": False}
+_RESUMABLE = {"polysketch": True, "poly_kv": False, "kv_full": False}
 
 
 def mixer_state_kind(cfg) -> str:
     """The decode-state kind of the config's attention mixer."""
-    kinds = {"polysketch": "polysketch", "polynomial": "poly_kv"}
+    kinds = {"polysketch": "polysketch", "polynomial": "poly_kv",
+             "softmax": "kv_full"}
     if cfg.attention not in kinds:
         raise ValueError(f"no decode state ported for attention "
                          f"{cfg.attention!r}")

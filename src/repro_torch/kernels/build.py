@@ -91,3 +91,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all([name])[name].path))
         _LIBS[name] = lib
     return lib
+
+
+def occupancy(fn, names, *args) -> dict:
+    """Call a kernel library's occupancy entry point `fn(*args, out)` (int
+    arguments, then five ints per kernel written into out: registers a
+    thread, local bytes a thread, dynamic shared bytes a CTA, threads a
+    CTA, CTAs an SM) and return {name: {"registers", "local_bytes",
+    "smem_bytes", "threads", "ctas_per_sm", "warps_per_sm"}} for the
+    kernels `names`, in the entry point's order. Needs a CUDA card."""
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * (5 * len(names)))()
+    err = fn(*args, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+    keys = ("registers", "local_bytes", "smem_bytes", "threads", "ctas_per_sm")
+    table = {}
+    for i, name in enumerate(names):
+        row = dict(zip(keys, out[5 * i:5 * i + 5]))
+        row["warps_per_sm"] = row["ctas_per_sm"] * row["threads"] // 32
+        table[name] = row
+    return table

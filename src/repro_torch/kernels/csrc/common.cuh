@@ -1,7 +1,10 @@
 // Helpers shared by the port's CUDA kernels (sm_90a): polysketch_causal.cu
-// (B1), poly_flash.cu (B2) and lt_mult.cu (B3).
+// (B1), polysketch_causal_bwd.cu (B1's backward), poly_flash.cu (B2),
+// poly_flash_bwd.cu (B2's backward) and lt_mult.cu (B3).
 //
 // - dtype conversion to and from the f32 accumulators;
+// - the powers over a whole fragment and the row preparation of the two
+//   backwards;
 // - f32 products as three TF32 products on mma.sync (3xTF32);
 // - cp.async staging into rings of two;
 // - the flash-style diagonal routine all three run, tc_flash_loop over
@@ -116,6 +119,60 @@ struct IdentityWeight {   // s, with no denominator (B3)
   template <int kN>
   __device__ __forceinline__ void operator()(float (&)[kN][4]) const {}
 };
+
+// y = x^p element by element for p >= 0 (x^0 = 1), by repeated squaring
+// in PowWeight's order; x is consumed (the backward kernels' powers). The
+// loop over the bits of p runs once for the whole fragment.
+template <int kN>
+__device__ __forceinline__ void pow_frag(float (&y)[kN][4], float (&x)[kN][4], int p) {
+  bool have = false;
+  for (; p > 0;) {
+    if (p & 1) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[i][c] = have ? y[i][c] * x[i][c] : x[i][c];
+      have = true;
+    }
+    p >>= 1;
+    if (p > 0) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) x[i][c] *= x[i][c];
+    }
+  }
+  if (!have) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y[i][c] = 1.f;
+  }
+}
+
+// The backwards' row preparation (B1's grad_prep, B2's prep kernel), one
+// warp a row of a grid of kWarps-warp blocks: with D = 1 + den of the
+// row, dNum = dO / D and dDen = -(dO . out) / D, the dot product summed
+// in a fixed order.
+template <int kWarps>
+__device__ __forceinline__ void prep_row(const float* __restrict__ dout,
+                                         const float* __restrict__ out,
+                                         const float* __restrict__ den, float* __restrict__ dnum,
+                                         float* __restrict__ dden, int rows, int h) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float inv = 1.f / den[row];
+  const size_t base = (size_t)row * h;
+  float dot = 0.f;
+  for (int d = lane; d < h; d += 32) {
+    const float go = dout[base + d];
+    dot += go * out[base + d];
+    dnum[base + d] = go * inv;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+  if (lane == 0) dden[row] = -dot * inv;
+}
 
 // ---------------------------------------------------------------------------
 // Tensor cores: mma.sync.m16n8k8 in 3xTF32.

@@ -17,6 +17,9 @@
 // written once. polysketch_causal.cu's pass 3 runs the same routine over
 // the tiles of one semantic block. Rows past n (or t) are staged as zeros
 // (their weights are 0) and are not stored, so any n is taken: no padding.
+// For training, den_out (when not null) also receives D = 1 + den of every
+// row (f32), what the backward (poly_flash_bwd.cu) reads; the outputs are
+// the same bits with it or without it.
 //
 // What bounds it. At the serving shape (bh = 48, n = 2040, h = 64, p = 4,
 // f32) the causal pairs are ~2.08 M per row: 25.6 GFLOP of products (Q K^T
@@ -44,7 +47,8 @@ constexpr int kMaxH = 128;
 template <typename T, bool kCausal, int kNT>
 __global__ void __launch_bounds__(kTcThreads)
 poly_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ out, int n, int t, int h, int degree, float scale) {
+                  T* __restrict__ out, float* __restrict__ den_out, int n, int t, int h,
+                  int degree, float scale) {
   // the last query tile (most key tiles) first, so the grid's tail is short
   const int qt = gridDim.x - 1 - blockIdx.x, bh = blockIdx.y;
   const int q0 = qt * kTcTile;
@@ -73,11 +77,18 @@ poly_flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                                    PowWeight{scale, degree}, acc, den);
   quad_sum(den);
   tc_store_rows<kNT>(out + ((size_t)bh * n + q0) * h, h, qrows, acc, den);
+  if (den_out != nullptr && (threadIdx.x & 3) == 0) {
+    const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row + 8 * i < qrows) den_out[(size_t)bh * n + q0 + row + 8 * i] = 1.f + den[i];
+    }
+  }
 }
 
 template <typename T, bool kCausal, int kNT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh, int n,
-                   int t, int h, int degree, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* den_out,
+                   int bh, int n, int t, int h, int degree, float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)(kTcTile + 2 * kKeyTile) * row_frag_stride(h) +
                        (size_t)2 * kKeyTile * pair_frag_stride(h)) *
                       sizeof(float);
@@ -89,40 +100,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   kernel<<<grid, kTcThreads, smem, stream>>>(static_cast<const T*>(q),
                                              static_cast<const T*>(k),
                                              static_cast<const T*>(v), static_cast<T*>(out),
-                                             n, t, h, degree, scale);
+                                             den_out, n, t, h, degree, scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool kCausal>
-cudaError_t run(const void* q, const void* k, const void* v, void* out, int bh, int n, int t,
-                int h, int degree, float scale, cudaStream_t stream) {
-  if (h <= 64) return launch<T, kCausal, 8>(q, k, v, out, bh, n, t, h, degree, scale, stream);
-  return launch<T, kCausal, kMaxH / 8>(q, k, v, out, bh, n, t, h, degree, scale, stream);
+cudaError_t run(const void* q, const void* k, const void* v, void* out, float* den_out, int bh,
+                int n, int t, int h, int degree, float scale, cudaStream_t stream) {
+  if (h <= 64) {
+    return launch<T, kCausal, 8>(q, k, v, out, den_out, bh, n, t, h, degree, scale, stream);
+  }
+  return launch<T, kCausal, kMaxH / 8>(q, k, v, out, den_out, bh, n, t, h, degree, scale,
+                                       stream);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. All pointers are device pointers
 // to contiguous tensors of one type (dtype 0 = float32, 1 = bfloat16):
-// q, out (bh, n, h); k, v (bh, t, h). causal requires n == t. Requires
-// h <= 128. Returns the first CUDA error (0 on success); launches on
-// `stream` and does not synchronise.
+// q, out (bh, n, h); k, v (bh, t, h); den_out (bh, n) float32, or null.
+// causal requires n == t. Requires h <= 128. Returns the first CUDA error
+// (0 on success); launches on `stream` and does not synchronise.
 extern "C" int poly_flash_forward(const void* q, const void* k, const void* v, void* out,
-                                  int bh, int n, int t, int h, int degree, float scale,
-                                  int causal, int dtype, void* stream) {
+                                  float* den_out, int bh, int n, int t, int h, int degree,
+                                  float scale, int causal, int dtype, void* stream) {
   if (bh <= 0 || n <= 0 || t <= 0 || h < 1 || h > kMaxH || degree < 1 || bh > 65535 ||
       (causal && n != t)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)(causal ? run<float, true>(q, k, v, out, bh, n, t, h, degree, scale, s)
-                        : run<float, false>(q, k, v, out, bh, n, t, h, degree, scale, s));
+    return (int)(causal
+                     ? run<float, true>(q, k, v, out, den_out, bh, n, t, h, degree, scale, s)
+                     : run<float, false>(q, k, v, out, den_out, bh, n, t, h, degree, scale, s));
   }
   if (dtype == 1) {
-    return (int)(causal
-                     ? run<__nv_bfloat16, true>(q, k, v, out, bh, n, t, h, degree, scale, s)
-                     : run<__nv_bfloat16, false>(q, k, v, out, bh, n, t, h, degree, scale, s));
+    return (int)(causal ? run<__nv_bfloat16, true>(q, k, v, out, den_out, bh, n, t, h, degree,
+                                                   scale, s)
+                        : run<__nv_bfloat16, false>(q, k, v, out, den_out, bh, n, t, h,
+                                                    degree, scale, s));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -107,36 +107,6 @@ __device__ __forceinline__ void zero(float (&x)[kN][4]) {
     for (int c = 0; c < 4; ++c) x[i][c] = 0.f;
 }
 
-// y = x^p element by element for p >= 0 (x^0 = 1), by repeated squaring
-// in PowWeight's order; x is consumed. The loop over the bits of p runs
-// once for the whole fragment.
-template <int kN>
-__device__ __forceinline__ void pow_frag(float (&y)[kN][4], float (&x)[kN][4], int p) {
-  bool have = false;
-  for (; p > 0;) {
-    if (p & 1) {
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) y[i][c] = have ? y[i][c] * x[i][c] : x[i][c];
-      have = true;
-    }
-    p >>= 1;
-    if (p > 0) {
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) x[i][c] *= x[i][c];
-    }
-  }
-  if (!have) {
-#pragma unroll
-    for (int i = 0; i < kN; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) y[i][c] = 1.f;
-  }
-}
-
 // The scores' transforms at the diagonal, in place: s = S (or S^T), w =
 // dW: with x = s * scale (local_exact) or s,
 //   w <- dS = p x^(p-1) scale dW (or 2 x dW),
@@ -479,19 +449,7 @@ __global__ void __launch_bounds__(32 * kPrepWarps)
 grad_prep(const float* __restrict__ dout, const float* __restrict__ out,
           const float* __restrict__ den1, float* __restrict__ dnum, float* __restrict__ dden,
           int rows, int h) {
-  const int row = blockIdx.x * kPrepWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float inv = 1.f / den1[row];
-  const size_t base = (size_t)row * h;
-  float dot = 0.f;
-  for (int d = lane; d < h; d += 32) {
-    const float go = dout[base + d];
-    dot += go * out[base + d];
-    dnum[base + d] = go * inv;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-  if (lane == 0) dden[row] = -dot * inv;
+  prep_row<kPrepWarps>(dout, out, den1, dnum, dden, rows, h);
 }
 
 // grad_fold and grad_suffix: the forward's fold and prefix scan under the

@@ -10,9 +10,11 @@ can be held against it on the card.
 
 Gradients: with grad on, ``polysketch_attention`` runs through
 ``polysketch_causal_autograd`` (B1's forward and its backward kernel, or
-both plain versions). B2 and B3 have no backward yet: ``poly_attention``
-and ``lt_mult`` raise when a CUDA input requires grad, rather than return
-an output that autograd cannot see through.
+both plain versions), and causal ``poly_attention`` through
+``poly_flash_autograd`` (B2's forward and its backward kernel, or both
+plain versions; float32 only, and non-causal raises). B3 has no backward
+yet: ``lt_mult`` raises when a CUDA input requires grad, rather than
+return an output that autograd cannot see through.
 
 Batching convention: leading dims (B, H, ...) are flattened to one `bh`
 axis before the kernel and restored after. GQA repeats kv heads to query
@@ -24,7 +26,9 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.lt_mult import lt_mult_cuda, lt_mult_torch
-from repro_torch.kernels.poly_flash import poly_flash_cuda, poly_flash_torch
+from repro_torch.kernels.poly_flash import (
+    poly_flash_autograd, poly_flash_backward_cuda, poly_flash_backward_torch,
+    poly_flash_cuda, poly_flash_torch)
 from repro_torch.kernels.polysketch_causal import (
     factored_to_z, polysketch_causal_autograd, polysketch_causal_backward_cuda,
     polysketch_causal_backward_torch, polysketch_causal_cuda,
@@ -134,10 +138,16 @@ def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
     (B, Hkv, T, h) -> (B, Hq, S, h). Causal needs S == T.
 
     Any S: the kernel masks a ragged last tile itself, so nothing is
-    padded.
+    padded. With grad on (causal, float32), the gradient reaches q, k and
+    v through B2's backward (the CUDA backward takes h <= 64); the kv
+    heads' repeats for GQA are summed by autograd.
     """
     fn = _pick(impl, q, poly_flash_cuda, poly_flash_torch)
-    _no_backward("poly_attention", fn, poly_flash_cuda, q, k, v)
+    grad = _wants_grad(q, k, v)
+    if grad and not causal:
+        raise NotImplementedError(
+            "poly_attention: the backward is causal only; an input requires "
+            "grad in a non-causal call")
     if scale is None:
         scale = 1.0 / q.shape[-1]
     hq, hkv = q.shape[-3], k.shape[-3]
@@ -146,7 +156,12 @@ def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
         k = k.repeat_interleave(g, dim=-3)
         v = v.repeat_interleave(g, dim=-3)
     lead, (qf, kf, vf) = _flatten_bh(q, k, v)
-    out = fn(qf, kf, vf, degree=degree, scale=scale, causal=causal)
+    if grad:
+        bwd = _pick(impl, q, poly_flash_backward_cuda, poly_flash_backward_torch)
+        out = poly_flash_autograd(qf, kf, vf, fwd=fn, bwd=bwd, degree=degree,
+                                  scale=scale)
+    else:
+        out = fn(qf, kf, vf, degree=degree, scale=scale, causal=causal)
     return out.reshape(*lead, *out.shape[-2:])
 
 

@@ -14,6 +14,15 @@ over j <= i (causal, n == t) or over every key (non-causal).
 - ``poly_flash_cuda``: the hand-written Hopper kernel in
   ``csrc/poly_flash.cu`` (design and bound in its header), bound through
   ctypes. ``poly_flash_cuda.launches`` counts its launches.
+
+The backward (the JAX package has none: it trains the polynomial
+baseline through XLA's gradient of ``core/poly_attention.py``'s
+``poly_attention_full``) comes in the same two forms, causal and float32
+only: ``poly_flash_backward_torch`` and ``poly_flash_backward_cuda``
+(``csrc/poly_flash_bwd.cu``). Both read the forward's output and its
+D_i = 1 + sum_j w_ij, which the forward returns with ``return_den``.
+``poly_flash_autograd`` joins a forward and a backward in a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.utils import int_pow
+from repro_torch.utils import int_pow, int_pow0
 
 
 def _check_shapes(q, k, v, causal):
@@ -39,15 +48,18 @@ def _check_shapes(q, k, v, causal):
 
 
 def poly_flash_torch(q, k, v, *, degree: int, scale: float,
-                     causal: bool = True, block_q: int = 256):
+                     causal: bool = True, return_den: bool = False,
+                     block_q: int = 256):
     """q: (bh, n, h); k, v: (bh, t, h) -> (bh, n, h) in v's dtype.
 
     f32 accumulators; out = num / (1 + den), as the kernel computes it.
+    With return_den, returns (out, D) with D = 1 + den (bh, n) float32,
+    what the backward reads.
     """
     _, n, t, _ = _check_shapes(q, k, v, causal)
     f32 = torch.float32
     kf, vf = k.to(f32), v.to(f32)
-    outs = []
+    outs, dens = [], []
     for q0 in range(0, n, block_q):
         q1 = min(n, q0 + block_q)
         kend = q1 if causal else t
@@ -58,9 +70,47 @@ def poly_flash_torch(q, k, v, *, degree: int, scale: float,
             cols = torch.arange(kend, device=q.device)[None, :]
             w = w.masked_fill(cols > rows, 0.0)
         num = w @ vf[:, :kend]
-        den = w.sum(-1, keepdim=True)
-        outs.append((num / (1.0 + den)).to(v.dtype))
-    return torch.cat(outs, dim=1)
+        dens.append(1.0 + w.sum(-1, keepdim=True))
+        outs.append((num / dens[-1]).to(v.dtype))
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(dens, dim=1)[..., 0]) if return_den else out
+
+
+def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
+                              scale: float, block_q: int = 256):
+    """Gradients (dq, dk, dv) of causal poly_flash_torch (n == t), from its
+    output and D = 1 + den (return_den), float32, one query block at a time.
+
+    With Delta_i = <do_i, out_i>, s_ij = <q_i, k_j> scale, w_ij = s_ij^p,
+    dW_ij = (<do_i, v_j> - Delta_i) / D_i and dS_ij = dW_ij p s_ij^(p-1):
+      dv_j = sum_{i>=j} (w_ij / D_i) do_i,
+      dq_i = scale sum_{j<=i} dS_ij k_j,   dk_j = scale sum_{i>=j} dS_ij q_i.
+    """
+    bh, n, _, _ = _check_shapes(q, k, v, True)
+    f32 = torch.float32
+    if any(x.dtype != f32 for x in (dout, q, k, v, out, den)):
+        raise TypeError("the backward takes float32 only")
+    if dout.shape != q.shape or out.shape != q.shape or den.shape != (bh, n):
+        raise ValueError(f"shape mismatch: dout {tuple(dout.shape)} out "
+                         f"{tuple(out.shape)} den {tuple(den.shape)}")
+    inv = 1.0 / den
+    dnum = dout * inv[..., None]                        # do_i / D_i
+    dden = -(dout * out).sum(-1) * inv                  # -Delta_i / D_i
+    dq = torch.empty_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, n, block_q):
+        q1 = min(n, q0 + block_q)
+        x = q[:, q0:q1] @ k[:, :q1].transpose(1, 2) * scale
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        cols = torch.arange(q1, device=q.device)[None, :]
+        above = cols > rows
+        w = int_pow(x, degree).masked_fill(above, 0.0)
+        dw = dnum[:, q0:q1] @ v[:, :q1].transpose(1, 2) + dden[:, q0:q1, None]
+        ds = (degree * int_pow0(x, degree - 1) * scale * dw).masked_fill(above, 0.0)
+        dv[:, :q1] += w.transpose(1, 2) @ dnum[:, q0:q1]
+        dq[:, q0:q1] = ds @ k[:, :q1]
+        dk[:, :q1] += ds.transpose(1, 2) @ q[:, q0:q1]
+    return dq, dk, dv
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,14 +121,16 @@ def _lib():
     fn = lib.poly_flash_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def poly_flash_cuda(q, k, v, *, degree: int, scale: float,
-                    causal: bool = True):
-    """The CUDA kernel; same contract as poly_flash_torch, any n.
+                    causal: bool = True, return_den: bool = False):
+    """The CUDA kernel; same contract as poly_flash_torch, any n. With
+    return_den the kernel also writes D = 1 + den (its den_out); the
+    outputs are the same bits either way.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) with
     h <= 128; raises on anything else. Launches on the current stream and
@@ -101,16 +153,124 @@ def poly_flash_cuda(q, k, v, *, degree: int, scale: float,
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("inputs must be contiguous")
     out = torch.empty_like(q)
+    den = (torch.empty(bh, n, dtype=torch.float32, device=dev) if return_den
+           else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().poly_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, n,
-            t, h, degree, scale, int(causal), _DTYPES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if den is None else den.data_ptr(), bh, n, t, h, degree,
+            scale, int(causal), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"poly_flash_forward failed: CUDA error {err} "
                            f"(bh={bh}, n={n}, t={t}, h={h})")
     poly_flash_cuda.launches += 1
-    return out
+    return (out, den) if return_den else out
 
 
 poly_flash_cuda.launches = 0
+
+BWD_MAX_H = 64   # the backward kernel's head width (csrc/poly_flash_bwd.cu)
+# The backward's kernels in launch order (csrc/poly_flash_bwd.cu).
+BWD_KERNELS = ("poly_flash_bwd_prep_kernel", "poly_flash_bwd_key_kernel",
+               "poly_flash_bwd_query_kernel")
+
+
+def _bwd_lib():
+    lib = build.load("poly_flash_bwd")
+    fn = lib.poly_flash_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_backward_shapes(h: int):
+    """Raise for a head width the CUDA backward does not take."""
+    if h > BWD_MAX_H:
+        raise ValueError(f"the CUDA backward takes h <= {BWD_MAX_H}, got h={h}")
+
+
+def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
+                             scale: float):
+    """The CUDA backward; same contract as poly_flash_backward_torch.
+
+    Takes contiguous float32 CUDA tensors with h <= 64, causal (n == t);
+    raises on anything else. Launches on the current stream and does not
+    synchronise.
+    """
+    xs = (dout, q, k, v, out, den)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"poly_flash_backward_cuda takes CUDA tensors, got {dev}")
+    if any(x.device != dev for x in xs):
+        raise ValueError("all inputs must be on one device")
+    if any(x.dtype != torch.float32 for x in xs):
+        raise TypeError("the backward takes float32 only (bf16 training is "
+                        f"not ported), got {[x.dtype for x in xs]}")
+    bh, n, _, h = _check_shapes(q, k, v, True)
+    check_backward_shapes(h)
+    if dout.shape != q.shape or out.shape != q.shape or den.shape != (bh, n):
+        raise ValueError(f"shape mismatch: dout {tuple(dout.shape)} out "
+                         f"{tuple(out.shape)} den {tuple(den.shape)}")
+    if degree < 1:
+        raise ValueError(f"degree must be >= 1, got {degree}")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("inputs must be contiguous")
+    dnum = torch.empty_like(q)
+    dden = torch.empty_like(den)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, den, dnum, dden, dq, dk, dv)]
+    with torch.cuda.device(dev):
+        err = _bwd_lib().poly_flash_backward(*ptrs, bh, n, h, degree, scale,
+                                             stream)
+    if err != 0:
+        raise RuntimeError(f"poly_flash_backward failed: CUDA error {err} "
+                           f"(bh={bh}, n={n}, h={h})")
+    poly_flash_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+poly_flash_backward_cuda.launches = 0
+
+
+def backward_occupancy(h: int = BWD_MAX_H) -> dict:
+    """What each backward kernel holds on the current card at head width h:
+    {name: {"registers", "local_bytes", "smem_bytes", "threads",
+    "ctas_per_sm", "warps_per_sm"}} (build.occupancy). Needs a CUDA card."""
+    return build.occupancy(_bwd_lib().poly_flash_backward_occupancy, BWD_KERNELS, h)
+
+
+class _PolyFlash(torch.autograd.Function):
+    """Causal B2 with a gradient: `fwd` returns D = 1 + den beside its
+    output, and `bwd` (the kernel or its plain version) turns q, k, v,
+    the output and D into the inputs' gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, fwd, bwd):
+        out, den = fwd(q, k, v, causal=True, return_den=True, **kw)
+        ctx.save_for_backward(q, k, v, out, den)
+        ctx.kw, ctx.bwd = kw, bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, den = ctx.saved_tensors
+        grads = ctx.bwd(dout.contiguous(), q, k, v, out, den, **ctx.kw)
+        grads = [g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad)]
+        return (*grads, None, None, None)
+
+
+def poly_flash_autograd(q, k, v, *, fwd, bwd, degree: int, scale: float):
+    """Causal out of `fwd` (poly_flash_cuda or _torch) with a gradient
+    from `bwd` (poly_flash_backward_cuda or _torch) to q, k and v.
+    float32 only."""
+    if any(x.dtype != torch.float32 for x in (q, k, v)):
+        raise TypeError("polynomial attention trains in float32 only (bf16 "
+                        "training is not ported)")
+    if bwd is poly_flash_backward_cuda:
+        check_backward_shapes(q.shape[-1])
+    return _PolyFlash.apply(q, k, v, dict(degree=degree, scale=scale), fwd, bwd)

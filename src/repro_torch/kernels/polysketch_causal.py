@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.utils import int_pow
+from repro_torch.utils import int_pow, int_pow0
 
 
 def z_to_factored(z):
@@ -116,11 +116,6 @@ def polysketch_causal_torch(qm, km, q, k, v, zv0=None, zd0=None, *,
     return (out, zv, zd) if return_state else out
 
 
-def _pow0(x, p):
-    """x**p for p >= 0, x**0 == 1 (the power's derivative at degree 1)."""
-    return torch.ones_like(x) if p == 0 else int_pow(x, p)
-
-
 def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
                                      degree: int, scale: float,
                                      local_exact: bool = True,
@@ -177,7 +172,7 @@ def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
         if local_exact:
             x = q[:, sl] @ k[:, sl].transpose(1, 2) * scale
             w = int_pow(x, degree) * tri
-            dx = degree * _pow0(x, degree - 1) * scale
+            dx = degree * int_pow0(x, degree - 1) * scale
         else:
             x = qm_l @ km_l.transpose(1, 2)
             w = x * x * tri
@@ -387,21 +382,8 @@ def backward_occupancy(local_exact: bool = True, h: int = BWD_MAX_H) -> dict:
     {name: {"registers", "local_bytes", "smem_bytes", "threads",
     "ctas_per_sm", "warps_per_sm"}} (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a CUDA card."""
-    fn = _bwd_lib().polysketch_causal_backward_occupancy
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    out = (ctypes.c_int * (5 * len(BWD_KERNELS)))()
-    err = fn(int(local_exact), h, ctypes.cast(out, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError(f"polysketch_causal_backward_occupancy failed: CUDA error {err}")
-    keys = ("registers", "local_bytes", "smem_bytes", "threads", "ctas_per_sm")
-    table = {}
-    for i, name in enumerate(BWD_KERNELS):
-        row = dict(zip(keys, out[5 * i:5 * i + 5]))
-        row["warps_per_sm"] = row["ctas_per_sm"] * row["threads"] // 32
-        table[name] = row
-    return table
+    return build.occupancy(_bwd_lib().polysketch_causal_backward_occupancy,
+                           BWD_KERNELS, int(local_exact), h)
 
 
 class _PolysketchCausal(torch.autograd.Function):

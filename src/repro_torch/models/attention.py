@@ -1,11 +1,13 @@
 """Attention mixer in train, prefill and decode modes, for the paper's
-knob ``cfg.attention``: "polysketch" or "polynomial" (exact, quadratic).
+knob ``cfg.attention``: "polysketch", "polynomial" (exact, quadratic) or
+"softmax" (the baseline).
 
-Port of those two branches of the JAX package's ``models/attention.py``
+Port of those three branches of the JAX package's ``models/attention.py``
 (``attention_init``, ``_project``, ``_poly_ln``, ``_out``,
 ``attention_apply``, ``_fill_kv``). Parameter names and layouts are the
-reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), the q/k
-LayerNorm's pln_*, and for polysketch only the learned sketch.
+reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), for the two
+polynomial mechanisms the q/k LayerNorm's pln_*, and for polysketch only
+the learned sketch.
 """
 from __future__ import annotations
 
@@ -15,14 +17,14 @@ import torch
 from torch import nn
 
 from repro_torch.core import decode as dec
-from repro_torch.core.poly_attention import qk_layernorm
+from repro_torch.core.poly_attention import qk_layernorm, softmax_attention_full
 from repro_torch.core.sketches import init_sketch, sketch_half
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rope
 from repro_torch.utils import const_param, normal_param
 
 
-MECHANISMS = ("polysketch", "polynomial")
+MECHANISMS = ("polysketch", "polynomial", "softmax")
 
 
 class Attention(nn.Module):
@@ -30,7 +32,7 @@ class Attention(nn.Module):
         super().__init__()
         if cfg.attention not in MECHANISMS:
             raise NotImplementedError(
-                f"the port serves {' and '.join(MECHANISMS)} attention, "
+                f"the port serves {', '.join(MECHANISMS)} attention, "
                 f"got {cfg.attention!r}")
         if cfg.qk_norm:
             raise NotImplementedError("qk_norm is not ported")
@@ -42,11 +44,12 @@ class Attention(nn.Module):
         self.wk = dense_init(d, (hkv, hd), **kw)
         self.wv = dense_init(d, (hkv, hd), **kw)
         self.wo = normal_param((hq, hd, d), 1.0 / math.sqrt(hq * hd), **kw)
-        # Paper S2.1: LayerNorm on q/k before the polynomial.
-        self.pln_q_scale = const_param((hd,), 1.0, device=device)
-        self.pln_k_scale = const_param((hd,), 1.0, device=device)
-        self.pln_q_bias = const_param((hd,), 0.0, device=device)
-        self.pln_k_bias = const_param((hd,), 0.0, device=device)
+        if cfg.attention != "softmax":
+            # Paper S2.1: LayerNorm on q/k before the polynomial.
+            self.pln_q_scale = const_param((hd,), 1.0, device=device)
+            self.pln_k_scale = const_param((hd,), 1.0, device=device)
+            self.pln_q_bias = const_param((hd,), 0.0, device=device)
+            self.pln_k_bias = const_param((hd,), 0.0, device=device)
         if cfg.attention == "polysketch":
             self.sketch = init_sketch(hd, cfg.sketch_size, cfg.poly_degree,
                                       cfg.learned_sketch, **kw)
@@ -84,10 +87,10 @@ class Attention(nn.Module):
 
     def init_cache(self, batch: int, max_len: int | None, dtype, device):
         """A PolysketchCache (constant size; max_len sizes nothing), or a
-        KVCache of max_len positions for polynomial attention."""
+        KVCache of max_len positions for polynomial and softmax attention."""
         cfg = self.cfg
         hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        if cfg.attention == "polynomial":
+        if cfg.attention != "polysketch":
             if max_len is None:
                 raise ValueError(
                     "a KV cache is sized at init: prefill needs max_len "
@@ -103,7 +106,24 @@ class Attention(nn.Module):
         q, k, v = self._project(x, positions)
         if self.cfg.attention == "polynomial":
             return self._polynomial(q, k, v, mode, cache)
+        if self.cfg.attention == "softmax":
+            return self._softmax(q, k, v, mode, cache)
         return self._polysketch(q, k, v, mode, cache)
+
+    def _softmax(self, q, k, v, mode, cache):
+        """Plain ops, as the reference computes it (scale 1/sqrt(h), not
+        cfg.attn_scale; no q/k LayerNorm)."""
+        if mode == "decode":
+            y, cache = dec.kv_decode_step(cache, q[:, :, 0], k[:, :, 0],
+                                          v[:, :, 0])
+            return self._out(y[:, :, None]), cache
+        g = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(g, dim=1) if g > 1 else k
+        vr = v.repeat_interleave(g, dim=1) if g > 1 else v
+        y = softmax_attention_full(q, kr, vr, causal=True)
+        if mode == "prefill":
+            cache = dec.fill_kv(cache, k, v)
+        return self._out(y), cache
 
     def _polynomial(self, q, k, v, mode, cache):
         cfg = self.cfg

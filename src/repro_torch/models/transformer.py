@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family with polysketch or exact
-polynomial attention.
+"""Decoder-only transformer LM, dense family with polysketch, exact
+polynomial or softmax attention.
 
 Port of the dense ``block_pattern=("attn",)`` path of the JAX package's
 ``models/transformer.py`` (``lm_init``, ``lm_apply`` in train / prefill /
@@ -27,7 +27,7 @@ def check_supported(cfg):
             or cfg.ffn != "glu" or cfg.attention not in MECHANISMS:
         raise NotImplementedError(
             f"{cfg.name!r}: the port covers the dense family (block_pattern "
-            f"('attn',), GLU FFN) with {' or '.join(MECHANISMS)} attention "
+            f"('attn',), GLU FFN) with {', '.join(MECHANISMS)} attention "
             f"only")
     if not cfg.tie_embeddings:
         raise NotImplementedError("untied embeddings are not ported")
@@ -95,7 +95,7 @@ class LM(nn.Module):
     def init_cache(self, batch: int, max_len: int | None = None):
         """Decode cache, one per layer: a constant-size PolysketchCache
         (`max_len` sizes nothing), or a KVCache of `max_len` positions for
-        polynomial attention (required then)."""
+        polynomial and softmax attention (required then)."""
         dt = getattr(torch, self.cfg.compute_dtype)
         dev = self.embed.table.device
         return [blk.mixer.init_cache(batch, max_len, dt, dev)

@@ -46,6 +46,12 @@ def int_pow(x: torch.Tensor, p: int) -> torch.Tensor:
     return acc
 
 
+def int_pow0(x: torch.Tensor, p: int) -> torch.Tensor:
+    """x**p for an integer p >= 0, x**0 == 1 (the power's derivative at
+    degree 1, also where x == 0)."""
+    return torch.ones_like(x) if p == 0 else int_pow(x, p)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
     another. Raises when CUDA is asked for (or defaulted to) and there is

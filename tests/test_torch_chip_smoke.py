@@ -27,6 +27,9 @@ CASES = [
     ("b2_bound", (48, 2040, 64, 4), 0.1611, "operations", 0.3879, "operations"),
     ("b1_bwd_bound", (24, 4096, 32, 64, 1024, 4), 0.4938, "operations", 1.1852,
      "operations"),
+    # B2's backward at the training shape: 201.4 M causal pairs, 5 x 2h
+    # flops of products each (128.9 GFLOP) and 1.6 GFLOP of the rest
+    ("b2_bwd_bound", (24, 4096, 64, 4), 0.8054, "operations", 1.9479, "operations"),
 ]
 
 
@@ -55,3 +58,23 @@ def test_backward_kernel_names_are_its_own(chip_smoke):
         assert first.startswith("B1 backward"), (kernel, first)
         assert kernel in passes
     assert set(chip_smoke.B1_BWD_HEAVY) <= set(pc.BWD_KERNELS)
+
+
+def test_b2_backward_kernel_names_are_its_own(chip_smoke):
+    """B2's backward kernels are __global__s of poly_flash_bwd.cu, land in
+    the step split's B2-backward group and pass, and hold neither B2's
+    forward kernel's name nor any of B1's."""
+    from repro_torch.kernels import poly_flash as pf
+    from repro_torch.kernels import polysketch_causal as pc
+    src = (ROOT / "src/repro_torch/kernels/csrc/poly_flash_bwd.cu").read_text()
+    passes = [key for _, key in chip_smoke.B2_BWD_PASSES]
+    for kernel in pf.BWD_KERNELS:
+        assert f"\n{kernel}(" in src, kernel
+        assert "poly_flash_kernel" not in kernel
+        assert not any(b1 in kernel for b1 in pc.BWD_KERNELS) and "grad_" not in kernel
+        first = next(g for g, keys in chip_smoke.STEP_GROUPS if any(k in kernel for k in keys))
+        assert first.startswith("B2 backward"), (kernel, first)
+        assert sum(key in kernel for key in passes) == 1
+    bd = chip_smoke.b2_bwd_bound(24, 4096, 64, 4)
+    assert bd.nbytes == 24 * 4096 * (8 * 64 * 4 + 4)        # eight f32 tensors and D
+    assert round(bd.flops / 1e9, 1) == 130.5                 # 128.9 products + 1.6 rest

@@ -391,3 +391,77 @@ def test_backward_kernel_is_bit_stable_over_four_blocks(card):
     a = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
     b = _grads(lambda *x: ops.polysketch_attention(*x, **kw), xs, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# B2's backward (csrc/poly_flash_bwd.cu): 64-row tiles a CTA against
+# 32-row stages of the other side, causal, any n.
+
+def _b2_inputs(seed, b, hq, hkv, n, h, degree, device):
+    """q, k LayerNorm'd like the model's (|q|, |k| at odd degree, so that
+    1 + den stays >= 1), v and dout O(1)."""
+    rnd = _normal(seed, device)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (h,), eps=1e-6)  # noqa: E731
+    q, k, v = ln(rnd(b, hq, n, h)), ln(rnd(b, hkv, n, h)), rnd(b, hkv, n, h)
+    if degree % 2:
+        q, k = q.abs(), k.abs()
+    return (q, k, v), rnd(b, hq, n, h)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,h,hkv", [(64, 64, 2), (77, 64, 2), (200, 64, 2), (200, 64, 1),
+                                     (77, 16, 2)])
+def test_b2_backward_kernel_matches_plain_version(card, degree, n, h, hkv):
+    """ops.poly_attention's gradients through B2's backward kernel against
+    the plain backward (bh 2; GQA 2:1 at hkv 1), each within 1e-4 of its
+    max|.|."""
+    xs, dout = _b2_inputs(degree + n, 1, 2, hkv, n, h, degree, card)
+    kw = dict(degree=degree, scale=1.0 / h)
+    before = pf.poly_flash_backward_cuda.launches
+    got = _grads(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
+    want = _grads(lambda *a: ops.poly_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pf.poly_flash_backward_cuda.launches == before + 1
+    _assert_grads_close(got, want)
+
+
+def test_b2_backward_kernel_is_bit_stable(card):
+    xs, dout = _b2_inputs(5, 1, 4, 4, 2040, 64, 4, card)
+    kw = dict(degree=4, scale=1.0 / 64)
+    a = _grads(lambda *x: ops.poly_attention(*x, **kw), xs, dout)
+    b = _grads(lambda *x: ops.poly_attention(*x, **kw), xs, dout)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_b2_forward_den_out_keeps_the_outputs_bits(card):
+    (q, k, v), _ = _b2_inputs(6, 1, 4, 4, 2040, 64, 4, card)
+    q, k, v = (x.reshape(4, 2040, 64).contiguous() for x in (q, k, v))
+    kw = dict(degree=4, scale=1.0 / 64)
+    out = pf.poly_flash_cuda(q, k, v, **kw)
+    out_d, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    _, want_den = pf.poly_flash_torch(q, k, v, return_den=True, **kw)
+    assert torch.equal(out, out_d)
+    torch.testing.assert_close(den, want_den, atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("attention", ["polynomial", "softmax"])
+def test_baseline_smoke_training_grads_on_card_match_cpu(card, attention):
+    """One SMOKE loss's gradients of the baselines: the card (B2's kernels
+    for polynomial, plain ops for softmax) against the CPU, per leaf within
+    1e-4 of the leaf's max|.|."""
+    from repro_torch.train import make_loss_fn
+    cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 41)))
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        lm = build_model(cfg, device=dev, seed=3, trainable=True).lm
+        before = pf.poly_flash_backward_cuda.launches
+        loss, _ = make_loss_fn(cfg)(lm, {"tokens": toks.to(dev)})
+        loss.backward()
+        launched = pf.poly_flash_backward_cuda.launches - before
+        on_card = dev.type == "cuda" and attention == "polynomial"
+        assert launched == (cfg.n_layers if on_card else 0)
+        grads[dev.type] = {n: p.grad.cpu() for n, p in lm.named_parameters()}
+    for name, want in grads["cpu"].items():
+        got = grads["cuda"][name]
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name

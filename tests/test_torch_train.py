@@ -2,7 +2,8 @@
 backward (plain version against autograd, ops gradients against
 jax.grad), the SMOKE loss gradients, 12 AdamW steps, the decay mask, the
 schedules and optimizer functions, the synthetic data, checkpoints in both
-directions, the CLI, and the guards of kernels without a backward."""
+directions, the CLI, and the gradient guards of B3 (no backward) and B2
+(its autograd Function)."""
 import os
 import signal
 
@@ -184,15 +185,34 @@ def test_cuda_backward_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("op", ["poly_attention", "lt_mult"])
 def test_kernels_without_backward_raise_on_grad(monkeypatch, op):
-    """A CUDA input that requires grad makes B2's and B3's wrappers raise
-    before any launch (the device pick is forced to the kernel here)."""
+    """With the device pick forced to the kernels: a CUDA input that
+    requires grad makes B3's wrapper raise before any launch (B3 has no
+    backward); B2's goes through its autograd Function, one forward and,
+    from the output's gradient, one backward (the kernels stood in for by
+    counted plain versions)."""
     monkeypatch.setattr(ops, "_pick", lambda impl, x, cuda_fn, torch_fn: cuda_fn)
-    x = torch.zeros(1, 2, 32, 8, requires_grad=True)
-    call = (lambda: ops.poly_attention(x, x, x, degree=4)) if op == "poly_attention" \
-        else (lambda: ops.lt_mult(x, x, x, block_size=16))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, 32, 8))
+                         .astype(np.float32)).requires_grad_(True)
+    if op == "poly_attention":
+        calls = []
+
+        def counted(name, fn):
+            def run(*a, **k):
+                calls.append(name)
+                return fn(*a, **k)
+            return run
+        monkeypatch.setattr(ops, "poly_flash_cuda", counted("fwd", pf.poly_flash_torch))
+        monkeypatch.setattr(ops, "poly_flash_backward_cuda",
+                            counted("bwd", pf.poly_flash_backward_torch))
+        y = ops.poly_attention(x, x, x, degree=4)
+        assert calls == ["fwd"] and y.requires_grad
+        y.sum().backward()
+        assert calls == ["fwd", "bwd"]
+        assert x.grad is not None and x.grad.abs().max() > 0
+        return
     before = (pf.poly_flash_cuda.launches, lt.lt_mult_cuda.launches)
     with pytest.raises(NotImplementedError, match="no backward"):
-        call()
+        ops.lt_mult(x, x, x, block_size=16)
     assert (pf.poly_flash_cuda.launches, lt.lt_mult_cuda.launches) == before
 
 

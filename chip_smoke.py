@@ -1023,7 +1023,7 @@ def phase_train(cfg, batches, kernels=()):
 # no backward kernel's name holds a forward kernel's (fold_kernel,
 # prefix_kernel, output_kernel)
 STEP_GROUPS = (
-    ("B2 backward (3 kernels)", pf.BWD_KERNELS),
+    ("B2 backward (2 kernels)", pf.BWD_KERNELS),
     ("B2 forward", ("poly_flash_kernel",)),
     ("B1 backward (all 7 kernels)", pc.BWD_KERNELS),
     ("B1 forward (prefix, outputs)", ("output_kernel", "prefix_kernel")),
@@ -1349,9 +1349,9 @@ def b2_bwd_bound(bh, n, h, degree, itemsize=4):
     once: per pair S = Q K^T, dW = dNum V^T, dv, dq and dk (2h each); the
     rest per pair dS = p x^(p-1) scale dW, W = x^p, dDen's add and the mask,
     per row dNum, dDen and Delta. Bytes: q, k, v, out, dO and D read once,
-    dq, dk and dv written once. csrc/poly_flash_bwd.cu does more: its key
-    and query kernels each rebuild S and dW, 4h flops a pair over the bound,
-    the price of having no atomics."""
+    dq, dk and dv written once. csrc/poly_flash_bwd.cu forms each product
+    once too; it also reads and writes each dq row once per key tile at or
+    before it (its ordered sum, through L2), which this count leaves out."""
     pairs = bh * n * (n + 1) // 2
     prod = pairs * 5 * 2 * h
     rest = pairs * (4 + pow_muls(degree - 1) + pow_muls(degree)) + bh * n * (3 * h + 2)
@@ -1407,8 +1407,10 @@ def phase_timing_poly_lt():
     return out
 
 
-B2_BWD_PASSES = (("prep", "poly_flash_bwd_prep"), ("key tiles (dk, dv)", "poly_flash_bwd_key"),
-                 ("query tiles (dq)", "poly_flash_bwd_query"))
+B2_BWD_PASSES = (("prep", "poly_flash_bwd_prep"),
+                 ("key tiles (dk, dv, dq)", "poly_flash_bwd_kernel"))
+# B2's backward kernel that should hold 8 warps an SM with no spills
+B2_BWD_HEAVY = ("poly_flash_bwd_kernel",)
 
 
 def phase_timing_b2_backward(ptxas):
@@ -1416,7 +1418,7 @@ def phase_timing_b2_backward(ptxas):
     kernels' occupancy, its time (time_backward), and B2's forward at the
     same shape with and without den_out."""
     kernel_occupancy("B2 backward kernels on the card (h 64)", pf.backward_occupancy(64),
-                     ptxas.get("poly_flash_bwd", {}))
+                     ptxas.get("poly_flash_bwd", {}), B2_BWD_HEAVY)
     log("phase 4: B2 backward and forward time at the training shape (CUDA events, "
         "warmed up)")
     xs, dout = b2_grad_inputs(16, 2, 12, 12, TRAIN_SEQ, 64, 4)

@@ -20,7 +20,6 @@ card's name and power limit first and last.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 import sys
 
@@ -30,6 +29,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from port_ab import backward_turns, other_module  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 
 # kernels of each pass, by a substring of their names: this design's, then
@@ -41,24 +41,6 @@ PASSES = cs.B1_BWD_PASSES + (("prep", "prep_kernel"), ("fold", "fold_kernel"),
 KW = dict(degree=4, scale=1.0 / 64, block_size=1024)
 
 
-def load(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def other_module(root: str):
-    """DIR's polysketch_causal module, launching libraries built from DIR's
-    sources."""
-    kernels = os.path.join(root, "src", "repro_torch", "kernels")
-    module = load(os.path.join(kernels, "polysketch_causal.py"), "other_polysketch_causal")
-    # the module imported this checkout's build; its _lib and _bwd_lib read
-    # `build` at call time, so DIR's own build module takes its place
-    module.build = load(os.path.join(kernels, "build.py"), "other_build")
-    return module
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, help="a checkout of another commit")
@@ -68,7 +50,7 @@ def main():
         print("port_b1_bwd_ab: no CUDA device available", file=sys.stderr)
         return 1
     cs.log(cs.card_line())
-    other = other_module(args.other)
+    other = other_module(args.other, "polysketch_causal")
     xs, dout = cs.train_attention_inputs()
     flat = [x.reshape(24, 4096, -1).contiguous() for x in xs]
     dout = dout.reshape(24, 4096, -1).contiguous()
@@ -80,18 +62,7 @@ def main():
     want = pc.polysketch_causal_backward_torch(dout, *flat, out, saved, **KW)
     fns = {"this": pc.polysketch_causal_backward_cuda,
            "other": other.polysketch_causal_backward_cuda}
-    for name in args.order.split(","):
-        fn = fns[name]
-        run = lambda: fn(dout, *flat, out, saved, **KW)  # noqa: E731
-        got, again = run(), run()
-        torch.cuda.synchronize()
-        rel = cs.grad_err(got, want)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        passes = cs.profile_passes(run, PASSES)
-        ms = min(cs.event_ms(run), cs.event_ms(run))
-        split = " ".join(f"{k} {v:.3f}" for k, v in passes.items() if v > 0)
-        cs.log(f"{name:6s} {ms:.3f} ms [{split}; sum {sum(passes.values()):.3f}] "
-               f"grad rel.err {rel:.2e} bit-stable {same}")
+    backward_turns(args.order, fns, lambda fn: fn(dout, *flat, out, saved, **KW), want, PASSES)
     cs.log(cs.card_line())
     return 0
 

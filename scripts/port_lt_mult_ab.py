@@ -16,7 +16,6 @@ card's name and power limit first and last.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import os
 import sys
 
@@ -26,28 +25,12 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from port_ab import other_module  # noqa: E402
 from repro_torch.kernels import lt_mult as lt  # noqa: E402
 
 # kernels of each pass, by a substring of their names (B3 before its
 # tensor-core form named its fold block_state_kernel)
 PASSES = cs.LT_PASSES + (("fold", "block_state"),)
-
-
-def load(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def other_wrapper(root: str):
-    """DIR's lt_mult_cuda, launching the library built from DIR's sources."""
-    kernels = os.path.join(root, "src", "repro_torch", "kernels")
-    module = load(os.path.join(kernels, "lt_mult.py"), "other_lt_mult")
-    # the module imported this checkout's build; its _lib reads `build` at
-    # call time, so DIR's own build module takes its place
-    module.build = load(os.path.join(kernels, "build.py"), "other_build")
-    return module.lt_mult_cuda
 
 
 def main():
@@ -59,7 +42,7 @@ def main():
         print("port_lt_mult_ab: no CUDA device available", file=sys.stderr)
         return 1
     cs.log(cs.card_line())
-    fns = {"this": lt.lt_mult_cuda, "other": other_wrapper(args.other)}
+    fns = {"this": lt.lt_mult_cuda, "other": other_module(args.other, "lt_mult").lt_mult_cuda}
     inputs = {n: cs.lt_bench_inputs(n) for n in (2048, 16384)}
     blk = cs.LT_BENCH["blk"]
     want = {n: lt.lt_mult_torch(*x, block_size=blk) for n, x in inputs.items()}

@@ -171,9 +171,9 @@ def poly_flash_cuda(q, k, v, *, degree: int, scale: float,
 poly_flash_cuda.launches = 0
 
 BWD_MAX_H = 64   # the backward kernel's head width (csrc/poly_flash_bwd.cu)
+BWD_STAGE = 32   # queries a stage of the backward kernel, one ordering counter each
 # The backward's kernels in launch order (csrc/poly_flash_bwd.cu).
-BWD_KERNELS = ("poly_flash_bwd_prep_kernel", "poly_flash_bwd_key_kernel",
-               "poly_flash_bwd_query_kernel")
+BWD_KERNELS = ("poly_flash_bwd_prep_kernel", "poly_flash_bwd_kernel")
 
 
 def _bwd_lib():
@@ -181,7 +181,7 @@ def _bwd_lib():
     fn = lib.poly_flash_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 4 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 12 + [i] * 4 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -220,9 +220,12 @@ def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
         raise ValueError("inputs must be contiguous")
     dnum = torch.empty_like(q)
     dden = torch.empty_like(den)
+    # the work-item ticket and one counter per (bh, query stage), which the
+    # kernel's prep launch zeroes
+    sync = torch.empty(1 + bh * -(-n // BWD_STAGE), dtype=torch.int32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, den, dnum, dden, dq, dk, dv)]
+    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, den, dnum, dden, sync, dq, dk, dv)]
     with torch.cuda.device(dev):
         err = _bwd_lib().poly_flash_backward(*ptrs, bh, n, h, degree, scale,
                                              stream)

@@ -393,8 +393,8 @@ def test_backward_kernel_is_bit_stable_over_four_blocks(card):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-# B2's backward (csrc/poly_flash_bwd.cu): 64-row tiles a CTA against
-# 32-row stages of the other side, causal, any n.
+# B2's backward (csrc/poly_flash_bwd.cu): 128-key tiles claimed by a
+# persistent grid, 32-query stages, dq summed in key order, causal, any n.
 
 def _b2_inputs(seed, b, hq, hkv, n, h, degree, device):
     """q, k LayerNorm'd like the model's (|q|, |k| at odd degree, so that
@@ -430,6 +430,35 @@ def test_b2_backward_kernel_is_bit_stable(card):
     a = _grads(lambda *x: ops.poly_attention(*x, **kw), xs, dout)
     b = _grads(lambda *x: ops.poly_attention(*x, **kw), xs, dout)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("degree", [1, 4])
+@pytest.mark.parametrize("n", [129, 1000])
+def test_b2_backward_kernel_ragged_tiles_match_plain_version(card, degree, n):
+    """n that is a multiple of neither the 128-key tile nor the 32-query
+    stage: the ragged tile and stage against the plain backward."""
+    xs, dout = _b2_inputs(31 + degree + n, 1, 2, 2, n, 64, degree, card)
+    kw = dict(degree=degree, scale=1.0 / 64)
+    got = _grads(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
+    want = _grads(lambda *a: ops.poly_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want)
+
+
+def test_b2_backward_kernel_more_items_than_resident_ctas(card):
+    """bh 48 x 16 key tiles = 768 work items, several for each CTA of the
+    persistent grid: against the plain backward, and three calls bit for
+    bit (dq is summed in key order whatever the schedule)."""
+    xs, dout = _b2_inputs(41, 1, 48, 48, 2048, 64, 4, card)
+    q, k, v, dout = (x.reshape(48, 2048, 64).contiguous() for x in (*xs, dout))
+    kw = dict(degree=4, scale=1.0 / 64)
+    out, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    runs = [pf.poly_flash_backward_cuda(dout, q, k, v, out, den, **kw) for _ in range(3)]
+    want = pf.poly_flash_backward_torch(dout, q, k, v, out, den, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close(runs[0], want)
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
 
 
 def test_b2_forward_den_out_keeps_the_outputs_bits(card):

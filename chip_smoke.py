@@ -52,7 +52,18 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      and its bounds (B1 also at the two calls a prefill's layer makes);
      B3's device time per pass (torch.profiler) and host time per call;
      B1's and B2's backward kernels' registers, spills, shared memory and
-     CTAs an SM, and their time at the training shape, per pass.
+     CTAs an SM, and their time at the training shape, per pass;
+  5. the continuous-batching ServeEngine (run after each model's phase-3
+     checks): each of the three models at full width and depth serves 8
+     requests on 4 slots (prompts 600-4096 tokens, 32 new tokens, greedy
+     and sampled, prefill budget 2048, overlap on), with TTFT, time a
+     decode tick, generated tokens/s, B1 / B2 launches (one a layer per
+     prefill chunk, no plain-version call) and the host syncs of a decode
+     tick (torch.profiler's CUDA runtime calls: at most the one token
+     copy and its event); checked against train-mode log-probabilities
+     (1e-3), batch-1 generate for the greedy requests, and the same
+     requests in reverse order (bit for bit). Each kernel row of the
+     JSON line also gives its `engine_launches`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -60,6 +71,7 @@ as its last line `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import re
@@ -91,7 +103,8 @@ from repro_torch.kernels import lt_mult as lt  # noqa: E402
 from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.serve.engine import generate  # noqa: E402
+from repro_torch.serve.engine import ServeEngine, generate  # noqa: E402
+from repro_torch.serve.sampling import SamplingParams, sample_step  # noqa: E402
 from repro_torch.train import init_train_state, make_loss_fn, make_train_step  # noqa: E402
 
 F32_TOL, BF16_TOL = 1e-4, 5e-2      # the reference's kernel-sweep tolerances
@@ -808,7 +821,8 @@ def decode_copy_cost(model, prompts, steps, max_len):
             c = cache
             for i in range(steps):
                 _, c = st.decode_step(tok, s0 + i, c)
-        in_place = lambda: mock.patch.object(dec, "_writable", lambda x: x)  # noqa: E731
+        in_place = lambda: mock.patch.object(dec, "_writable",  # noqa: E731
+                                             lambda x, inplace=False: x)
         ms = {"copy": [], "in place": []}
         for label in ("copy", "in place", "in place", "copy", "copy", "in place"):
             if label == "copy":
@@ -910,6 +924,183 @@ def phase_softmax_self_checks(model):
         f"CPU: {same}")
     if not same:
         raise AssertionError("SMOKE-softmax greedy tokens differ between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the continuous-batching ServeEngine at full width
+# ---------------------------------------------------------------------------
+
+ENGINE_LENS = (600, 1024, 1500, 2048, 2600, 3072, 3500, 4096)
+ENGINE_SLOTS, ENGINE_GEN, ENGINE_BUDGET = 4, 32, 2048
+ENGINE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+ENGINE_LP_TOL = 1e-3
+# the CUDA runtime calls that make the host wait for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy")
+
+
+def engine_workload(vocab):
+    """8 requests: prompt lengths a seeded permutation of ENGINE_LENS (so
+    slots sit at different depths, and polysketch prefills run whole blocks
+    and tails), requests 0-3 greedy and 4-7 sampled with a seed each."""
+    rng = np.random.default_rng(7)
+    lens = rng.permutation(ENGINE_LENS)
+    prompts = [rng.integers(0, vocab, size=int(n)) for n in lens]
+    samp = [SamplingParams() if i < 4 else
+            SamplingParams(seed=100 + i, **ENGINE_SAMPLED) for i in range(8)]
+    return prompts, samp
+
+
+def engine_run(model, prompts, samp, order, **kw):
+    """Serve the requests in `order` (all submitted at t = 0) through
+    ServeEngine. Returns ({request index: RequestOutput}, engine, wall s)."""
+    eng = ServeEngine(model, slots=ENGINE_SLOTS,
+                      max_len=max(ENGINE_LENS) + ENGINE_GEN, logprobs=True,
+                      prefill_budget=ENGINE_BUDGET, overlap=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid_of = {eng.submit(prompts[i], ENGINE_GEN, sampling=samp[i]): i for i in order}
+    outs = eng.run()
+    torch.cuda.synchronize()
+    return {rid_of[o.rid]: o for o in outs}, eng, time.perf_counter() - t0
+
+
+def profile_engine_ticks(model, prompts, samp, ticks=8):
+    """The CUDA runtime calls and device memory copies of `ticks` decode
+    ticks with every slot decoding (four sampled requests and no admission
+    in flight), from torch.profiler, less what the profiler makes around an
+    empty region: returns ({runtime call: count a tick}, {copy kind: count
+    a tick}, kernel launches of one sample_step over the slots), copy kinds
+    "DtoH", "HtoD", "DtoD"."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ServeEngine(model, slots=ENGINE_SLOTS, max_len=max(ENGINE_LENS) + ENGINE_GEN,
+                      logprobs=True, prefill_budget=ENGINE_BUDGET, overlap=True)
+    for i in range(4, 8):                        # long enough for the window
+        eng.submit(prompts[i][:600], ticks + 8, sampling=samp[i])
+    while eng.n_active < ENGINE_SLOTS or eng.scheduler.active:
+        eng.step()
+    eng.step()                                   # the pipeline holds a tick
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                                     else [])
+
+    def tally(run):
+        with profile(activities=acts) as prof:
+            run()
+        calls, copies = {}, {}
+        for e in prof.key_averages():
+            if e.key.startswith("cuda"):
+                calls[e.key] = e.count
+            elif e.key.startswith("Memcpy"):
+                kind = next((k for k in ("DtoH", "HtoD", "DtoD") if k in e.key), e.key)
+                copies[kind] = copies.get(kind, 0) + e.count
+        return calls, copies
+
+    base_calls, _ = tally(lambda: None)          # the profiler's own calls
+    calls, copies = tally(lambda: [eng.step() for _ in range(ticks)])
+    logits = torch.zeros((ENGINE_SLOTS, model.cfg.vocab_size), device=eng.device)
+    with torch.inference_mode():
+        sampler, _ = tally(lambda: sample_step(eng._keys, logits, *eng._samp))
+    eng.run()
+    calls = {k: (v - base_calls.get(k, 0)) / ticks for k, v in sorted(calls.items())}
+    launches = sum(v - base_calls.get(k, 0) for k, v in sampler.items()
+                   if k.startswith("cudaLaunchKernel"))
+    return calls, {k: v / ticks for k, v in sorted(copies.items())}, launches
+
+
+def phase_engine(model, kernel=None):
+    """gpt2s-polysketch / gpt2s-poly4 / gpt2s-softmax at full width and
+    depth served through ServeEngine: 8 requests on 4 slots (prompts of
+    600-4096 tokens, 32 new tokens each, requests 0-3 greedy, 4-7 sampled
+    at temperature 0.8, top-k 40, top-p 0.95), prefill budget 2048 tokens a
+    tick, overlap on, all submitted at t = 0. The run is made twice: in
+    reverse order first (it also warms the allocator and cuBLAS), then in
+    order with every kernel's launches and the plain versions' calls
+    counted. Checks: (a) each request's log-probabilities equal
+    log_softmax of a train-mode forward over prompt + emitted tokens
+    within 1e-3; (b) the greedy requests' tokens equal a batch-1
+    generate's; (c) the two runs' tokens are the same bits. `kernel`: the
+    kernel the model's prefill runs (None for softmax). Returns the
+    kernel's launches in the counted run."""
+    cfg = model.cfg
+    t_phase = time.perf_counter()
+    log(f"phase 5: {cfg.name} full width and depth ({cfg.n_layers} layers) through "
+        f"ServeEngine: 8 requests, {ENGINE_SLOTS} slots, prompts {list(ENGINE_LENS)}, "
+        f"{ENGINE_GEN} new tokens, requests 0-3 greedy, 4-7 sampled {ENGINE_SAMPLED}, "
+        f"prefill budget {ENGINE_BUDGET}, overlap on, all at t = 0")
+    prompts, samp = engine_workload(cfg.vocab_size)
+    rev, _, _ = engine_run(model, prompts, samp, range(7, -1, -1))
+    zero_counts()
+    with PlainCalls() as plain:
+        outs, eng, wall = engine_run(model, prompts, samp, range(8))
+    run_counts = counts()
+    st = eng.stats()
+    if cfg.attention == "polysketch":      # one B1 call a layer per block-grid chunk
+        chunks = sum(-(-len(p) // cfg.lt_block_size) for p in prompts)
+    else:                                  # one whole-prompt prefill each
+        chunks = len(prompts) if kernel else 0
+    expected = {name: cfg.n_layers * chunks if name == kernel else 0 for name in KERNELS}
+    ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+    gen = sum(len(o.tokens) for o in outs.values())
+    log(f"  run: {wall * 1e3:.1f} ms for {gen} generated tokens = {gen / wall:.1f} "
+        f"generated tok/s (prompts {sum(map(len, prompts))} tokens); TTFT p50 "
+        f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{st['decode_steps']} decode ticks, {st['decode_s'] * 1e3 / st['decode_steps']:.2f} "
+        f"ms a tick (decode pipeline wall / ticks), tick gap median "
+        f"{st['tick_gap_ms']['median']:.2f} ms, p95 {st['tick_gap_ms']['p95']:.2f} ms; "
+        f"{st['scheduler']['chunks']} prefill chunks")
+    log(f"  launches in the run: {run_counts} (expected {expected}); plain-version "
+        f"calls: {plain.calls}")
+    if run_counts != expected or plain.calls:
+        raise AssertionError(f"the {cfg.name} engine run did not launch "
+                             f"{kernel or 'no port kernel'} once a layer per prefill "
+                             "chunk and nothing else, or called a plain version")
+    calls, copies, sampler = profile_engine_ticks(model, prompts, samp)
+    syncs = sum(v for k, v in calls.items() if k in SYNC_CALLS)
+    d2h = copies.get("DtoH", 0)
+    log(f"  CUDA runtime calls a decode tick (4 slots decoding, sampled; the "
+        f"profiler's own subtracted): " + ", ".join(f"{k} {v:g}" for k, v in calls.items()))
+    log(f"  host syncs a tick: {syncs:g} (stream, device and event syncs and blocking "
+        f"copies; the one allowed is the wait for the token copy's event); device "
+        f"memory copies a tick: {copies}; kernel launches of one sample_step over the "
+        f"{ENGINE_SLOTS} slots (the sampler of a tick with a sampled slot): {sampler:g}")
+    if syncs > 1 or d2h > 1:
+        raise AssertionError(f"the decode tick syncs the host {syncs:g} times and copies "
+                             f"device to host {d2h:g} times a tick; one of each is "
+                             "allowed")
+
+    worst = 0.0
+    for i, o in outs.items():
+        if len(o.tokens) != ENGINE_GEN or o.finish_reason != "length":
+            raise AssertionError(f"request {i}: {len(o.tokens)} tokens, {o.finish_reason}")
+        if o.tokens.min() < 0 or o.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {i}: token out of range")
+        seq = np.concatenate([prompts[i], o.tokens[:-1]])
+        with torch.inference_mode():
+            logits, _ = model.lm(torch.from_numpy(seq)[None].cuda(), mode="train")
+            lsm = torch.log_softmax(logits[0, len(prompts[i]) - 1:].float(), dim=-1)
+            want = lsm.gather(1, torch.from_numpy(o.tokens.astype(np.int64)).cuda()[:, None])
+        e = float(np.abs(want[:, 0].cpu().numpy() - o.logprobs).max())
+        worst = max(worst, e)
+    check("(a) engine logprobs vs log_softmax of a train-mode forward", worst,
+          ENGINE_LP_TOL)
+    for i in range(4):
+        ref = generate(model, prompts[i][None], ENGINE_GEN,
+                       max_len=len(prompts[i]) + ENGINE_GEN)
+        same = np.array_equal(ref.tokens[0].cpu().numpy(), outs[i].tokens)
+        log(f"  (b) request {i} (greedy, {len(prompts[i])} tokens): engine tokens == "
+            f"batch-1 generate's: {same}")
+        if not same:
+            raise AssertionError(f"request {i}: engine tokens differ from generate's")
+    same = all(np.array_equal(outs[i].tokens, rev[i].tokens) for i in range(8))
+    log(f"  (c) the 8 requests submitted in reverse order give the same tokens, bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("engine tokens depend on submission order")
+    for i in (0, 4):
+        log(f"  req{i}: {' '.join(map(str, outs[i].tokens[:16].tolist()))} ...")
+    log(f"  phase 5 for {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+    return run_counts.get(kernel, 0) if kernel else 0
 
 
 def phase_lt_mult_path():
@@ -1543,17 +1734,23 @@ def main():
     model = build_model(get_config("gpt2s-polysketch"), device="cuda", seed=0)
     launches, prompts = phase_serve(model)
     phase_self_checks(model, prompts)
+    b1_engine = phase_engine(model, "polysketch_causal")
     del model
+    gc.collect()            # engines hold reference cycles (metric callbacks)
     torch.cuda.empty_cache()
     poly = build_model(GPT2_SMALL_POLY4, device="cuda", seed=0)
     b2_launches = phase_serve_kv(poly, prompts, "poly_flash")
     phase_poly_self_checks(poly, prompts)
+    b2_engine = phase_engine(poly, "poly_flash")
     del poly
+    gc.collect()
     torch.cuda.empty_cache()
     soft = build_model(GPT2_SMALL_SOFTMAX, device="cuda", seed=0)
     phase_serve_kv(soft, prompts)
     phase_softmax_self_checks(soft)
+    phase_engine(soft)
     del soft
+    gc.collect()
     torch.cuda.empty_cache()
     b3_launches = phase_lt_mult_path()
     train_cfg = get_config("gpt2s-polysketch")
@@ -1577,11 +1774,14 @@ def main():
     b2_bwd_times = phase_timing_b2_backward(ptxas)
     phase_lt_mult_breakdown()
 
+    engine_launches = {"polysketch_causal": b1_engine, "poly_flash": b2_engine}
+
     def row(name, replaces, launches, max_abs_err, timing, source=None):
         t_ms, t_plain, bd = timing
         return {"name": name, "route": "cuda", "status": "ok",
                 "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
                 "replaces": replaces, "launches": launches,
+                "engine_launches": engine_launches.get(name, 0),
                 "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
                 "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
                 "library_ms": None}

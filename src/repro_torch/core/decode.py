@@ -14,11 +14,28 @@ Port of two kinds of the JAX package's ``core/decode.py``:
 - kv_full: the same ``KVCache`` for softmax attention (the paper's
   softmax baseline), read by ``kv_decode_step``.
 
-`pos` is a host int (the JAX package keeps a device scalar): the fold and
-the cache slot are decided on the host, with no device sync.
+`pos` takes two forms:
+- a host int shared by the batch (``generate`` and every prefill): the
+  fold and the cache slot are decided on the host, with no device sync;
+- a (B,) int64 tensor on the device, one position per row (the serve
+  engine's slot-stacked state, where each slot sits at its own depth).
+  Every row writes at its own slot and masks its own live positions; the
+  polysketch fold is computed for every row and kept, with
+  ``torch.where``, only where that row's block completes (the reference's
+  ``lax.cond`` under the engine's ``vmap`` over slots), so a row that
+  does not fold keeps its state bit for bit. A KV write past the cache
+  clamps to its last slot, as JAX's ``dynamic_update_index_in_dim`` does
+  (only a free slot decoding along on stale state gets there).
 
 Caches are values, as in the reference: a step returns a new cache and
 leaves the one it was given as it was, so buffers it writes are copies.
+``inplace=True`` writes into the given buffers instead (the engine owns
+its slot-stacked state, as the reference donates it).
+
+The slot helpers (``broadcast_slot_caches``, ``slot_scatter``,
+``slot_gather``) stack serve slots on the batch axis of a model cache (a
+list of per-layer nodes), not on a new leading axis: a batch-1 cache goes
+in and comes out.
 """
 from __future__ import annotations
 
@@ -30,9 +47,32 @@ from repro_torch.kernels import ops
 from repro_torch.utils import int_pow, self_kron
 
 
-def _writable(buf: torch.Tensor) -> torch.Tensor:
-    """A copy of a cache buffer for a step to write into."""
-    return buf.clone()
+def _writable(buf: torch.Tensor, inplace: bool = False) -> torch.Tensor:
+    """The cache buffer a step writes into: a copy, or itself."""
+    return buf if inplace else buf.clone()
+
+
+def _rows(pos, bsz, device):
+    """Batch-row indices for a per-row write, or None for a shared pos."""
+    return torch.arange(bsz, device=device) if torch.is_tensor(pos) else None
+
+
+def _write_at(buf, rows, idx, x):
+    """buf[:, :, idx] = x for a shared int idx, or buf[b, :, idx[b]] = x[b]
+    for every row b (idx a (B,) tensor); x is (B, H, d)."""
+    if rows is None:
+        buf[:, :, idx] = x
+    else:
+        buf[rows, :, idx] = x
+
+
+def _live(n, last, device):
+    """Mask of positions 0..last over n slots: (n,) for a shared int,
+    (B, 1, 1, n) for a (B,) tensor (broadcasts over heads and queries)."""
+    idx = torch.arange(n, device=device)
+    if not torch.is_tensor(last):
+        return idx <= last
+    return (idx[None, :] <= last[:, None])[:, None, None, :]
 
 
 class PolysketchCache(NamedTuple):
@@ -40,7 +80,7 @@ class PolysketchCache(NamedTuple):
     kbuf: torch.Tensor   # (B, Hkv, b, h)     raw keys, current partial block
     vbuf: torch.Tensor   # (B, Hkv, b, h)
     mbuf: torch.Tensor   # (B, Hkv, b, r)     sketched keys, current partial block
-    pos: int             # tokens consumed so far
+    pos: int | torch.Tensor  # tokens consumed so far (int, or (B,) per row)
 
 
 def init_polysketch_cache(batch, n_kv_heads, head_dim, r, block_size,
@@ -58,26 +98,29 @@ def init_polysketch_cache(batch, n_kv_heads, head_dim, r, block_size,
 
 def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
                            degree: int, scale: float,
-                           local_exact: bool = True):
+                           local_exact: bool = True, inplace: bool = False):
     """One decode step.
 
     qm: (B, Hq, r)  sketched query (input pre-scaled by sqrt(scale))
     km: (B, Hkv, r) sketched key
     q:  (B, Hq, h)  post-LN query;  k, v: (B, Hkv, h)
     Returns (out (B, Hq, h), new_cache). `cache` is left as it was, as in
-    the reference: the token goes into copies of its buffers.
+    the reference, unless `inplace`: the token goes into copies of its
+    buffers.
     """
     bsz, hq, hd = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     blk = cache.kbuf.shape[2]
-    fill = cache.pos % blk  # slot for the incoming token
+    fill = cache.pos % blk  # slot for the incoming token (int or (B,))
+    rows = _rows(fill, bsz, q.device)
 
     f32 = torch.float32
-    kbuf, vbuf, mbuf = map(_writable, (cache.kbuf, cache.vbuf, cache.mbuf))
-    kbuf[:, :, fill] = k.to(kbuf.dtype)
-    vbuf[:, :, fill] = v.to(vbuf.dtype)
-    mbuf[:, :, fill] = km.to(f32)
+    kbuf, vbuf, mbuf = (_writable(b, inplace)
+                        for b in (cache.kbuf, cache.vbuf, cache.mbuf))
+    _write_at(kbuf, rows, fill, k.to(kbuf.dtype))
+    _write_at(vbuf, rows, fill, v.to(vbuf.dtype))
+    _write_at(mbuf, rows, fill, km.to(f32))
 
     # --- local (within current partial block) attention weights ---
     qg = q.reshape(bsz, hkv, g, hd).to(f32)
@@ -89,7 +132,7 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
         w = torch.einsum("bngr,bnsr->bngs", qmg, mbuf)
         w = w * w
     # slots past `fill` hold zeros or a stale block; only 0..fill are live
-    w[..., fill + 1:] = 0.0
+    w = torch.where(_live(blk, fill, q.device), w, 0.0)
     ones = vbuf.new_ones((*vbuf.shape[:-1], 1), dtype=f32)
     vv = torch.cat([vbuf.to(f32), ones], dim=-1)               # (B,Hkv,blk,h+1)
     local = torch.einsum("bngs,bnsd->bngd", w, vv)
@@ -103,9 +146,11 @@ def polysketch_decode_step(cache: PolysketchCache, qm, km, q, k, v, *,
 
     # --- fold the block into the prefix state when it completes ---
     z = cache.z
-    if fill == blk - 1:
+    if rows is not None or fill == blk - 1:
         kf = self_kron(mbuf)                                   # (B,Hkv,blk,r^2)
-        z = z + torch.einsum("bnsf,bnsd->bnfd", kf, vv)
+        folded = z + torch.einsum("bnsf,bnsd->bnfd", kf, vv)
+        z = (folded if rows is None else
+             torch.where((fill == blk - 1)[:, None, None, None], folded, z))
     new_cache = PolysketchCache(z=z, kbuf=kbuf, vbuf=vbuf, mbuf=mbuf,
                                 pos=cache.pos + 1)
     return out.to(v.dtype), new_cache
@@ -155,7 +200,7 @@ def polysketch_prefill(cache: PolysketchCache, qm, km, q, k, v, *,
 class KVCache(NamedTuple):
     k: torch.Tensor   # (B, Hkv, S_max, h) post-RoPE, post-LN keys
     v: torch.Tensor   # (B, Hkv, S_max, h)
-    pos: int          # tokens written so far
+    pos: int | torch.Tensor  # tokens written so far (int, or (B,) per row)
 
 
 def init_kv_cache(batch, n_kv_heads, head_dim, max_len, dtype=torch.float32,
@@ -178,58 +223,115 @@ def fill_kv(cache: KVCache, k, v) -> KVCache:
     return KVCache(kc, vc, s)
 
 
-def _append_kv(cache: KVCache, k, v):
-    """Copies of the cache's buffers with the token's k, v (B, Hkv, h)
-    written at its position; returns (k, v, that position)."""
-    pos = cache.pos
-    if pos >= cache.k.shape[2]:
-        raise ValueError(f"KV cache of {cache.k.shape[2]} is full at "
-                         f"position {pos}")
-    kc, vc = _writable(cache.k), _writable(cache.v)
-    kc[:, :, pos] = k.to(kc.dtype)
-    vc[:, :, pos] = v.to(vc.dtype)
+def _append_kv(cache: KVCache, k, v, inplace: bool = False):
+    """The cache's buffers (copies unless `inplace`) with the token's k, v
+    (B, Hkv, h) written at its position; returns (k, v, that position).
+    A per-row position past the cache clamps to its last slot, as JAX's
+    dynamic_update_index_in_dim does."""
+    pos, s_max = cache.pos, cache.k.shape[2]
+    rows = _rows(pos, k.shape[0], k.device)
+    if rows is None:
+        if pos >= s_max:
+            raise ValueError(f"KV cache of {s_max} is full at position {pos}")
+        idx = pos
+    else:
+        idx = pos.clamp(max=s_max - 1)
+    kc, vc = _writable(cache.k, inplace), _writable(cache.v, inplace)
+    _write_at(kc, rows, idx, k.to(kc.dtype))
+    _write_at(vc, rows, idx, v.to(vc.dtype))
     return kc, vc, pos
 
 
 def poly_kv_decode_step(cache: KVCache, q, k, v, *, degree: int,
-                        scale: float):
+                        scale: float, inplace: bool = False):
     """Exact polynomial attention decode over a full KV cache (the
     quadratic baseline; the paper's inference win is that polysketch does
     NOT need this). q: (B, Hq, h) post-LN; k: (B, Hkv, h) post-LN; v:
     (B, Hkv, h). Returns (out (B, Hq, h), new_cache); `cache` is left as it
-    was."""
+    was unless `inplace`."""
     bsz, hq, hd = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     f32 = torch.float32
-    kc, vc, pos = _append_kv(cache, k, v)
+    kc, vc, pos = _append_kv(cache, k, v, inplace)
     qg = q.reshape(bsz, hkv, g, hd).to(f32)
     wts = int_pow(torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * scale,
                   degree)
     # every slot of the cache is scored; only 0..pos are live
-    mask = torch.arange(kc.shape[2], device=kc.device) <= pos
+    mask = _live(kc.shape[2], pos, kc.device)
     wts = torch.where(mask, wts, torch.zeros((), device=wts.device))
     den = 1.0 + wts.sum(-1, keepdim=True)
     out = torch.einsum("bngs,bnsh->bngh", wts / den, vc.to(f32))
     return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)
 
 
-def kv_decode_step(cache: KVCache, q, k, v):
+def kv_decode_step(cache: KVCache, q, k, v, *, inplace: bool = False):
     """One softmax decode step over a KV cache, scale 1/sqrt(h).
 
     q: (B, Hq, h); k, v: (B, Hkv, h). Every slot of the cache is scored and
     the slots past `pos` are masked; query heads are grouped onto their kv
     head (GQA). Returns (out (B, Hq, h), new_cache); `cache` is left as it
-    was."""
+    was unless `inplace`."""
     bsz, hq, hd = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     f32 = torch.float32
-    kc, vc, pos = _append_kv(cache, k, v)
+    kc, vc, pos = _append_kv(cache, k, v, inplace)
     qg = q.reshape(bsz, hkv, g, hd).to(f32)
     logits = torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * (1.0 / hd ** 0.5)
-    idx = torch.arange(kc.shape[2], device=kc.device)
-    logits = logits.masked_fill(idx > pos, torch.finfo(f32).min)
+    logits = torch.where(_live(kc.shape[2], pos, kc.device), logits,
+                         torch.finfo(f32).min)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngs,bnsh->bngh", w, vc.to(f32))
     return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# slot stacking (continuous batching)
+# ---------------------------------------------------------------------------
+
+def _node_map(fn_tensor, fn_pos, *nodes):
+    """Map a per-layer cache node field by field: `fn_pos` on `pos`,
+    `fn_tensor` on every buffer."""
+    first = nodes[0]
+    return type(first)(*(
+        fn_pos(*vals) if name == "pos" else fn_tensor(*vals)
+        for name, *vals in zip(first._fields, *nodes)))
+
+
+def broadcast_slot_caches(cache, slots: int):
+    """Replicate a batch-1 model cache (a list of per-layer nodes) into
+    `slots` rows of the batch axis; the shared int `pos` becomes a (slots,)
+    int64 tensor, so each slot carries its own position."""
+    def rep(x):
+        return x.expand(slots, *x.shape[1:]).clone()
+
+    def pos(p):
+        dev = cache[0][0].device
+        return torch.full((slots,), int(p), dtype=torch.int64, device=dev)
+    return [_node_map(rep, pos, node) for node in cache]
+
+
+def slot_scatter(slot_caches, cache, slot: int, *, inplace: bool = False):
+    """Write a batch-1 model cache into row `slot` of the slot-stacked one.
+    Returns the new stack (`slot_caches` left as it was, unless `inplace`).
+    The write is device-side: the batch-1 cache's int `pos` goes in by a
+    fill."""
+    def put(full, one):
+        full = _writable(full, inplace)
+        full[slot].copy_(one[0])
+        return full
+
+    def pos(full, one):
+        full = _writable(full, inplace)
+        full[slot].fill_(int(one))
+        return full
+    return [_node_map(put, pos, full, one)
+            for full, one in zip(slot_caches, cache)]
+
+
+def slot_gather(slot_caches, slot: int):
+    """Row `slot` of the slot-stacked cache as a batch-1 model cache (copies),
+    with its `pos` as a host int (this reads the position back: one sync)."""
+    return [_node_map(lambda x: x[slot:slot + 1].clone(),
+                      lambda p: int(p[slot]), node) for node in slot_caches]

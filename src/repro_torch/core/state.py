@@ -1,63 +1,324 @@
-"""DecodeState: the decode-state lifecycle of one model.
+"""DecodeState protocol: a family-agnostic cache / prefill / snapshot API.
 
-A small port of the facade in the JAX package's ``core/state.py``:
-``init``, ``prefill``, ``resume`` and ``decode_step``, with the state
-kind of the model's mixer (``mixer_state_kind``) and whether a prefill can
-be resumed (``resumable``). Snapshots, the full kind registry and slot
-stacking are not ported yet.
+Port of the JAX package's ``core/state.py`` for the state kinds the port
+has (``polysketch``, ``poly_kv``, ``kv_full``); the shard axes belong to
+scale-out and are not ported. The serve engine, ``generate`` and the
+scheduler speak only this protocol and never branch on the mechanism:
 
-- ``polysketch`` (resumable): prefill runs on the block grid. A prompt
-  segment goes through the model in chunks that end on multiples of
-  ``lt_block_size`` (absolute positions). A prefill resumed at a block
-  boundary therefore makes exactly the calls, on exactly the shapes, that
-  the cold prefill of the whole prompt makes from there on, and gives the
-  same bits. A one-shot call over the whole prompt would not: cuBLAS picks
-  its kernel by shape, and a product over 2040 rows need not round like
-  one over 1024 + 1016 rows (seen on an H100).
-- ``poly_kv`` and ``kv_full`` (not resumable): the full KV cache of exact
-  polynomial attention and of softmax attention. Prefill is one call
-  over the whole prompt, which attends to itself and is written into the
-  cache at position 0, as in the reference; a prefill cannot continue
-  from a state, so ``resume`` at a position past 0 raises. The cache is
-  sized at init, so ``prefill`` needs ``max_len`` or a pre-built state.
+- ``StateSpec`` (registry, keyed by state *kind*): how to build one
+  layer's cache node and what the kind supports (snapshot granularity,
+  resumable prefill).
+- Node-level snapshot ops, keyed by cache-node *type*
+  (``PolysketchCache``, ``KVCache``): ``snapshot_state`` and
+  ``restore_state`` walk a model cache (a list of per-layer nodes) and
+  dispatch per node.
+- ``DecodeState``: the model-level facade (built by ``model_zoo``):
+  ``init / init_slot / prefill / resume / decode_step / snapshot /
+  restore / serialize / deserialize``, the partial-prefill carry and the
+  slot helpers.
+
+Snapshot granularity (per kind, composed over a model's kinds, the
+weakest member winning): ``"block"``, valid at the last lt_block_size
+boundary, where the partial tail lives in buffers the snapshot omits
+(polysketch); ``"token"``, the state covers exactly the tokens so far (no
+ported kind); ``None``, no constant-size snapshot (full KV).
+
+Prefill of a resumable kind (polysketch) runs on the block grid: a prompt
+segment goes through the model in chunks that end on multiples of
+``lt_block_size`` (absolute positions). A prefill resumed at a block
+boundary therefore makes exactly the calls, on exactly the shapes, that
+the cold prefill of the whole prompt makes from there on, and gives the
+same bits. A one-shot call over the whole prompt would not: cuBLAS picks
+its kernel by shape, and a product over 2040 rows need not round like one
+over 1024 + 1016 rows (seen on an H100). The KV kinds are not resumable:
+prefill is one call over the whole prompt, written into the cache at
+position 0; their cache is sized at init, so ``prefill`` needs
+``max_len`` or a pre-built state.
+
+Positions: a prefill keeps the host int ``pos`` of ``core.decode``;
+``decode_step`` takes an int shared by the batch or a (B,) tensor, one per
+row (the engine's slots).
 """
 from __future__ import annotations
 
+import io
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
 
-# kind -> resumable (the reference's StateSpec.resumable)
-_RESUMABLE = {"polysketch": True, "poly_kv": False, "kv_full": False}
+from repro_torch.core import decode as dec
 
 
-def mixer_state_kind(cfg) -> str:
-    """The decode-state kind of the config's attention mixer."""
-    kinds = {"polysketch": "polysketch", "polynomial": "poly_kv",
-             "softmax": "kv_full"}
-    if cfg.attention not in kinds:
-        raise ValueError(f"no decode state ported for attention "
-                         f"{cfg.attention!r}")
-    return kinds[cfg.attention]
+# ---------------------------------------------------------------------------
+# node-level snapshot ops (dispatch by cache-node type)
+# ---------------------------------------------------------------------------
 
+class NodeOps(NamedTuple):
+    granularity: str | None          # "block" | "token" | None
+    snapshot: Callable | None        # node -> constant-size snapshot
+    restore: Callable | None         # (fresh_node, snapshot, n_tokens) -> node
+
+
+def _psk_snapshot(node: dec.PolysketchCache):
+    # valid at block-aligned positions, where the buffers are empty by
+    # construction: the folded prefix state is the whole story
+    return node.z
+
+
+def _psk_restore(fresh: dec.PolysketchCache, z, n_tokens):
+    return fresh._replace(z=z.to(device=fresh.z.device, dtype=fresh.z.dtype),
+                          pos=int(n_tokens))
+
+
+NODE_OPS: dict[type, NodeOps] = {
+    dec.PolysketchCache: NodeOps("block", _psk_snapshot, _psk_restore),
+    dec.KVCache: NodeOps(None, None, None),
+}
+
+
+def snapshot_state(state):
+    """Constant-size snapshot of a model cache (per-node dispatch): a list
+    with one snapshot per layer. Raises for node types with none (KV)."""
+    def snap(node):
+        ops = NODE_OPS[type(node)]
+        if ops.snapshot is None:
+            raise ValueError(
+                f"{type(node).__name__} decode state does not support "
+                "constant-size snapshots")
+        return ops.snapshot(node)
+    return [snap(node) for node in state]
+
+
+def restore_state(fresh_state, snapshot, n_tokens):
+    """Rebuild a model cache from a snapshot; `fresh_state` supplies the
+    structure and zeros, `n_tokens` the restored position (block-aligned
+    for block-granularity nodes)."""
+    return [NODE_OPS[type(node)].restore(node, snap, n_tokens)
+            for node, snap in zip(fresh_state, snapshot)]
+
+
+# ---------------------------------------------------------------------------
+# the kind registry
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class StateSpec:
+    """One decode-state kind: how to build it and what it supports."""
+    kind: str
+    node_type: type
+    granularity: str | None     # see module docstring
+    resumable: bool             # prefill can continue from a prior state
+    init: Callable              # (cfg, batch, max_len, dtype, device) -> node
+
+
+REGISTRY: dict[str, StateSpec] = {}
+
+
+def register_state(spec: StateSpec) -> StateSpec:
+    REGISTRY[spec.kind] = spec
+    return spec
+
+
+def get_spec(kind: str) -> StateSpec:
+    if kind not in REGISTRY:
+        raise KeyError(f"unknown decode-state kind {kind!r}; "
+                       f"registered: {sorted(REGISTRY)}")
+    return REGISTRY[kind]
+
+
+def _init_kv(cfg, batch, max_len, dtype, device):
+    if max_len is None:
+        raise ValueError("a KV cache is sized at init: prefill needs max_len "
+                         "(or a pre-built state)")
+    return dec.init_kv_cache(batch, cfg.n_kv_heads, cfg.resolved_head_dim,
+                             max_len, dtype, device)
+
+
+# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
+register_state(StateSpec(
+    kind="polysketch", node_type=dec.PolysketchCache,
+    granularity="block", resumable=True,
+    init=lambda cfg, batch, max_len, dtype, device: dec.init_polysketch_cache(
+        batch, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.sketch_size,
+        cfg.lt_block_size, dtype, device)))
+
+# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
+register_state(StateSpec(
+    kind="kv_full", node_type=dec.KVCache, granularity=None, resumable=False,
+    init=_init_kv))
+
+# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
+register_state(StateSpec(
+    kind="poly_kv", node_type=dec.KVCache, granularity=None, resumable=False,
+    init=_init_kv))
+
+
+def mixer_state_kind(cfg, mixer: str = "attn") -> str:
+    """The decode-state kind a mixer contributes under this config."""
+    if mixer == "attn":
+        kinds = {"polysketch": "polysketch", "polynomial": "poly_kv",
+                 "softmax": "kv_full"}
+        if cfg.attention not in kinds:
+            raise ValueError(f"no decode state ported for attention "
+                             f"{cfg.attention!r}")
+        return kinds[cfg.attention]
+    if mixer == "local_attn":
+        return "kv_ring"
+    if mixer in ("rglru", "ssd"):
+        return mixer
+    raise ValueError(f"unknown mixer kind {mixer!r}")
+
+
+def state_kinds(cfg) -> tuple[str, ...]:
+    """Distinct decode-state kinds of a config's block pattern (ordered)."""
+    return tuple(dict.fromkeys(
+        mixer_state_kind(cfg, m) for m in cfg.block_pattern))
+
+
+def composite_granularity(kinds) -> str | None:
+    """Weakest-member snapshot granularity over a model's state kinds."""
+    gs = [get_spec(k).granularity for k in kinds]
+    if not gs or any(g is None for g in gs):
+        return None
+    return "block" if all(g == "block" for g in gs) else "token"
+
+
+# ---------------------------------------------------------------------------
+# snapshot (de)serialization
+# ---------------------------------------------------------------------------
+
+def serialize_snapshot(snapshot, n_tokens: int) -> bytes:
+    """npz of the snapshot and its position, in the reference's layout:
+    ``n_tokens`` and ``leaf{i}`` in JAX's tree-leaf order. The JAX package
+    stacks a dense model's per-layer state over layers in one group, so a
+    per-layer list of snapshots is one leaf, stacked on a leading layer
+    axis: polysketch's z is (n_layers, 1, hkv, r^2, h+1). A snapshot
+    written by either package loads in the other."""
+    buf = io.BytesIO()
+    leaf = torch.stack([z.detach().to("cpu") for z in snapshot])
+    np.savez(buf, n_tokens=np.int64(n_tokens), leaf0=leaf.numpy())
+    return buf.getvalue()
+
+
+def deserialize_snapshot(data: bytes, device=None):
+    """Inverse of serialize_snapshot: (per-layer list of snapshots on
+    `device`, n_tokens)."""
+    with np.load(io.BytesIO(data)) as z:
+        n = int(z["n_tokens"])
+        if len(z.files) != 2:
+            raise ValueError(f"expected one stacked leaf, got "
+                             f"{len(z.files) - 1}")
+        leaf = torch.from_numpy(np.array(z["leaf0"]))
+    return [x.to(device) for x in leaf.unbind(0)], n
+
+
+# ---------------------------------------------------------------------------
+# resumed-prefill bucketing
+# ---------------------------------------------------------------------------
+
+def bucket_chunks(pos0: int, end: int, block_size: int,
+                  max_blocks: int | None = None) -> list[int]:
+    """Split [pos0, end) into power-of-two multiples of block_size (largest
+    first) plus one final sub-block tail; returns the absolute cut points
+    (ascending, last == end).
+
+    Every intermediate cut is block-aligned when pos0 is (the resume
+    contract for block-granularity states). ``max_blocks`` caps every
+    chunk at that many blocks (rounded down to a power of two, min 1): the
+    serve scheduler uses it to keep each chunk under the per-tick prefill
+    budget, so a long prompt becomes a run of equal budget-sized chunks,
+    preemptible between every cut."""
+    if end <= pos0:
+        return []
+    cap = None
+    if max_blocks is not None:
+        cap = 1 << (max(1, max_blocks).bit_length() - 1)
+    m, t = divmod(end - pos0, block_size)
+    cuts, pos = [], pos0
+    while m:
+        p = 1 << (m.bit_length() - 1)
+        if cap is not None:
+            p = min(p, cap)
+        pos += p * block_size
+        cuts.append(pos)
+        m -= p
+    if t:
+        cuts.append(end)
+    return cuts
+
+
+# ---------------------------------------------------------------------------
+# partial prefill: a schedulable in-flight prefill
+# ---------------------------------------------------------------------------
+
+class PartialPrefill(NamedTuple):
+    """The carry of a chunked prefill, paused between chunks.
+
+    state:    the model cache covering the first n_tokens tokens.
+    n_tokens: host int; block-aligned at every pause point (only the final
+              chunk may land off-grid, and then the prefill is complete).
+    logits:   (1, V) last-position logits of the latest chunk (None before
+              the first chunk lands).
+    """
+    state: object
+    n_tokens: int
+    logits: object = None
+
+    @property
+    def started(self) -> bool:
+        return self.logits is not None
+
+
+# ---------------------------------------------------------------------------
+# the model-level facade
+# ---------------------------------------------------------------------------
 
 class DecodeState:
-    """Cache lifecycle for one LM module (see models.transformer.LM)."""
+    """Uniform decode-state surface for one LM module (see
+    models.transformer.LM). The protocol-level methods keep value
+    semantics: a state passed in is left as it was."""
 
     def __init__(self, lm):
         self.lm = lm
         self.cfg = lm.cfg
-        self.kind = mixer_state_kind(lm.cfg)
+        self.kinds = state_kinds(lm.cfg)
+        for kind in self.kinds:
+            get_spec(kind)          # raises for a kind the port lacks
+
+    @property
+    def kind(self) -> str:
+        """The model's state kind (the dense family has one)."""
+        return self.kinds[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm.embed.table.device
+
+    # -- capabilities ------------------------------------------------------
 
     @property
     def block_size(self) -> int:
-        """Resumed-prefill grid (multiples of lt_block_size)."""
+        """Snapshot / resumed-prefill grid (multiples of lt_block_size)."""
         return self.cfg.lt_block_size
 
     @property
+    def snapshot_granularity(self) -> str | None:
+        return composite_granularity(self.kinds)
+
+    @property
     def resumable(self) -> bool:
-        return _RESUMABLE[self.kind]
+        return all(get_spec(k).resumable for k in self.kinds)
+
+    # -- lifecycle ---------------------------------------------------------
 
     def init(self, batch: int, max_len: int | None = None):
         return self.lm.init_cache(batch, max_len)
+
+    def init_slot(self, max_len: int | None = None):
+        """Batch-1 cache for one serve slot."""
+        return self.lm.init_slot_cache(max_len)
 
     def prefill(self, tokens, state=None, *, max_len=None):
         """tokens (B, S) -> (last-position logits (B, V), state)."""
@@ -90,10 +351,82 @@ class DecodeState:
             start = end
         return logits[:, -1], state
 
-    def decode_step(self, tok, pos: int, state):
-        """tok (B, 1) at position `pos` (shared across the batch)
-        -> (logits (B, V), state)."""
-        positions = torch.full((1,), pos, dtype=torch.long, device=tok.device)
+    def decode_step(self, tok, pos, state, *, inplace: bool = False):
+        """tok (B, 1) at position `pos`: an int shared by the batch, or a
+        (B,) int64 tensor, one per row -> (logits (B, V), state).
+        `inplace` writes into `state`'s buffers (an owner's state only)."""
+        if torch.is_tensor(pos):
+            positions = pos.reshape(-1, 1)
+        else:
+            positions = torch.full((1,), pos, dtype=torch.long,
+                                   device=tok.device)
         logits, state = self.lm(tok, mode="decode", cache=state,
-                                positions=positions)
+                                positions=positions, inplace=inplace)
         return logits[:, -1], state
+
+    # -- snapshots ---------------------------------------------------------
+
+    def snapshot(self, state):
+        if self.snapshot_granularity is None:
+            raise ValueError(
+                f"decode state of {self.cfg.name!r} (kinds: "
+                f"{'/'.join(self.kinds)}) has no constant-size snapshot")
+        return snapshot_state(state)
+
+    def restore(self, fresh_state, snapshot, n_tokens):
+        return restore_state(fresh_state, snapshot, n_tokens)
+
+    def serialize(self, snapshot, n_tokens: int) -> bytes:
+        return serialize_snapshot(snapshot, n_tokens)
+
+    def deserialize(self, data: bytes):
+        snap, n = deserialize_snapshot(data, self.device)
+        probe = self.snapshot(self.init_slot(self.block_size))
+        if len(snap) != len(probe) or any(
+                a.shape != b.shape for a, b in zip(snap, probe)):
+            raise ValueError(
+                f"snapshot leaves {[tuple(a.shape) for a in snap]} do not "
+                f"fit this model's {[tuple(b.shape) for b in probe]}")
+        return snap, n
+
+    # -- partial prefill (chunked admission) -------------------------------
+
+    def begin_partial(self, max_len: int | None = None) -> PartialPrefill:
+        """A fresh, zero-token partial prefill (cold start)."""
+        return PartialPrefill(self.init_slot(max_len), 0)
+
+    def advance_partial(self, tokens, part: PartialPrefill) -> PartialPrefill:
+        """Run one more chunk; tokens (1, S) continue at part.n_tokens."""
+        logits, state = self.resume(tokens, part.state, part.n_tokens)
+        return PartialPrefill(state, part.n_tokens + tokens.shape[1], logits)
+
+    def partial_snapshot(self, part: PartialPrefill):
+        """Constant-size snapshot of a paused prefill -> (snapshot, pos).
+        Valid at block-grid pause points only (every pause point the
+        scheduler produces)."""
+        if part.n_tokens % self.block_size:
+            raise ValueError(
+                f"partial prefill paused off-grid ({part.n_tokens} tokens, "
+                f"block {self.block_size}): not snapshotable")
+        return self.snapshot(part.state), part.n_tokens
+
+    def partial_restore(self, snapshot, n_tokens: int,
+                        max_len: int | None = None) -> PartialPrefill:
+        """Re-materialize a paused prefill from its snapshot (no logits
+        yet: a pause point always has at least one chunk left to run)."""
+        state = self.restore(self.init_slot(max_len), snapshot, n_tokens)
+        return PartialPrefill(state, int(n_tokens))
+
+    # -- slot stacking (continuous batching) -------------------------------
+
+    @staticmethod
+    def broadcast_slots(state, slots: int):
+        return dec.broadcast_slot_caches(state, slots)
+
+    @staticmethod
+    def slot_scatter(slot_states, state, slot: int, *, inplace: bool = False):
+        return dec.slot_scatter(slot_states, state, slot, inplace=inplace)
+
+    @staticmethod
+    def slot_gather(slot_states, slot: int):
+        return dec.slot_gather(slot_states, slot)

@@ -85,37 +85,26 @@ class Attention(nn.Module):
         y = y.transpose(1, 2).reshape(bsz, s, hq * hd)
         return y @ self.wo.to(y.dtype).reshape(hq * hd, -1)
 
-    def init_cache(self, batch: int, max_len: int | None, dtype, device):
-        """A PolysketchCache (constant size; max_len sizes nothing), or a
-        KVCache of max_len positions for polynomial and softmax attention."""
-        cfg = self.cfg
-        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        if cfg.attention != "polysketch":
-            if max_len is None:
-                raise ValueError(
-                    "a KV cache is sized at init: prefill needs max_len "
-                    "(or a pre-built state)")
-            return dec.init_kv_cache(batch, hkv, hd, max_len, dtype, device)
-        return dec.init_polysketch_cache(
-            batch, hkv, hd, cfg.sketch_size, cfg.lt_block_size, dtype, device)
-
-    def forward(self, x, *, positions, mode: str, cache=None):
-        """Returns (y (B,S,D), new_cache_or_None)."""
+    def forward(self, x, *, positions, mode: str, cache=None,
+                inplace: bool = False):
+        """Returns (y (B,S,D), new_cache_or_None). positions: (S,), or
+        (B, S) per row; `inplace` lets a decode step write into `cache`'s
+        buffers instead of copies."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         q, k, v = self._project(x, positions)
         if self.cfg.attention == "polynomial":
-            return self._polynomial(q, k, v, mode, cache)
+            return self._polynomial(q, k, v, mode, cache, inplace)
         if self.cfg.attention == "softmax":
-            return self._softmax(q, k, v, mode, cache)
-        return self._polysketch(q, k, v, mode, cache)
+            return self._softmax(q, k, v, mode, cache, inplace)
+        return self._polysketch(q, k, v, mode, cache, inplace)
 
-    def _softmax(self, q, k, v, mode, cache):
+    def _softmax(self, q, k, v, mode, cache, inplace):
         """Plain ops, as the reference computes it (scale 1/sqrt(h), not
         cfg.attn_scale; no q/k LayerNorm)."""
         if mode == "decode":
             y, cache = dec.kv_decode_step(cache, q[:, :, 0], k[:, :, 0],
-                                          v[:, :, 0])
+                                          v[:, :, 0], inplace=inplace)
             return self._out(y[:, :, None]), cache
         g = q.shape[1] // k.shape[1]
         kr = k.repeat_interleave(g, dim=1) if g > 1 else k
@@ -125,20 +114,21 @@ class Attention(nn.Module):
             cache = dec.fill_kv(cache, k, v)
         return self._out(y), cache
 
-    def _polynomial(self, q, k, v, mode, cache):
+    def _polynomial(self, q, k, v, mode, cache, inplace):
         cfg = self.cfg
         kw = dict(degree=cfg.poly_degree, scale=cfg.attn_scale)
         q, k = self._poly_ln(q, k)
         if mode == "decode":
             y, cache = dec.poly_kv_decode_step(
-                cache, q[:, :, 0], k[:, :, 0], v[:, :, 0], **kw)
+                cache, q[:, :, 0], k[:, :, 0], v[:, :, 0], inplace=inplace,
+                **kw)
             return self._out(y[:, :, None]), cache
         y = ops.poly_attention(q, k, v, causal=True, **kw)
         if mode == "prefill":
             cache = dec.fill_kv(cache, k, v)
         return self._out(y), cache
 
-    def _polysketch(self, q, k, v, mode, cache):
+    def _polysketch(self, q, k, v, mode, cache, inplace):
         cfg = self.cfg
         kw = dict(degree=cfg.poly_degree, scale=cfg.attn_scale,
                   local_exact=cfg.local_exact)
@@ -146,7 +136,8 @@ class Attention(nn.Module):
             q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]   # (B, H, h)
             q, k = self._poly_ln(q, k)
             y, cache = dec.polysketch_decode_step(
-                cache, self._sketch(q), self._sketch(k), q, k, v, **kw)
+                cache, self._sketch(q), self._sketch(k), q, k, v,
+                inplace=inplace, **kw)
             return self._out(y[:, :, None]), cache
         q, k = self._poly_ln(q, k)
         qm, km = self._sketch(q), self._sketch(k)

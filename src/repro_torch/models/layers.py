@@ -58,14 +58,18 @@ class Embedding(nn.Module):
 
 
 def rope(x, positions, theta=10000.0):
-    """Rotary embeddings on split halves. x: (B, H, S, h), positions: (S,)."""
+    """Rotary embeddings on split halves. x: (B, H, S, h), positions: (S,)
+    shared by the batch, or (B, S), one row each (the serve engine's slots
+    at their own depths)."""
     h = x.shape[-1]
     half = h // 2
     idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), -idx / half)
-    ang = positions.to(device=x.device, dtype=torch.float32)[:, None] * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)             # (S, half)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), -idx / half)
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    if ang.dim() == 3:
+        ang = ang[:, None]                                # (B, 1, S, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin

@@ -17,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.core.state import get_spec, mixer_state_kind
 from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
 
@@ -47,9 +48,9 @@ class Block(nn.Module):
         self.mixer = Attention(cfg, **kw)
         self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
 
-    def forward(self, h, *, positions, mode, cache=None):
+    def forward(self, h, *, positions, mode, cache=None, inplace=False):
         y, new_cache = self.mixer(self.norm1(h), positions=positions,
-                                  mode=mode, cache=cache)
+                                  mode=mode, cache=cache, inplace=inplace)
         h = h + y
         h = h + self.ffn(self.norm2(h))
         return h, new_cache
@@ -70,11 +71,13 @@ class LM(nn.Module):
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
 
     def forward(self, tokens, *, mode: str = "train", cache=None,
-                positions=None):
-        """tokens: (B, S) int (S == 1 for decode).
+                positions=None, inplace: bool = False):
+        """tokens: (B, S) int (S == 1 for decode). positions: (S,) shared
+        by the batch, or (B, S) one row each (decode at per-slot depths).
 
         Returns (logits (B, S, V), new_cache): the cache is None in train
-        mode, else a list with one cache per layer.
+        mode, else a list with one cache per layer. `inplace` lets a decode
+        step write into `cache`'s buffers (the engine's own state).
         """
         cfg = self.cfg
         dt = getattr(torch, cfg.compute_dtype)
@@ -85,7 +88,8 @@ class LM(nn.Module):
         new_cache = None if mode == "train" else []
         for i, block in enumerate(self.layers):
             h, nc = block(h, positions=positions, mode=mode,
-                          cache=None if cache is None else cache[i])
+                          cache=None if cache is None else cache[i],
+                          inplace=inplace)
             if new_cache is not None:
                 new_cache.append(nc)
         h = self.final_norm(h)
@@ -93,14 +97,18 @@ class LM(nn.Module):
         return logits, new_cache
 
     def init_cache(self, batch: int, max_len: int | None = None):
-        """Decode cache, one per layer: a constant-size PolysketchCache
+        """Decode cache, one node per layer, built by the state kind's
+        registry entry (core.state): a constant-size PolysketchCache
         (`max_len` sizes nothing), or a KVCache of `max_len` positions for
         polynomial and softmax attention (required then)."""
+        spec = get_spec(mixer_state_kind(self.cfg))
         dt = getattr(torch, self.cfg.compute_dtype)
         dev = self.embed.table.device
-        return [blk.mixer.init_cache(batch, max_len, dt, dev)
-                for blk in self.layers]
+        return [spec.init(self.cfg, batch, max_len, dt, dev)
+                for _ in self.layers]
 
     def init_slot_cache(self, max_len: int | None = None):
-        """Decode cache for one serve slot: batch 1."""
+        """Decode cache for one serve slot: batch 1 with a host-int `pos`
+        (core.decode.broadcast_slot_caches stacks slots on the batch axis
+        and gives each its own position)."""
         return self.init_cache(1, max_len)

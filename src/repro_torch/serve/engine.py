@@ -1,15 +1,78 @@
-"""Greedy generation on the DecodeState protocol.
+"""Continuous-batching serve engine over the DecodeState protocol.
 
-Port of ``generate`` in the JAX package's ``serve/engine.py``: prefill the
-prompt into the constant-size polysketch cache, then decode one token at a
-time. Greedy only for now; the continuous-batching engine is not ported.
+Port of the JAX package's ``serve/engine.py``: ``make_serve_fns``,
+``generate`` (greedy or sampled) and ``ServeEngine``. The engine speaks
+only the DecodeState protocol (core.state), so the same slot machinery
+serves every state kind the port has: polysketch (constant-size), and the
+full KV caches of exact polynomial and softmax attention.
+
+The engine keeps a fixed number of decode *slots*. The slots' caches are
+stacked on the batch axis of one model cache (core.decode's slot
+helpers), with one position per slot, so every slot sits at its own
+depth. Admission runs through the chunked prefill scheduler
+(serve/scheduler.py): each tick dispatches at most a ``prefill_budget``
+of prompt tokens before the decode tick, so a long polysketch prompt
+admits across ticks. A finished prefill (a batch-1
+core.state.PartialPrefill) is written into its free slot; live slots are
+never touched. Decode runs all slots in one batched step; free slots
+decode along on stale state (their outputs are never read, and admission
+rewrites the whole slot) until the queue refills them.
+
+The decode tick has no host sync inside it: the model step, sampling,
+the slot updates and the packing of its tokens (and log-probabilities)
+run on the device, and the tokens reach the host in one copy a tick.
+Every host-to-device write in admission and in the tick is a fill with a
+Python scalar or a copy from pinned memory. With ``overlap=True`` that
+copy is non-blocking, into pinned memory behind a CUDA event, and the
+host reads it one tick late, as the reference does: the device computes
+tick N while the host accounts tick N-1. A slot that retired in between
+drops its speculative token (its request id no longer matches), so the
+emitted tokens are the lockstep engine's.
+
+The engine owns its slot-stacked state and updates it in place (the
+reference donates it); the protocol-level functions keep value
+semantics.
+
+Not ported: the prefix cache and failover recovery (ROADMAP A.7), the
+serving plan / mesh (A.9). Passing a prefix cache or a plan raises.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.serve.sampling import (SamplingParams, device_scalars,
+                                        init_slot_keys, init_slot_sampling,
+                                        request_key, sample_first,
+                                        sample_step, set_slot, token_logprobs)
+from repro_torch.serve.scheduler import PrefillScheduler, to_device
+from repro_torch.serve.telemetry import Telemetry
+
+def make_serve_fns(model):
+    """Returns (prefill_fn, decode_fn), the single-shot serving functions.
+
+    prefill_fn(tokens)                  -> (last_logits, cache)
+    decode_fn(tokens, cache, positions) -> (logits, cache)   tokens (B, 1)
+
+    The cache is sized to the prompt (the reference's shape cells), and
+    `positions` is an int shared by the batch or a (B,) tensor.
+    """
+    state = model.state
+
+    @torch.inference_mode()
+    def prefill(tokens):
+        return state.prefill(tokens, max_len=tokens.shape[1])
+
+    @torch.inference_mode()
+    def decode(tokens, cache, positions):
+        return state.decode_step(tokens, positions, cache)
+
+    return prefill, decode
 
 
 class GenerationResult(NamedTuple):
@@ -17,19 +80,30 @@ class GenerationResult(NamedTuple):
     logits_last: torch.Tensor  # (B, V) logits after the last decode step
 
 
+def _row_keys(seed: int, rows: int, device) -> torch.Tensor:
+    """request_key(seed, r) for every row, made on the CPU and copied once."""
+    keys = torch.stack([request_key(seed, r) for r in range(rows)])
+    return keys.to(device)
+
+
 @torch.inference_mode()
 def generate(model, prompt, steps: int, *, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+             sampling: SamplingParams | None = None,
              max_len: int | None = None) -> GenerationResult:
-    """Greedy decoding loop. prompt: (B, S0) ints (tensor or numpy).
+    """Sampling loop on the DecodeState protocol. prompt: (B, S0) ints
+    (tensor or numpy).
 
-    Token i is the argmax of the logits after token i-1 (the prefill's
-    last position for i = 0), then fed back through decode_step at
-    position S0 + i, exactly as the reference's greedy schedule.
+    Batch row r draws the PRNG stream `request_key(seed, r)` and advances
+    it by one split per emitted token, exactly like a ServeEngine slot, so
+    `generate(..., sampling=sp).tokens[0]` is a single-slot engine run of
+    the same `(seed, prompt, SamplingParams)`. Token i is sampled from the
+    logits after token i-1 (the prefill's last position for i = 0), then
+    fed back through decode_step at position S0 + i, with the position
+    shared by the batch.
     """
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampling is not ported: matching the reference's tokens needs "
-            "JAX's threefry key schedule rebuilt in torch (ROADMAP A.9)")
+    sp = sampling or SamplingParams(temperature=temperature, top_k=top_k,
+                                    top_p=top_p, seed=seed)
     state = model.state
     dev = model.device
     if isinstance(prompt, np.ndarray):
@@ -41,11 +115,560 @@ def generate(model, prompt, steps: int, *, temperature: float = 0.0,
         raise ValueError(
             f"prompt({s0}) + steps({steps}) exceeds max_len={max_len}")
     last, cache = state.prefill(prompt, max_len=max_len)
+    if not sp.is_greedy:
+        keys = _row_keys(sp.seed, bsz, dev)
+        samp = device_scalars(sp, bsz, dev)
     toks = []
     for i in range(steps):
-        tok = torch.argmax(last, dim=-1)
+        if sp.is_greedy:
+            tok = torch.argmax(last, dim=-1)
+        else:
+            tok, keys = sample_step(keys, last, *samp)
         toks.append(tok)
         last, cache = state.decode_step(tok[:, None], s0 + i, cache)
     tokens = (torch.stack(toks, dim=1) if toks
               else prompt.new_zeros((bsz, 0)))
     return GenerationResult(tokens=tokens, logits_last=last)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (S,) int64, host-resident
+    max_new_tokens: int
+    eos_id: int | None = None
+    submit_time: float = 0.0
+    sampling: SamplingParams = field(default_factory=SamplingParams)
+
+
+@dataclass
+class RequestOutput:
+    rid: int
+    tokens: np.ndarray           # (n_generated,) int32, includes EOS if hit
+    prompt_len: int
+    finish_reason: str           # "eos" | "length"
+    ttft_s: float = 0.0          # submit -> first token
+    latency_s: float = 0.0       # submit -> retirement
+    decode_steps: int = 0
+    logprobs: np.ndarray | None = None  # (n_generated,) f32, engine opt-in
+
+
+@dataclass
+class _Slot:
+    request: Request | None = None
+    prefilling: bool = False     # reserved: prefill in flight, not decoding
+    emitted: list[int] = field(default_factory=list)
+    lps: list[float] = field(default_factory=list)
+    ttft_s: float = 0.0
+    last_tok_s: float | None = None  # inter-token latency tracking
+
+    @property
+    def free(self) -> bool:
+        return self.request is None
+
+    @property
+    def decoding(self) -> bool:
+        return self.request is not None and not self.prefilling
+
+
+class _HostCopy:
+    """One device-to-host copy of a (2, n) float64 tensor: rows are token
+    ids and log-probabilities (both exact in float64). On a card the copy
+    goes into pinned memory without blocking, behind a CUDA event; `read`
+    waits for that event only."""
+
+    def __init__(self, packed: torch.Tensor):
+        if packed.is_cuda:
+            self.host = torch.empty(packed.shape, dtype=packed.dtype,
+                                    pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = packed, None
+
+    def read(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+@dataclass
+class _TickRecord:
+    """One dispatched decode tick, not yet read (the overlap pipeline's
+    double buffer). `rids` pins which request occupied each slot at
+    dispatch; `firsts` are admissions whose first token rides this copy,
+    as (slot, rid, column)."""
+    copy: _HostCopy
+    active: np.ndarray
+    rids: list
+    firsts: list
+    t_dispatch: float
+
+
+class ServeEngine:
+    """Continuous-batching engine over fixed decode slots.
+
+    Requests are admitted into free slots: each prefill runs at the
+    request's own prompt length (in block-grid chunks for a resumable
+    kind), and the batch-1 state is written into its slot without
+    disturbing live slots. All slots then decode together; each stops on
+    EOS or its max-new-tokens budget.
+
+    Decoding is per-request `SamplingParams` (greedy by default): the
+    per-slot params and PRNG keys are device state, so one tick samples
+    every slot with its own params. Tokens depend only on `(seed, prompt,
+    SamplingParams)`, never on slot placement or admission order (at a
+    fixed slot count, so the batched products keep their shapes), and
+    match `generate(..., sampling=sp)`. A tick whose decoding slots are
+    all greedy (known on the host) skips the sampler, as the reference's
+    `lax.cond` does.
+
+    `logprobs=True` also reports the log-probability of each emitted
+    token under the raw distribution, computed in the tick.
+    `prefill_budget` (prompt tokens a tick, None = unlimited) bounds the
+    admission work dispatched ahead of each decode step; `overlap=True`
+    reads tokens one tick late (see the module docstring).
+    """
+
+    def __init__(self, model, *, slots: int = 4, max_len: int = 4096,
+                 logprobs: bool = False, prefill_budget: int | None = None,
+                 overlap: bool = False, prefix_cache=None, plan=None):
+        if prefix_cache is not None:
+            raise NotImplementedError(
+                "the prefix cache is not ported yet (ROADMAP A.7)")
+        if plan is not None:
+            raise NotImplementedError(
+                "a serving plan / mesh is not ported yet (ROADMAP A.9)")
+        if slots < 1:
+            raise ValueError("need at least one decode slot")
+        self.model = model
+        self.cfg = model.cfg
+        self.state = state = model.state
+        self.device = dev = model.device
+        self.slots = slots
+        self.max_len = max_len
+        self.logprobs = logprobs
+        self.overlap = overlap
+        self.queue: deque[Request] = deque()
+        self.finished: list[RequestOutput] = []
+        self._next_rid = 0
+        self._slots = [_Slot() for _ in range(slots)]
+        self._pending: _TickRecord | None = None  # overlap double buffer
+        self.telemetry = Telemetry()
+
+        # Device state: the slot-stacked cache (batch axis = slots, one
+        # position each), the next token to feed each slot, each slot's
+        # position for RoPE, its PRNG key and sampling params, and the
+        # dispatch-time mask of decoding slots (kept by fills).
+        with torch.inference_mode():
+            self._caches = state.broadcast_slots(state.init_slot(max_len),
+                                                 slots)
+            self._tokens = torch.zeros((slots, 1), dtype=torch.long,
+                                       device=dev)
+            self._pos = torch.zeros(slots, dtype=torch.long, device=dev)
+            self._keys = init_slot_keys(slots, dev)
+            self._samp = init_slot_sampling(slots, dev)
+            self._active = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self._active_host = np.zeros(slots, dtype=bool)
+
+        def prefill(tokens):
+            return state.prefill(to_device(tokens, dev),
+                                 state.init_slot(self.max_len))
+
+        def resume(tokens, cache, pos0):
+            return state.resume(to_device(tokens, dev), cache, pos0)
+
+        self.scheduler = PrefillScheduler(
+            state, prefill_fn=prefill, resume_fn=resume,
+            fresh_fn=lambda: state.init_slot(self.max_len),
+            budget=prefill_budget)
+
+        reg = self.telemetry.registry
+        self._m_prefills = reg.counter(
+            "serve_prefills_total", "prefills installed into slots")
+        self._m_sampled = reg.counter(
+            "serve_sampled_requests_total",
+            "installed requests with non-greedy sampling")
+        self._m_ticks = reg.counter(
+            "serve_decode_ticks_total", "decode ticks dispatched")
+        self._m_tokens = reg.counter(
+            "serve_tokens_total", "tokens emitted (first + decode)")
+        self._m_finished = reg.counter(
+            "serve_requests_finished_total",
+            "retired requests by finish reason", labels=("reason",))
+        self._m_prefill_s = reg.counter(
+            "serve_prefill_seconds_total",
+            "admission dispatch + lockstep first-token sync wall time")
+        self._m_decode_s = reg.counter(
+            "serve_decode_seconds_total", "decode pipeline wall time")
+        self._m_ttft = reg.histogram(
+            "serve_ttft_ms", "submit -> first token",
+            edges=self.TTFT_EDGES_MS)
+        self._m_itl = reg.histogram(
+            "serve_itl_ms", "inter-token latency across all requests",
+            edges=self.ITL_EDGES_MS)
+        self._m_tick_gap = reg.histogram(
+            "serve_tick_gap_ms",
+            "host-observed gap between consecutive decode-tick "
+            "completions within a busy streak",
+            edges=self.TICK_GAP_EDGES_MS, window=16384)
+        reg.gauge("serve_slots", "decode slots", fn=lambda: float(slots))
+        reg.gauge("serve_active_requests",
+                  "slots with an installed decoding request",
+                  fn=lambda: float(self.n_active))
+        reg.gauge("serve_queue_depth", "requests waiting for a slot",
+                  fn=lambda: float(len(self.queue)))
+        sch = self.scheduler
+        reg.counter("serve_scheduler_chunks_total",
+                    "prefill chunks dispatched", fn=lambda: sch.chunks)
+        reg.counter("serve_scheduler_chunk_tokens_total",
+                    "prompt tokens dispatched as chunks",
+                    fn=lambda: sch.chunk_tokens)
+        reg.gauge("serve_scheduler_inflight", "prefills in flight",
+                  fn=lambda: float(len(sch.jobs)))
+        # gap anchor: the previous tick's read within the current busy
+        # streak; None across idle periods
+        self._gap_anchor: float | None = None
+        self._last_sync: float | None = None
+
+    # ------------------------------------------------------------------
+    # submission / scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int,
+               eos_id: int | None = None,
+               sampling: SamplingParams | None = None) -> int:
+        """Enqueue a request; returns its id. prompt: (S,) or (1, S) ints.
+        `sampling` defaults to greedy decoding. The prompt stays on the
+        host: the scheduler ships one chunk at a time."""
+        if torch.is_tensor(prompt):
+            prompt = prompt.detach().cpu().numpy()
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        if prompt.shape[0] < 1:
+            raise ValueError("prompt must contain at least one token")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if prompt.shape[0] + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt({prompt.shape[0]}) + max_new({max_new_tokens}) "
+                f"exceeds engine max_len={self.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id,
+                                  time.perf_counter(),
+                                  sampling or SamplingParams()))
+        return rid
+
+    @property
+    def n_active(self) -> int:
+        """Slots with an installed (decoding) request; mid-prefill slots
+        are reserved but not yet decoding."""
+        return sum(s.decoding for s in self._slots)
+
+    @property
+    def busy(self) -> bool:
+        return (bool(self.queue) or self.scheduler.active
+                or self.n_active > 0 or self._pending is not None)
+
+    def _clear_slot(self, slot: _Slot):
+        slot.request = None
+        slot.prefilling = False
+        slot.emitted = []
+        slot.lps = []
+        slot.last_tok_s = None
+
+    def _retire(self, si: int, reason: str) -> RequestOutput:
+        slot = self._slots[si]
+        req = slot.request
+        out = RequestOutput(
+            rid=req.rid, tokens=np.asarray(slot.emitted, np.int32),
+            prompt_len=int(req.prompt.shape[0]), finish_reason=reason,
+            ttft_s=slot.ttft_s, latency_s=time.perf_counter() - req.submit_time,
+            decode_steps=len(slot.emitted) - 1,
+            logprobs=(np.asarray(slot.lps, np.float32) if self.logprobs
+                      else None))
+        self._clear_slot(slot)
+        self.finished.append(out)
+        self._m_finished.labels(reason=reason).inc()
+        return out
+
+    def _check_finished(self, si: int) -> RequestOutput | None:
+        slot = self._slots[si]
+        req = slot.request
+        if req.eos_id is not None and slot.emitted[-1] == req.eos_id:
+            return self._retire(si, "eos")
+        if len(slot.emitted) >= req.max_new_tokens:
+            return self._retire(si, "length")
+        return None
+
+    def _start_admissions(self):
+        """Reserve free slots for queued requests (FIFO) and hand their
+        prefills to the scheduler; chunks flow from scheduler.tick()."""
+        for si, slot in enumerate(self._slots):
+            if not self.queue:
+                break
+            if not slot.free:
+                continue
+            req = self.queue.popleft()
+            slot.request = req
+            slot.prefilling = True
+            self.scheduler.start(req, si)
+
+    def _install(self, job):
+        """Completed prefill -> slot device state, all on the device: the
+        first token sampled off the final chunk's logits with the request's
+        stream key (made on the host from its seed and written by fills, so
+        placement never changes the tokens), the cache written into the
+        slot, and the slot's token, position, key and params. Returns the
+        first token and its log-probability (device tensors, (1,) each)."""
+        req, si = job.req, job.slot
+        sp = req.sampling
+        k0, k1 = request_key(sp.seed).tolist()
+        key = self._keys[si:si + 1]
+        key[0, 0].fill_(k0)
+        key[0, 1].fill_(k1)
+        samp = set_slot(self._samp, si, sp)
+        tok, new_key, lp = sample_first(job.part.logits, key, samp,
+                                        logprobs=self.logprobs)
+        key.copy_(new_key)
+        self.state.slot_scatter(self._caches, job.part.state, si,
+                                inplace=True)
+        self._tokens[si].copy_(tok)
+        self._pos[si].fill_(int(req.prompt.shape[0]))
+        self._slots[si].prefilling = False
+        self._m_prefills.inc()
+        if not sp.is_greedy:
+            self._m_sampled.inc()
+        return si, req.rid, tok, lp
+
+    def cancel(self, rid: int):
+        """Withdraw a request that has not yet produced a token: queued or
+        mid-prefill (its slot is freed and its in-flight chunk work
+        dropped). A request that has emitted tokens is not cancellable here.
+        Returns the withdrawn Request, or None if rid is unknown/decoding."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                return req
+        for si, slot in enumerate(self._slots):
+            if (slot.request is not None and slot.request.rid == rid
+                    and slot.prefilling):
+                job = next((j for j in self.scheduler.jobs if j.slot == si),
+                           None)
+                if job is not None:
+                    self.scheduler.drop(job)
+                req = slot.request
+                self._clear_slot(slot)
+                return req
+        return None
+
+    def _note_token(self, slot: _Slot, now: float):
+        if slot.last_tok_s is not None:
+            self._m_itl.observe((now - slot.last_tok_s) * 1e3)
+        slot.last_tok_s = now
+
+    def _append_firsts(self, firsts, values, done, now: float):
+        """Record admissions' first tokens: (slot, rid, column) into the
+        host copy's `values`."""
+        for si, rid, col in firsts:
+            slot = self._slots[si]
+            req = slot.request
+            if req is None or req.rid != rid:
+                continue
+            slot.emitted.append(int(values[0, col]))
+            if self.logprobs:
+                slot.lps.append(float(values[1, col]))
+            slot.ttft_s = now - req.submit_time
+            self._m_ttft.observe(slot.ttft_s * 1e3)
+            self._m_tokens.inc()
+            self._note_token(slot, now)
+            fin = self._check_finished(si)
+            if fin is not None:
+                done.append(fin)
+
+    @staticmethod
+    def _pack(toks, lps) -> torch.Tensor:
+        """(2, n) float64: token ids and log-probabilities, one copy."""
+        return torch.stack([toks.to(torch.float64), lps.to(torch.float64)])
+
+    def _set_active(self, active: np.ndarray):
+        """Bring the device's active mask to `active` by fills."""
+        for si in np.flatnonzero(active != self._active_host):
+            self._active[si].fill_(bool(active[si]))
+        self._active_host = active.copy()
+
+    def _dispatch_decode(self, firsts) -> _TickRecord | None:
+        """Dispatch one decode tick over the installed slots, with no host
+        sync: the model step, sampling, the frozen-slot updates and the
+        packing of this tick's tokens (and the admissions' first tokens,
+        `firsts`: (slot, rid, token, logprob) device tensors) for one
+        device-to-host copy."""
+        active = np.array([s.decoding for s in self._slots])
+        if not active.any():
+            assert not firsts, "installed slots must be decoding"
+            return None
+        rids = [s.request.rid if s.decoding else None for s in self._slots]
+        all_greedy = all(not a or s.request.sampling.is_greedy
+                         for a, s in zip(active, self._slots))
+        t0 = time.perf_counter()
+        self._set_active(active)
+        logits, self._caches = self.state.decode_step(
+            self._tokens, self._pos, self._caches, inplace=True)
+        keys = self._keys
+        if all_greedy:
+            # greedy slots never read their keys: leaving them is not
+            # observable in any request's tokens
+            out, new_keys = torch.argmax(logits, dim=-1), keys
+        else:
+            out, new_keys = sample_step(keys, logits, *self._samp)
+        lps = (token_logprobs(logits, out) if self.logprobs else
+               torch.zeros(out.shape, dtype=torch.float32, device=out.device))
+        # free slots decode along on stale state, but their feed token, key
+        # and position are frozen here
+        act = self._active
+        self._tokens = torch.where(act[:, None], out[:, None], self._tokens)
+        self._keys = torch.where(act[:, None], new_keys, keys)
+        self._pos = torch.where(act, self._pos + 1, self._pos)
+        packed = self._pack(out, lps)
+        if firsts:
+            packed = torch.cat([packed] + [self._pack(tok, lp)
+                                           for _, _, tok, lp in firsts], dim=1)
+        copy = _HostCopy(packed)
+        self._m_ticks.inc()
+        meta = [(si, rid, self.slots + i)
+                for i, (si, rid, _, _) in enumerate(firsts)]
+        return _TickRecord(copy, active, rids, meta, t0)
+
+    def _sync_record(self, rec: _TickRecord, done):
+        """Read one tick record's tokens on the host and account them.
+        First tokens precede the tick's token in each request's stream, so
+        admissions recorded on this tick are appended first; a slot whose
+        request retired (or was replaced) since dispatch fails the rid
+        check and its speculative token is dropped."""
+        values = rec.copy.read()
+        now = time.perf_counter()
+        t_ref = (rec.t_dispatch if self._last_sync is None
+                 else max(rec.t_dispatch, self._last_sync))
+        self._m_decode_s.inc(now - t_ref)
+        self._last_sync = now
+        if self._gap_anchor is not None:
+            self._m_tick_gap.observe((now - self._gap_anchor) * 1e3)
+        self._gap_anchor = now
+        self._append_firsts(rec.firsts, values, done, now)
+        for si, slot in enumerate(self._slots):
+            if not rec.active[si]:
+                continue
+            req = slot.request
+            if req is None or req.rid != rec.rids[si]:
+                continue
+            slot.emitted.append(int(values[0, si]))
+            if self.logprobs:
+                slot.lps.append(float(values[1, si]))
+            self._m_tokens.inc()
+            self._note_token(slot, now)
+            fin = self._check_finished(si)
+            if fin is not None:
+                done.append(fin)
+        if not any(s.decoding for s in self._slots) and self._pending is None:
+            # busy streak over: the wait for the next admission is idle
+            # time, not a decode stall
+            self._gap_anchor = None
+
+    @torch.inference_mode()
+    def step(self) -> list[RequestOutput]:
+        """One engine tick.
+
+        Lockstep (overlap=False): admit (up to one prefill budget of chunk
+        work; all admissions' first tokens read together in one copy),
+        decode every installed slot once, read this tick's tokens before
+        returning.
+
+        Overlapped (overlap=True): dispatch chunk work and the decode tick
+        (which carries the admissions' first tokens in its copy), then read
+        the PREVIOUS tick's tokens.
+
+        Returns requests that finished this tick."""
+        done: list[RequestOutput] = []
+        self._start_admissions()
+        t0 = time.perf_counter()
+        firsts = [self._install(job) for job in self.scheduler.tick()]
+        if self.overlap:
+            self._m_prefill_s.inc(time.perf_counter() - t0)
+            rec = self._dispatch_decode(firsts)
+            prev, self._pending = self._pending, rec
+            if prev is not None:
+                self._sync_record(prev, done)
+        else:
+            if firsts:
+                copy = _HostCopy(torch.cat(
+                    [self._pack(tok, lp) for _, _, tok, lp in firsts], dim=1))
+                values = copy.read()
+                meta = [(si, rid, i) for i, (si, rid, _, _) in
+                        enumerate(firsts)]
+                self._append_firsts(meta, values, done, time.perf_counter())
+            self._m_prefill_s.inc(time.perf_counter() - t0)
+            rec = self._dispatch_decode([])
+            if rec is not None:
+                self._sync_record(rec, done)
+        return done
+
+    def run(self) -> list[RequestOutput]:
+        """Drain the queue and all active slots. Returns outputs in
+        completion order."""
+        out = []
+        while self.busy:
+            out.extend(self.step())
+        return out
+
+    # ------------------------------------------------------------------
+    # accounting
+    # ------------------------------------------------------------------
+
+    def reset_stats(self):
+        """Zero the accounting (e.g. after a warm-up run)."""
+        self.finished = []
+        self._gap_anchor = None
+        self._last_sync = None
+        self.telemetry.reset()
+        self.scheduler.reset_stats()
+
+    # histogram bucket edges (milliseconds, final bucket open-ended);
+    # Prometheus `le` semantics
+    TTFT_EDGES_MS = (1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
+                     1000.0, float("inf"))
+    ITL_EDGES_MS = (0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0, 250.0,
+                    1000.0, float("inf"))
+    TICK_GAP_EDGES_MS = ITL_EDGES_MS
+
+    def stats(self) -> dict:
+        """A view over the telemetry registry. Still-resident requests
+        count too: decode_s includes the ticks spent on live slots."""
+        live = [s for s in self._slots if not s.free]
+        gen_tokens = (sum(len(o.tokens) for o in self.finished)
+                      + sum(len(s.emitted) for s in live))
+        # the first token of every request comes from the prefill logits,
+        # so decode throughput counts only decode-step tokens
+        decode_tokens = (sum(o.decode_steps for o in self.finished)
+                         + sum(max(len(s.emitted) - 1, 0) for s in live))
+        decode_s = self._m_decode_s.value
+        gap_p = self._m_tick_gap.percentiles()
+        return {
+            "requests": len(self.finished),
+            "active_requests": len(live),
+            "generated_tokens": gen_tokens,
+            "prefills": int(self._m_prefills.value),
+            "sampled_requests": int(self._m_sampled.value),
+            "decode_steps": int(self._m_ticks.value),
+            "prefill_s": self._m_prefill_s.value,
+            "decode_s": decode_s,
+            "decode_tok_per_s": (decode_tokens / decode_s
+                                 if decode_s else 0.0),
+            "itl_ms": self._m_itl.percentiles(),
+            "ttft_ms": self._m_ttft.percentiles(),
+            "ttft_hist": {"edges_ms": list(self.TTFT_EDGES_MS),
+                          "counts": self._m_ttft.counts},
+            "tick_gap_ms": {**gap_p, "median": gap_p["p50"],
+                            "max": self._m_tick_gap.max},
+            "scheduler": self.scheduler.stats(),
+        }

@@ -494,3 +494,87 @@ def test_baseline_smoke_training_grads_on_card_match_cpu(card, attention):
     for name, want in grads["cpu"].items():
         got = grads["cuda"][name]
         assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name
+
+
+# ---------------------------------------------------------------------------
+# serving: per-row decode and the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+SERVE_MECHS = ["polysketch", "polynomial", "softmax"]
+
+
+@pytest.mark.parametrize("attention", SERVE_MECHS)
+def test_per_row_decode_matches_batch1_decodes(card, attention):
+    """Four slots at four depths (one polysketch row folding its block on
+    this step) decode in one call as four batch-1 decodes do; the rows that
+    do not fold keep z bit for bit."""
+    cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
+    st = build_model(cfg, device=card, seed=2).state
+    lens, max_len = [5, 15, 16, 33], 48
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        slots = st.broadcast_slots(st.init_slot(max_len), 4)
+        singles, feeds = [], []
+        for si, n in enumerate(lens):
+            toks = torch.from_numpy(rng.integers(0, 128, size=(1, n))).to(card)
+            logits, cache = st.prefill(toks, st.init_slot(max_len))
+            slots = st.slot_scatter(slots, cache, si)
+            singles.append(cache)
+            feeds.append(logits.argmax(-1))
+        tok = torch.stack(feeds)
+        logits, stepped = st.decode_step(tok, torch.tensor(lens, device=card),
+                                         slots)
+        for si, n in enumerate(lens):
+            want, wcache = st.decode_step(tok[si:si + 1], n, singles[si])
+            torch.testing.assert_close(logits[si:si + 1], want, atol=1e-5,
+                                       rtol=1e-5)
+            got = st.slot_gather(stepped, si)
+            for a, b in zip(got, wcache):
+                for x, y in zip(a[:-1], b[:-1]):
+                    torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+            if attention == "polysketch" and (n + 1) % cfg.lt_block_size:
+                assert all(torch.equal(a.z, b.z) for a, b in
+                           zip(got, st.slot_gather(slots, si)))
+
+
+def _serve(model, order, *, slots=4):
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 128, size=n) for n in (5, 17, 33, 16, 40, 9)]
+    samp = [SamplingParams(), SamplingParams(temperature=0.8, top_k=40,
+                                             top_p=0.95, seed=1),
+            SamplingParams(), SamplingParams(temperature=1.0, seed=2),
+            SamplingParams(temperature=0.7, top_p=0.9, seed=3),
+            SamplingParams()]
+    eng = ServeEngine(model, slots=slots, max_len=64, logprobs=True,
+                      overlap=True, prefill_budget=16)
+    rid_of = {eng.submit(prompts[i], 8, sampling=samp[i]): i for i in order}
+    return {rid_of[o.rid]: o.tokens for o in eng.run()}
+
+
+@pytest.mark.parametrize("attention", SERVE_MECHS)
+def test_engine_tokens_do_not_depend_on_submission_order(card, attention):
+    cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
+    model = build_model(cfg, device=card, seed=5)
+    fwd = _serve(model, range(6))
+    rev = _serve(model, range(5, -1, -1))
+    for i in range(6):
+        np.testing.assert_array_equal(fwd[i], rev[i])
+
+
+@pytest.mark.parametrize("attention,kernel", [("polysketch", "polysketch_causal"),
+                                              ("polynomial", "poly_flash")])
+def test_engine_runs_the_kernels_and_no_plain_version(card, attention, kernel,
+                                                      monkeypatch):
+    calls = []
+    for name in ("polysketch_causal_torch", "poly_flash_torch"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name,
+                            lambda *a, _fn=fn, **k: calls.append(1) or _fn(*a, **k))
+    wrapper = {"polysketch_causal": pc.polysketch_causal_cuda,
+               "poly_flash": pf.poly_flash_cuda}[kernel]
+    before = wrapper.launches
+    cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
+    _serve(build_model(cfg, device=card, seed=6), range(6))
+    assert wrapper.launches > before and not calls

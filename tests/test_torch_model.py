@@ -146,10 +146,14 @@ def test_prefill_segment_lies_in_one_block():
 
 
 def test_generate_rejects_sampling_and_overflow(pair):
+    """Sampling is ported (tests/test_torch_serve.py holds its tokens to
+    the JAX package); invalid sampling parameters are rejected."""
     _, _, tm = pair
     prompt = _tokens(0, (1, 4))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        generate(tm, prompt, 2, temperature=0.7)
+    with pytest.raises(ValueError, match="temperature"):
+        generate(tm, prompt, 2, temperature=-0.7)
+    with pytest.raises(ValueError, match="top_p"):
+        generate(tm, prompt, 2, temperature=0.7, top_p=0.0)
     with pytest.raises(ValueError, match="max_len"):
         generate(tm, prompt, 8, max_len=10)
 

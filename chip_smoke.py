@@ -1,7 +1,8 @@
 """Chip smoke of the PyTorch port: build its kernels, hold each against its
 plain version on the card, serve gpt2s-polysketch, gpt2s-poly4 and
-gpt2s-softmax and train all three at full width, and check the port
-against itself.
+gpt2s-softmax and train all three at full width, at 2 x 4096 and at
+32,768 tokens a step from 4k to 32k context, and check the port against
+itself.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,9 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      den; B2's backward kernel likewise (the gradients of
      ops.poly_attention) over degree 1 (|q|, |k|)/2/4/8 x n 64/77/200/
      2040/4096, GQA 4:2, h 16 and the training shape, two calls bit for
-     bit, and B2's forward with and without den_out bit for bit; and one
+     bit, and B2's forward with and without den_out bit for bit; B1 and
+     B2, forward and backward, at the 32k training shape (bh 12, n 32768,
+     h 64; B1 at r 32, b 1024) against their plain versions; and one
      line of tolerance study: the plain B1, B2 and B3 with single-pass
      TF32 matmuls against full f32, beside the kernels' (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
@@ -47,12 +50,15 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      against the plain path's (polysketch and poly4); 2 steps +
      checkpoint save/restore + 2 steps equal 4 straight steps, and two
      runs equal, bit for bit (under torch.use_deterministic_algorithms,
-     CUBLAS_WORKSPACE_CONFIG=:4096:8);
+     CUBLAS_WORKSPACE_CONFIG=:4096:8); and for each of the three models at
+     1 x 4096, one step's gradients and two steps' losses with remat
+     "dots" and "full" equal remat "none"'s bit for bit (same setting);
   4. each kernel's time at its path's shapes beside its plain version's
      and its bounds (B1 also at the two calls a prefill's layer makes);
      B3's device time per pass (torch.profiler) and host time per call;
      B1's and B2's backward kernels' registers, spills, shared memory and
-     CTAs an SM, and their time at the training shape, per pass;
+     CTAs an SM, and their time at the training shape, per pass; and the
+     four training kernels at the 32k training shape (bh 12, n 32768);
   5. the continuous-batching ServeEngine (run after each model's phase-3
      checks): each of the three models at full width and depth serves 8
      requests on 4 slots (prompts 600-4096 tokens, 32 new tokens, greedy
@@ -63,13 +69,25 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      copy and its event); checked against train-mode log-probabilities
      (1e-3), batch-1 generate for the greedy requests, and the same
      requests in reverse order (bit for bit). Each kernel row of the
-     JSON line also gives its `engine_launches`.
+     JSON line also gives its `engine_launches`;
+  6. long-context training: each of the three models at 32,768 tokens a
+     step and contexts 4096, 8192, 16384 and 32768 (batch 32768 /
+     context, one row a microbatch), remat "full", f32, 1 warm-up + 2
+     timed steps: step time, tokens/s, peak memory and launches a step
+     (B1 2 x 13 + 13 a microbatch, B2 2 x 12 + 12, softmax none; no
+     plain-version call). A pair whose peak, reckoned from the shapes
+     before the run (reckon_full_remat_gib), passes 90 % of the card's
+     memory is logged with its reckoning and not run. The rows of B1 and
+     B2 in the JSON line carry their 32k time and phase 6's launches under
+     `long_context`. `--profile-long-context` profiles one more step at
+     each model's shortest and longest context that run (~3 min more).
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import gc
 import json
@@ -1126,18 +1144,22 @@ def phase_lt_mult_path():
 # phase 2 and 3: full-width training through B1 and its backward
 # ---------------------------------------------------------------------------
 
-def train_batches(cfg, count):
-    """`count` batches of the Markov stream (seed 1), made up front."""
-    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), TRAIN_BATCH, TRAIN_SEQ,
-                      seed=0, device="cuda")
+def train_batches(cfg, count, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """`count` batches of batch x seq tokens of the Markov stream (seed 1),
+    made up front."""
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), batch, seq, seed=0,
+                      device="cuda")
     return [next(it) for _ in range(count)]
 
 
-def train_setup(cfg, seed=0):
-    model = build_model(cfg, device="cuda", seed=seed, trainable=True)
+def train_setup(cfg, seed=0, lm=None, microbatches=1):
+    """A fresh train state (AdamW zeros, step 0) and its step function, on
+    a new seeded model or on `lm`."""
+    if lm is None:
+        lm = build_model(cfg, device="cuda", seed=seed, trainable=True).lm
     tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=100,
-                       peak_lr=3e-3)
-    return init_train_state(model.lm), make_train_step(cfg, tcfg)
+                       peak_lr=3e-3, microbatches=microbatches)
+    return init_train_state(lm), make_train_step(cfg, tcfg)
 
 
 # the plain versions ops picks on the CPU or with impl="torch"
@@ -1311,6 +1333,200 @@ def phase_train_checks(cfg, batches, entry="polysketch_attention"):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: rematerialisation against none; phase 6: long-context training
+# ---------------------------------------------------------------------------
+
+REMAT_SEQ = 4096                    # the remat gate's batch: 1 x 4096, fits without remat
+LONG_TOKENS = 32768                 # phase 6: tokens a step, the paper's 32k context
+LONG_CONTEXTS = (4096, 8192, 16384, 32768)
+LONG_STEPS = 2                      # timed steps a pair, after one warm-up
+LONG_FIT_SHARE = 0.9                # run a pair whose reckoned peak is within this share
+
+
+def phase_remat_gate(cfg):
+    """Under torch.use_deterministic_algorithms, at 1 x 4096: one step's
+    gradients and two AdamW steps' losses with remat "dots" and "full"
+    equal remat "none"'s bit for bit (each from the same seeded model)."""
+    log(f"phase 3: {cfg.name} remat gate at 1 x {REMAT_SEQ}: dots and full against none, "
+        "bit for bit (deterministic algorithms on)")
+    batches = train_batches(cfg, 2, batch=1, seq=REMAT_SEQ)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("none", "dots", "full"):
+            c = cfg.replace(remat=remat)
+            state, step = train_setup(c)
+            loss, _ = make_loss_fn(c)(state.lm, batches[0])
+            loss.backward()
+            grads = {n: p.grad.clone() for n, p in state.lm.named_parameters()}
+            losses = []
+            for batch in batches:
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"].clone())
+            runs[remat] = grads, torch.stack(losses)
+            del state, step, loss, grads
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads0, losses0 = runs["none"]
+    for remat in ("dots", "full"):
+        grads, losses = runs[remat]
+        same_g = all(torch.equal(grads[n], grads0[n]) for n in grads0)
+        same_l = torch.equal(losses, losses0)
+        log(f"  remat={remat}: one step's gradients equal none's bit for bit: {same_g}; "
+            f"two steps' losses {losses.tolist()} equal none's {losses0.tolist()}: {same_l}")
+        if not (same_g and same_l):
+            raise AssertionError(f"{cfg.name}: remat={remat} changed the training bits")
+
+
+def s2_gib(rows, heads, seq, itemsize=4) -> float:
+    """One (rows, heads, seq, seq) tensor, as the plain softmax path forms
+    its scores and weights, in GiB."""
+    return rows * heads * seq * seq * itemsize / 2**30
+
+
+def reckon_full_remat_gib(cfg, seq) -> float:
+    """The peak device memory (GiB) of one f32 training step under remat
+    "full" with microbatches of one row of `seq` tokens, reckoned from the
+    shapes alone: the parameters with their gradients, AdamW's moments and
+    the update's new ones (7 copies); the blocks' inputs the checkpoints
+    keep; the head (the log-softmax output, its gradient and the logits'
+    gradient, each seq x vocab); one block recomputed and differentiated
+    (tensors of seq x d_ff and seq x d_model); and for softmax attention
+    that block's (1, heads, seq, seq) tensors: four f32 (its backward
+    holds the weights, their gradient and the scores' gradient at once,
+    and one more passes through the caching allocator: an H100 measured
+    51.37 GiB at 16384, where three of them reckon 49.4) and three
+    (seq, seq) bool masks."""
+    n_params = sum(p.numel() for p in build_model(cfg, device="meta").lm.parameters())
+    f = 4
+    nbytes = (7 * n_params * f + cfg.n_layers * seq * cfg.d_model * f
+              + 3 * seq * cfg.vocab_size * f
+              + (8 * cfg.d_ff + 24 * cfg.d_model) * seq * f)
+    gib = nbytes / 2**30
+    if cfg.attention == "softmax":
+        gib += 4 * s2_gib(1, cfg.n_heads, seq) + 3 * seq * seq / 2**30
+    return gib
+
+
+def phase_long_context(cfg, kernels=(), profile=False):
+    """Training at LONG_TOKENS tokens a step and each of LONG_CONTEXTS:
+    batch LONG_TOKENS / context, one row a microbatch, remat "full", f32,
+    1 warm-up + LONG_STEPS timed steps. Each of `kernels` (forward,
+    backward) launches 2 x layers and layers a microbatch a step (the
+    forward again in the backward's recompute), no other kernel and no
+    plain version. A pair whose reckoned peak passes LONG_FIT_SHARE of the
+    card's memory is not run. With `profile`, one more step of the
+    shortest and of the longest context that run goes through
+    torch.profiler. Returns {context: row} and the launches."""
+    have = torch.cuda.get_device_properties(0).total_memory / 2**30
+    log(f"phase 6: {cfg.name} long-context training, {LONG_TOKENS} tokens a step, remat "
+        f"full, f32, seed 0, Markov data, one row a microbatch, 1 warm-up + {LONG_STEPS} "
+        f"timed steps; card memory {have:.2f} GiB")
+    cfg = cfg.replace(remat="full")
+    lm = None
+    rows, launched = {}, dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    need = {seq: reckon_full_remat_gib(cfg, seq) for seq in LONG_CONTEXTS}
+    fits = [seq for seq in LONG_CONTEXTS if need[seq] <= LONG_FIT_SHARE * have]
+    for seq in LONG_CONTEXTS:
+        batch = LONG_TOKENS // seq
+        if seq not in fits:
+            s2 = f", of it (1, {cfg.n_heads}, {seq}, {seq}) f32 {s2_gib(1, cfg.n_heads, seq):.1f} GiB each" \
+                if cfg.attention == "softmax" else ""
+            log(f"  context {seq} (batch {batch}): not run: reckoned peak {need[seq]:.1f} GiB "
+                f"> {LONG_FIT_SHARE:.0%} of {have:.1f} GiB{s2}")
+            rows[seq] = {"run": False, "reckoned_gib": need[seq]}
+            continue
+        if lm is None:
+            lm = build_model(cfg, device="cuda", seed=0, trainable=True).lm
+        batches = train_batches(cfg, 1 + LONG_STEPS, batch=batch, seq=seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, step = train_setup(cfg, lm=lm, microbatches=batch)
+        state, _ = step(state, batches[0])             # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        losses, times = [], []
+        with PlainCalls() as plain:
+            for b in batches[1:]:
+                t1 = time.perf_counter()
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))    # waits for the step
+                times.append(time.perf_counter() - t1)
+        run_counts = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = float(np.median(times)) * 1e3
+        per_step = {k: v // LONG_STEPS for k, v in run_counts.items() if v}
+        log(f"  context {seq} (batch {batch}, {batch} microbatches): step {ms:.1f} ms "
+            f"{[round(t * 1e3, 1) for t in times]}, {LONG_TOKENS / ms * 1e3:.0f} tokens/s, "
+            f"peak {peak:.2f} GiB (reckoned {need[seq]:.1f}), launches a step {per_step}, "
+            f"losses {[round(x, 4) for x in losses]}")
+        layers = cfg.n_layers * batch * LONG_STEPS
+        expected = dict.fromkeys(KERNELS, 0)
+        if kernels:
+            expected[kernels[0]], expected[kernels[1]] = 2 * layers, layers
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{cfg.name} at {seq}: non-finite loss {losses}")
+        if run_counts != expected or plain.calls:
+            raise AssertionError(f"{cfg.name} at {seq}: launches {run_counts}, expected "
+                                 f"{expected}; plain-version calls {plain.calls}")
+        if peak > have:
+            raise AssertionError(f"{cfg.name} at {seq}: peak {peak:.2f} GiB > the card's")
+        for k, v in run_counts.items():
+            launched[k] += v
+        rows[seq] = {"run": True, "step_ms": ms, "tokens_per_s": LONG_TOKENS / ms * 1e3,
+                     "peak_gib": peak, "reckoned_gib": need[seq],
+                     "launches_per_step": per_step}
+        if profile and seq in (fits[0], fits[-1]):
+            profile_train_step(step, state, batches[-1])
+        del state, step, batches
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 6 {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    return rows, launched
+
+
+def long_kernel_inputs():
+    """B1's inputs (qm, km, q, k, v) and dout at the 32k training shape
+    (B 1, H 12, n 32768, r 32, h 64), scaled like the model's."""
+    rnd = seeded(32)
+    B, H, n, r, h = 1, 12, LONG_TOKENS, 32, 64
+    return ((rnd(B, H, n, r, scale=0.5), rnd(B, H, n, r, scale=0.5), rnd(B, H, n, h),
+             rnd(B, H, n, h), rnd(B, H, n, h)), rnd(B, H, n, h))
+
+
+def phase_long_kernels():
+    """B1 and B2, forward and backward, at the 32k training shape (bh 12,
+    n 32768; B1 at b 1024, r 32) against their plain versions (B2's plain
+    versions go 256 queries at a time, so they fit at bh 12). Returns the
+    worst forward and gradient errors {kernel: max|err|}."""
+    log(f"phase 1: B1 and B2, forward and backward, at bh 12 n {LONG_TOKENS} h 64 vs plain")
+    xs, dout = long_kernel_inputs()
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    with torch.no_grad():
+        e1 = err(ops.polysketch_attention(*xs, **kw),
+                 ops.polysketch_attention(*xs, impl="torch", **kw))
+    check(f"B1 f32 B=1 H=12 n={LONG_TOKENS} r=32 h=64 b=1024", e1, F32_TOL)
+    _, e1b, _ = check_grads(f"B1 backward B=1 H=12 n={LONG_TOKENS} r=32 h=64 b=1024",
+                            ops.polysketch_attention, xs, dout, **kw)
+    del xs, dout
+    xs, dout = b2_grad_inputs(32, 1, 12, 12, LONG_TOKENS, 64, 4)
+    kw = dict(degree=4, scale=1.0 / 64)
+    with torch.no_grad():
+        e2 = err(ops.poly_attention(*xs, **kw), ops.poly_attention(*xs, impl="torch", **kw))
+    check(f"B2 f32 causal B=1 H=12 n={LONG_TOKENS} h=64 p=4", e2, F32_TOL)
+    _, e2b, _ = check_grads(f"B2 backward B=1 H=12 n={LONG_TOKENS} h=64 p=4",
+                            ops.poly_attention, xs, dout, kernel=pf.poly_flash_backward_cuda,
+                            **kw)
+    torch.cuda.empty_cache()
+    return {"polysketch_causal": e1, "polysketch_causal_backward": e1b,
+            "poly_flash": e2, "poly_flash_backward": e2b}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -1473,7 +1689,7 @@ def kernel_occupancy(label, rows, logged, heavy=()):
             f"{row['ctas_per_sm']} CTAs = {row['warps_per_sm']} warps an SM{flag}")
 
 
-def time_backward(label, run, plain, passes, bd):
+def time_backward(label, run, plain, passes, bd, plain_iters=5):
     """A backward kernel's call `run` and its plain version `plain` on the
     same inputs: kernel, plain, kernel with CUDA events, then the kernel
     per pass (torch.profiler, `passes` as profile_passes takes them),
@@ -1481,7 +1697,7 @@ def time_backward(label, run, plain, passes, bd):
     profile, so that the split's sum can be read against a time taken just
     after it. Returns (best kernel ms of the first two, plain ms, bd)."""
     ms = event_ms(run)
-    plain_ms = event_ms(plain, iters=5, warmup=1)
+    plain_ms = event_ms(plain, iters=plain_iters, warmup=1)
     ms2 = event_ms(run)
     per_pass = profile_passes(run, passes)
     ms3 = event_ms(run)
@@ -1632,6 +1848,60 @@ def phase_timing_b2_backward(ptxas):
     return timing
 
 
+def phase_timing_long():
+    """The four training kernels at the 32k training shape (bh 12,
+    n 32768, h 64; B1 at b 1024, r 32): kernel, plain, kernel with CUDA
+    events (the plain versions 3 times), the backwards per pass, each
+    beside its bound. Returns {kernel: (ms, plain ms, bounds)}."""
+    log(f"phase 4: B1 and B2, forward and backward, at the 32k training shape (bh 12, "
+        f"n {LONG_TOKENS}, h 64; CUDA events, warmed up)")
+    before = counts()
+    n, out = LONG_TOKENS, {}
+    xs, dout = long_kernel_inputs()
+    flat = [x.reshape(12, n, -1).contiguous() for x in xs]
+    dout = dout.reshape(12, n, -1).contiguous()
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+
+    def fwd_row(name, run, plain, bd):
+        ms = event_ms(run, iters=5, warmup=1)
+        plain_ms = event_ms(plain, iters=3, warmup=1)
+        ms2 = event_ms(run, iters=5, warmup=1)
+        out[name] = (min(ms, ms2), plain_ms, bd)
+        log(f"  {name} bh=12 n={n}: kernel {min(ms, ms2):.3f} ms (runs {ms:.3f}, {ms2:.3f}), "
+            f"plain PyTorch {plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms by {bd.tc_by} on the "
+            f"tensor cores ({bd.flops / 1e9:.1f} GFLOP, {bd.nbytes / 1e6:.1f} MB), "
+            f"{bd.tc_ms / min(ms, ms2):.1%} of it; f32-FMA bound {bd.fma_ms:.3f} ms; "
+            f"library call: {NO_LIBRARY}")
+
+    fwd_row("polysketch_causal",
+            lambda: pc.polysketch_causal_cuda(*flat, return_saved=True, **kw),
+            lambda: pc.polysketch_causal_torch(*flat, return_saved=True, **kw),
+            b1_bound(12, n, 32, 64, 1024, 4))
+    o, _, _, saved = pc.polysketch_causal_cuda(*flat, return_saved=True, **kw)
+    out["polysketch_causal_backward"] = time_backward(
+        f"B1 backward bh=12 n={n} r=32 h=64 b=1024",
+        lambda: pc.polysketch_causal_backward_cuda(dout, *flat, o, saved, **kw),
+        lambda: pc.polysketch_causal_backward_torch(dout, *flat, o, saved, **kw),
+        B1_BWD_PASSES, b1_bwd_bound(12, n, 32, 64, 1024, 4), plain_iters=3)
+    del xs, flat, o, saved
+    xs, dout = b2_grad_inputs(32, 1, 12, 12, n, 64, 4)
+    q, k, v, dout = (x.reshape(12, n, 64).contiguous() for x in (*xs, dout))
+    kw = dict(degree=4, scale=1.0 / 64)
+    fwd_row("poly_flash", lambda: pf.poly_flash_cuda(q, k, v, return_den=True, **kw),
+            lambda: pf.poly_flash_torch(q, k, v, return_den=True, **kw),
+            b2_bound(12, n, 64, 4))
+    o, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    out["poly_flash_backward"] = time_backward(
+        f"B2 backward bh=12 n={n} h=64 p=4",
+        lambda: pf.poly_flash_backward_cuda(dout, q, k, v, o, den, **kw),
+        lambda: pf.poly_flash_backward_torch(dout, q, k, v, o, den, **kw),
+        B2_BWD_PASSES, b2_bwd_bound(12, n, 64, 4), plain_iters=3)
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    torch.cuda.empty_cache()
+    return out
+
+
 # (pass, a substring of its kernels' names)
 LT_PASSES = (("fold", "fold"), ("prefix", "prefix"), ("outputs", "output"))
 
@@ -1714,7 +1984,12 @@ def build_kernels():
     return ptxas
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile-long-context", action="store_true",
+                    help="phase 6: profile a step at each model's shortest and longest "
+                         "context (about 3 minutes more)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1729,6 +2004,11 @@ def main():
     bwd_err = phase_b1_backward_grid()
     b2_err = phase_poly_flash_grid()
     b2_bwd_err = phase_b2_backward_grid()
+    long_errs = phase_long_kernels()
+    max_err = max(max_err, long_errs["polysketch_causal"])
+    bwd_err = max(bwd_err, long_errs["polysketch_causal_backward"])
+    b2_err = max(b2_err, long_errs["poly_flash"])
+    b2_bwd_err = max(b2_bwd_err, long_errs["poly_flash_backward"])
     b3_err = phase_lt_mult_grid()
     phase_tolerance_study()
     model = build_model(get_config("gpt2s-polysketch"), device="cuda", seed=0)
@@ -1760,31 +2040,53 @@ def main():
     torch.cuda.empty_cache()
     phase_train_checks(train_cfg, batches)
     torch.cuda.empty_cache()
+    phase_remat_gate(train_cfg)
     b2_bwd_launches, _, _ = phase_train(GPT2_SMALL_POLY4, batches,
                                         ("poly_flash", "poly_flash_backward"))
     torch.cuda.empty_cache()
     phase_train_checks(GPT2_SMALL_POLY4, batches, "poly_attention")
     torch.cuda.empty_cache()
+    phase_remat_gate(GPT2_SMALL_POLY4)
     phase_train(GPT2_SMALL_SOFTMAX, batches)
     del batches
     torch.cuda.empty_cache()
+    phase_remat_gate(GPT2_SMALL_SOFTMAX)
     b1_times = phase_timing()
     bwd_times = phase_timing_backward(ptxas)
     times = phase_timing_poly_lt()
     b2_bwd_times = phase_timing_b2_backward(ptxas)
     phase_lt_mult_breakdown()
+    long_times = phase_timing_long()
+    t6 = time.perf_counter()
+    long_rows, long_launches = {}, dict.fromkeys(KERNELS, 0)
+    for cfg, kernels in ((train_cfg, ("polysketch_causal", "polysketch_causal_backward")),
+                         (GPT2_SMALL_POLY4, ("poly_flash", "poly_flash_backward")),
+                         (GPT2_SMALL_SOFTMAX, ())):
+        long_rows[cfg.name], launched = phase_long_context(cfg, kernels,
+                                                           args.profile_long_context)
+        for k, v in launched.items():
+            long_launches[k] += v
+    log(f"phase 6: {time.perf_counter() - t6:.1f} s for the three models")
+    log(json.dumps({"long_context": long_rows}))
 
     engine_launches = {"polysketch_causal": b1_engine, "poly_flash": b2_engine}
 
     def row(name, replaces, launches, max_abs_err, timing, source=None):
         t_ms, t_plain, bd = timing
-        return {"name": name, "route": "cuda", "status": "ok",
-                "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
-                "replaces": replaces, "launches": launches,
-                "engine_launches": engine_launches.get(name, 0),
-                "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
-                "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
-                "library_ms": None}
+        out = {"name": name, "route": "cuda", "status": "ok",
+               "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
+               "replaces": replaces, "launches": launches,
+               "engine_launches": engine_launches.get(name, 0),
+               "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
+               "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
+               "library_ms": None}
+        if name in long_times:
+            l_ms, l_plain, l_bd = long_times[name]
+            out["long_context"] = {"shape": f"bh 12, n {LONG_TOKENS}", "ms": l_ms,
+                                   "plain_ms": l_plain, "bound_ms": l_bd.tc_ms,
+                                   "bound_by": l_bd.tc_by,
+                                   "launches": long_launches[name]}
+        return out
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build "
         f"included")

@@ -46,7 +46,7 @@ class ArchConfig:
 
     # numerics
     compute_dtype: str = "float32"
-    remat: str = "none"            # the port trains without rematerialisation
+    remat: str = "none"            # none|dots|full
     tie_embeddings: bool = True
     norm: str = "rmsnorm"          # rmsnorm|layernorm
 

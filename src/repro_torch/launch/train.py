@@ -9,7 +9,14 @@ registry, seeded model init, the synthetic Markov data pipeline, AdamW
 and its schedule, the train step, the checkpoint manager (atomic, async,
 keep-k, auto-resume), the preemption guard and the straggler detector.
 It takes the reference's flags except ``--mesh``, plus ``--device``
-(default cuda; raises when there is no card).
+(default cuda; raises when there is no card). ``--set remat=full`` (or
+``dots``) rematerialises each block; the paper's 32k context on one
+card:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2s-polysketch \
+        --seq 32768 --batch 1 --set remat=full --steps 3
+
+It logs the device's peak memory at the end.
 """
 from __future__ import annotations
 
@@ -104,7 +111,16 @@ def main(argv=None):
     n = state.step - start_step
     log.info("done: %d steps on %s, %.2f s/step, %d flagged stragglers", n,
              torch.device(dev), dt / max(n, 1), len(straggler.flagged))
+    log.info("peak device memory: %s", _peak_memory(dev))
     return state
+
+
+def _peak_memory(dev) -> str:
+    """The device's peak allocation since the process started, in GiB."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return f"not tracked on {dev.type}"
+    return f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
 
 
 if __name__ == "__main__":

@@ -9,17 +9,32 @@ decode modes, ``lm_init_cache``, ``lm_init_slot_cache``). The JAX
 are not ported.
 
 Each block: pre-norm -> mixer -> residual; pre-norm -> GLU FFN -> residual.
+
+Rematerialisation (``cfg.remat``), as ``lm_apply`` checkpoints its group
+body: in train mode with grad on, each group (here one block) runs under
+``torch.utils.checkpoint``. ``"full"`` keeps only the block's input and
+recomputes the rest in the backward (``jax.checkpoint``); ``"dots"`` also
+keeps the outputs of the matrix products (``checkpoint_dots``). The
+hand-written kernels are no products to the dispatcher (they write into
+buffers through ctypes), so both policies run them again in the
+backward, as ``checkpoint_dots`` recomputes a ``pallas_call``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.state import get_spec, mixer_state_kind
 from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
+
+
+REMAT = ("none", "dots", "full")
 
 
 def check_supported(cfg):
@@ -34,9 +49,36 @@ def check_supported(cfg):
         raise NotImplementedError("untied embeddings are not ported")
     if cfg.d_ff <= 0:
         raise NotImplementedError("mixer-only blocks are not ported")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported; the "
-                                  "port trains with remat='none'")
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+
+
+_aten = torch.ops.aten
+# What `@`, einsum and F.linear reach at the dispatcher: the ops whose
+# outputs "dots" keeps (jax's dot_general).
+PRODUCT_OPS = frozenset((
+    _aten.mm.default, _aten.bmm.default, _aten.addmm.default,
+    _aten.baddbmm.default, _aten.addbmm.default, _aten.mv.default,
+    _aten.addmv.default, _aten.dot.default, _aten.vdot.default))
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep every product's output, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in PRODUCT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_block(remat, block, h, **kw):
+    """block(h, **kw) with the activations kept as `remat` says. The
+    blocks draw no random numbers, so no RNG state is stashed."""
+    if remat == "none":
+        return block(h, **kw)
+    policy = {}
+    if remat == "dots":
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+    return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False,
+                      **policy, **kw)
 
 
 class Block(nn.Module):
@@ -86,10 +128,13 @@ class LM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         new_cache = None if mode == "train" else []
+        remat = (cfg.remat if mode == "train" and torch.is_grad_enabled()
+                 else "none")
         for i, block in enumerate(self.layers):
-            h, nc = block(h, positions=positions, mode=mode,
-                          cache=None if cache is None else cache[i],
-                          inplace=inplace)
+            h, nc = _run_block(remat, block, h, positions=positions,
+                               mode=mode,
+                               cache=None if cache is None else cache[i],
+                               inplace=inplace)
             if new_cache is not None:
                 new_cache.append(nc)
         h = self.final_norm(h)

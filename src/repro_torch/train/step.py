@@ -60,7 +60,10 @@ def make_train_step(cfg, tcfg):
     """Returns train_step(state, batch) -> (state, metrics). With
     tcfg.microbatches > 1 the batch is cut into that many consecutive
     slices; their gradients are summed and divided by the count, and the
-    metrics are the last slice's, as the reference's scan carries them."""
+    metrics are the last slice's, as the reference's scan carries them.
+    Each slice's backward frees its graph (its logits and log-softmax
+    included) before the next slice's forward; only the summed .grad and
+    a detached loss carry over."""
     loss_fn = make_loss_fn(cfg)
     schedule = linear_warmup_linear_decay(tcfg.peak_lr, tcfg.steps,
                                           tcfg.warmup_frac)

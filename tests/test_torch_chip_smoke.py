@@ -78,3 +78,26 @@ def test_b2_backward_kernel_names_are_its_own(chip_smoke):
     bd = chip_smoke.b2_bwd_bound(24, 4096, 64, 4)
     assert bd.nbytes == 24 * 4096 * (8 * 64 * 4 + 4)        # eight f32 tensors and D
     assert round(bd.flops / 1e9, 1) == 130.5                 # 128.9 products + 1.6 rest
+
+
+@pytest.mark.parametrize("seq,gib", [(32768, 48.0), (16384, 12.0)])
+def test_softmax_scores_reckoning(chip_smoke, seq, gib):
+    """The plain softmax path's (1, 12, seq, seq) f32 scores, in GiB."""
+    assert chip_smoke.s2_gib(1, 12, seq) == gib
+
+
+@pytest.mark.parametrize("name,seq,fits", [
+    ("gpt2s-polysketch", 32768, True), ("gpt2s-poly4", 32768, True),
+    ("gpt2s-softmax", 16384, True), ("gpt2s-softmax", 32768, False)])
+def test_long_context_reckoning_on_an_80_gb_card(chip_smoke, name, seq, fits):
+    """Phase 6 decides from the shapes which (model, context) pairs it
+    runs: at remat "full", one row a microbatch, against 90 % of an H100's
+    79.2 GiB."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4, GPT2_SMALL_SOFTMAX
+    cfg = {"gpt2s-polysketch": get_config("gpt2s-polysketch"),
+           "gpt2s-poly4": GPT2_SMALL_POLY4, "gpt2s-softmax": GPT2_SMALL_SOFTMAX}[name]
+    need = chip_smoke.reckon_full_remat_gib(cfg, seq)
+    assert (need <= chip_smoke.LONG_FIT_SHARE * 79.2) == fits, need
+    if name == "gpt2s-softmax":
+        assert need > 3 * chip_smoke.s2_gib(1, 12, seq)

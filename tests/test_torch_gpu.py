@@ -578,3 +578,95 @@ def test_engine_runs_the_kernels_and_no_plain_version(card, attention, kernel,
     cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
     _serve(build_model(cfg, device=card, seed=6), range(6))
     assert wrapper.launches > before and not calls
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation and the 32k context
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attention", ["polysketch", "polynomial", "softmax"])
+def test_remat_gradients_equal_none_at_full_width(card, attention):
+    """Full width (d_model 768, 12 heads of 64), 2 layers, 1 x 2048 tokens,
+    under deterministic algorithms: one loss's gradients with remat "dots"
+    and "full" equal "none"'s bit for bit, and the kernels' forward runs
+    again in the backward (2 launches a layer, the backward 1)."""
+    from repro_torch.train import make_loss_fn
+    cfg = get_config("gpt2s-polysketch", attention=attention, n_layers=2)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, 2049))).to(card)
+    fwd, bwd = {"polysketch": (pc.polysketch_causal_cuda, pc.polysketch_causal_backward_cuda),
+                "polynomial": (pf.poly_flash_cuda, pf.poly_flash_backward_cuda)}.get(
+                    attention, (None, None))
+    grads = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("none", "dots", "full"):
+            c = cfg.replace(remat=remat)
+            lm = build_model(c, device=card, seed=0, trainable=True).lm
+            before = (fwd.launches, bwd.launches) if fwd else (0, 0)
+            loss, _ = make_loss_fn(c)(lm, {"tokens": toks})
+            loss.backward()
+            if fwd:
+                runs = 1 if remat == "none" else 2
+                assert (fwd.launches - before[0], bwd.launches - before[1]) == \
+                    (runs * cfg.n_layers, cfg.n_layers)
+            grads[remat] = {n: p.grad for n, p in lm.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for remat in ("dots", "full"):
+        for name, want in grads["none"].items():
+            assert torch.equal(grads[remat][name], want), (remat, name)
+
+
+def test_b1_backward_kernel_at_32k_matches_plain_version(card):
+    """B1's forward and backward at n 32768 (bh 2, r 32, h 64, b 1024):
+    the byte offsets of the 32k training shape's rows and states."""
+    xs = _inputs(32, (1, 2, 32768), (1, 2, 32768), 64, 32, torch.float32, card)
+    dout = _normal(33, card)(1, 2, 32768, 64)
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    with torch.no_grad():
+        got = ops.polysketch_attention(*xs, **kw)
+        want = ops.polysketch_attention(*xs, impl="torch", **kw)
+    assert (got - want).abs().max().item() <= TOL["float32"]
+    _assert_grads_close(_grads(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout),
+                        _grads(lambda *a: ops.polysketch_attention(*a, impl="torch", **kw),
+                               xs, dout))
+
+
+def test_b2_backward_kernel_at_32k_matches_plain_version(card):
+    """B2's forward and backward at n 32768, bh 2: 256 key tiles, each
+    stage of dq summed behind up to 256 of them."""
+    xs, dout = _b2_inputs(34, 1, 2, 2, 32768, 64, 4, card)
+    kw = dict(degree=4, scale=1.0 / 64)
+    with torch.no_grad():
+        got = ops.poly_attention(*xs, **kw)
+        want = ops.poly_attention(*xs, impl="torch", **kw)
+    assert (got - want).abs().max().item() <= TOL["float32"]
+    _assert_grads_close(_grads(lambda *a: ops.poly_attention(*a, **kw), xs, dout),
+                        _grads(lambda *a: ops.poly_attention(*a, impl="torch", **kw),
+                               xs, dout))
+
+
+def test_remat_product_ops_cover_what_the_card_dispatches(card):
+    """Every matrix product a train-mode forward dispatches on the card,
+    for the three mechanisms, is one that remat "dots" keeps."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import transformer
+
+    class Ops(TorchDispatchMode):
+        seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func)
+            return func(*args, **(kwargs or {}))
+
+    toks = torch.zeros(1, 1024, dtype=torch.long, device=card)
+    for attention in ("polysketch", "polynomial", "softmax"):
+        cfg = get_config("gpt2s-polysketch", attention=attention, n_layers=1)
+        lm = build_model(cfg, device=card, seed=0, trainable=True).lm
+        with Ops():
+            lm(toks, mode="train")
+    products = {f for f in Ops.seen
+                if any(k in str(f) for k in ("mm", "dot", "matmul", "linear", "einsum"))}
+    assert products and products <= transformer.PRODUCT_OPS, products

@@ -282,8 +282,11 @@ def test_trainable_model_freezes_only_the_random_sketch():
     served = build_model(cfg, device="cpu").lm
     assert not served.training
     assert not any(p.requires_grad for p in served.parameters())
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_model(get_config(ARCH, smoke=True, remat="full"), device="cpu",
+    full = build_model(get_config(ARCH, smoke=True, remat="full"),
+                       device="cpu", trainable=True)
+    assert full.lm.training and full.cfg.remat == "full"
+    with pytest.raises(ValueError, match="remat"):
+        build_model(get_config(ARCH, smoke=True, remat="some"), device="cpu",
                     trainable=True)
 
 

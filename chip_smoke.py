@@ -1,8 +1,9 @@
 """Chip smoke of the PyTorch port: build its kernels, hold each against its
 plain version on the card, serve gpt2s-polysketch, gpt2s-poly4 and
 gpt2s-softmax and train all three at full width, at 2 x 4096 and at
-32,768 tokens a step from 4k to 32k context, and check the port against
-itself.
+32,768 tokens a step from 4k to 32k context, serve the registry's four
+dense polysketch models (head width 128, bf16) at their published widths
+and train starcoder2-3b in bf16, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,13 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      2040/4096, GQA 4:2, h 16 and the training shape, two calls bit for
      bit, and B2's forward with and without den_out bit for bit; B1 and
      B2, forward and backward, at the 32k training shape (bh 12, n 32768,
-     h 64; B1 at r 32, b 1024) against their plain versions; and one
+     h 64; B1 at r 32, b 1024) against their plain versions, and the
+     forwards and B2's gradients there against float64 plain versions
+     beside PR 20's errors (C.1: B2's gradients within half of PR 20's
+     5.40e-5); B1 and its backward at h 128 in f32 (1e-4) and bf16 (5e-2)
+     over GQA 12:1, GQA 5:1 at a ragged n, MHA without local_exact and a
+     seeded z0, a bf16 prefill resumed at a block boundary equal to a
+     cold one and two bf16 backward calls equal, bit for bit; and one
      line of tolerance study: the plain B1, B2 and B3 with single-pass
      TF32 matmuls against full f32, beside the kernels' (3xTF32) errors;
   2. full-width serving: `generate`, greedy, 4 requests x 2040 prompt
@@ -57,8 +64,10 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      and its bounds (B1 also at the two calls a prefill's layer makes);
      B3's device time per pass (torch.profiler) and host time per call;
      B1's and B2's backward kernels' registers, spills, shared memory and
-     CTAs an SM, and their time at the training shape, per pass; and the
+     CTAs an SM, and their time at the training shape, per pass; the
      four training kernels at the 32k training shape (bh 12, n 32768);
+     and B1 and its backward at h 128 (bh 24, n 4096, b 256, bf16 and
+     f32), with the backward's occupancy there;
   5. the continuous-batching ServeEngine (run after each model's phase-3
      checks): each of the three models at full width and depth serves 8
      requests on 4 slots (prompts 600-4096 tokens, 32 new tokens, greedy
@@ -80,7 +89,26 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      memory is logged with its reckoning and not run. The rows of B1 and
      B2 in the JSON line carry their 32k time and phase 6's launches under
      `long_context`. `--profile-long-context` profiles one more step at
-     each model's shortest and longest context that run (~3 min more).
+     each model's shortest and longest context that run (~3 min more);
+  7. the registry's dense polysketch models (deepseek-7b, starcoder2-3b,
+     qwen3-14b, yi-34b) at their published widths in bf16, seeded
+     weights drawn on the card, each at the most layers whose f32
+     weights fit (serve_depth: all but yi-34b at full depth), served
+     through ServeEngine: 4 requests on 2 slots (prompts 1024-4096
+     tokens, 16 new, two greedy and two sampled), B1 once a layer per
+     prefill block and nothing else, TTFT, ms a tick, tokens/s and peak
+     memory, the served log-probabilities against a blocked plain bf16
+     forward (1e-2 nats) and the train-mode logits through B1 against it
+     (2e-2 of max|logit|), and a profile of starcoder2-3b's decode ticks;
+  8. starcoder2-3b trained at its published width in bf16 with remat
+     "dots", 1 x 4096 tokens a step, at the depth that fits (train_depth):
+     one step's gradients through B1 and its backward against the plain
+     path's leaf by leaf (twice the reference's bf16 distance from float64
+     in scripts/bf16_grad_study.py: worst leaf 0.38, median 0.095), step time,
+     tokens/s and peak memory over 3 timed steps (B1 twice and its
+     backward once a layer a step), and two runs bit for bit. The rows of
+     B1 and its backward in the JSON line carry their h 128 bf16 time and
+     these phases' launches under `h128_bf16`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -165,7 +193,7 @@ def err(a, b) -> float:
 
 def check(name, got, tol):
     status = "ok" if got <= tol else "FAIL"
-    log(f"  {name:58s} max|err| {got:.3e}  tol {tol:.0e}  {status}")
+    log(f"  {name:58s} max|err| {got:.3e}  tol {tol:.1e}  {status}")
     if got > tol:
         raise AssertionError(f"{name}: max error {got} > {tol}")
 
@@ -310,11 +338,12 @@ def grad_err(got, want):
     return max(err(g, w) / max(w.abs().max().item(), 1e-30) for g, w in zip(got, want))
 
 
-def check_grads(name, fn, xs, dout, kernel=pc.polysketch_causal_backward_cuda, **kw):
+def check_grads(name, fn, xs, dout, kernel=pc.polysketch_causal_backward_cuda, tol=F32_TOL,
+                **kw):
     """The kernel path's gradients (an ops entry point through a forward
     kernel and the backward `kernel`) against the plain path's, each within
-    F32_TOL of its own max|.|; returns (relative error, absolute error,
-    kernel gradients)."""
+    `tol` of its own max|.|; returns (relative error, absolute error,
+    kernel gradients, plain gradients)."""
     before = kernel.launches
     got = grads_of(lambda *a: fn(*a, **kw), xs, dout)
     launched = kernel.launches - before
@@ -324,8 +353,8 @@ def check_grads(name, fn, xs, dout, kernel=pc.polysketch_causal_backward_cuda, *
         raise AssertionError(f"{name}: the kernel path launched the backward "
                              f"{launched} times, or the plain path launched it")
     e = grad_err(got, want)
-    check(f"{name} (grads, rel.)", e, F32_TOL)
-    return e, max(err(g, w) for g, w in zip(got, want)), got
+    check(f"{name} (grads, rel.)", e, tol)
+    return e, max(err(g, w) for g, w in zip(got, want)), got, want
 
 
 def phase_b1_backward_grid():
@@ -341,13 +370,13 @@ def phase_b1_backward_grid():
                   rnd(B, Hq, S, hd), rnd(B, Hkv, S, hd), rnd(B, Hkv, S, hd))
             kw = dict(degree=degree, scale=1.0 / hd, local_exact=local_exact,
                       block_size=blk)
-            rel, e, _ = check_grads(f"f32 p={degree} local_exact={local_exact} GQA 4:2",
+            rel, e, _, _ = check_grads(f"f32 p={degree} local_exact={local_exact} GQA 4:2",
                                     ops.polysketch_attention, xs, rnd(B, Hq, S, hd), **kw)
             worst, worst_rel = max(worst, e), max(worst_rel, rel)
     rnd = seeded(101)
     xs = (rnd(1, 2, 77, 8), rnd(1, 2, 77, 8), rnd(1, 2, 77, 16), rnd(1, 2, 77, 16),
           rnd(1, 2, 77, 16))
-    rel, e, _ = check_grads("f32 unaligned n=77 (zero-padded)", ops.polysketch_attention,
+    rel, e, _, _ = check_grads("f32 unaligned n=77 (zero-padded)", ops.polysketch_attention,
                             xs, rnd(1, 2, 77, 16), degree=4, scale=1.0 / 16, block_size=32)
     worst, worst_rel = max(worst, e), max(worst_rel, rel)
     # a seeded z0 (the state a previous call returned), its gradient included
@@ -361,7 +390,7 @@ def phase_b1_backward_grid():
 
     def with_z0(qm, km, q, k, v, z, **kw):
         return ops.polysketch_attention(qm, km, q, k, v, z0=z, **kw)
-    rel, e, _ = check_grads("f32 with a seeded z0 (its gradient too)", with_z0, xs,
+    rel, e, _, _ = check_grads("f32 with a seeded z0 (its gradient too)", with_z0, xs,
                             rnd(B, H, S, hd), degree=4, scale=1.0 / hd, block_size=blk)
     worst, worst_rel = max(worst, e), max(worst_rel, rel)
     # the forward's mma tile shapes (a ragged last tile; widths below a tile)
@@ -369,13 +398,13 @@ def phase_b1_backward_grid():
         rnd = seeded(n + r)
         xs = (rnd(1, 2, n, r, scale=0.5), rnd(1, 2, n, r, scale=0.5), rnd(1, 2, n, h),
               rnd(1, 2, n, h), rnd(1, 2, n, h))
-        rel, e, _ = check_grads(f"f32 n={n} r={r} h={h} b={blk}", ops.polysketch_attention,
+        rel, e, _, _ = check_grads(f"f32 n={n} r={r} h={h} b={blk}", ops.polysketch_attention,
                                 xs, rnd(1, 2, n, h), degree=4, scale=1.0 / h, block_size=blk)
         worst, worst_rel = max(worst, e), max(worst_rel, rel)
     # the training shape, and two calls bit for bit
     xs, dout = train_attention_inputs()
     kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
-    rel, e, got = check_grads("f32 training shape B=2 H=12 n=4096 r=32 h=64 b=1024",
+    rel, e, got, _ = check_grads("f32 training shape B=2 H=12 n=4096 r=32 h=64 b=1024",
                               ops.polysketch_attention, xs, dout, **kw)
     worst, worst_rel = max(worst, e), max(worst_rel, rel)
     again = grads_of(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
@@ -431,19 +460,19 @@ def phase_b2_backward_grid():
     for degree in (1, 2, 4, 8):
         for n in (64, 77, 200, 2040, 4096):
             xs, dout = b2_grad_inputs(200 + degree + n, 1, 2, 2, n, 64, degree)
-            rel, e, _ = check_grads(f"f32 p={degree} bh=2 n={n} h=64", ops.poly_attention,
+            rel, e, _, _ = check_grads(f"f32 p={degree} bh=2 n={n} h=64", ops.poly_attention,
                                     xs, dout, kernel=kernel, degree=degree, scale=1.0 / 64)
             worst, worst_rel = max(worst, e), max(worst_rel, rel)
     for name, shape in (("GQA 4:2, n=200 h=64", (2, 4, 2, 200, 64)),
                         ("h=16 n=77 (widths below a tile)", (1, 2, 2, 77, 16))):
         xs, dout = b2_grad_inputs(17, *shape, 4)
-        rel, e, _ = check_grads(f"f32 p=4 {name}", ops.poly_attention, xs, dout,
+        rel, e, _, _ = check_grads(f"f32 p=4 {name}", ops.poly_attention, xs, dout,
                                 kernel=kernel, degree=4, scale=1.0 / shape[-1])
         worst, worst_rel = max(worst, e), max(worst_rel, rel)
     # the training shape, and two calls bit for bit
     xs, dout = b2_grad_inputs(16, 2, 12, 12, TRAIN_SEQ, 64, 4)
     kw = dict(degree=4, scale=1.0 / 64)
-    rel, e, got = check_grads(f"f32 training shape B=2 H=12 n={TRAIN_SEQ} h=64 p=4",
+    rel, e, got, _ = check_grads(f"f32 training shape B=2 H=12 n={TRAIN_SEQ} h=64 p=4",
                               ops.poly_attention, xs, dout, kernel=kernel, **kw)
     worst, worst_rel = max(worst, e), max(worst_rel, rel)
     again = grads_of(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
@@ -1498,32 +1527,468 @@ def long_kernel_inputs():
              rnd(B, H, n, h), rnd(B, H, n, h)), rnd(B, H, n, h))
 
 
+# C.1 (ROADMAP): PR 20's errors at this shape, the forwards accumulating
+# W V in place on the tensor cores; the repair must halve B2's gradients'.
+C1_BEFORE = {"B1": 2.98e-6, "B2": 1.90e-5, "B2 backward": 5.40e-5}
+C1_B2_BWD_GATE = C1_BEFORE["B2 backward"] / 2
+
+
 def phase_long_kernels():
     """B1 and B2, forward and backward, at the 32k training shape (bh 12,
     n 32768; B1 at b 1024, r 32) against their plain versions (B2's plain
-    versions go 256 queries at a time, so they fit at bh 12). Returns the
-    worst forward and gradient errors {kernel: max|err|}."""
-    log(f"phase 1: B1 and B2, forward and backward, at bh 12 n {LONG_TOKENS} h 64 vs plain")
+    versions go 256 queries at a time, so they fit at bh 12), and the C.1
+    check: the forwards and B2's gradients against float64 plain versions,
+    beside PR 20's errors, B2's gradients within half of PR 20's. Returns
+    the worst forward and gradient errors {kernel: max|err|}."""
+    log(f"phase 1: B1 and B2, forward and backward, at bh 12 n {LONG_TOKENS} h 64 vs plain "
+        f"(and the C.1 check against float64); {card_line()}")
+    t_phase = time.perf_counter()
     xs, dout = long_kernel_inputs()
     kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
     with torch.no_grad():
-        e1 = err(ops.polysketch_attention(*xs, **kw),
-                 ops.polysketch_attention(*xs, impl="torch", **kw))
+        got = ops.polysketch_attention(*xs, **kw)
+        plain = ops.polysketch_attention(*xs, impl="torch", **kw)
+        ref = ops.polysketch_attention(*(x.double() for x in xs), impl="torch", **kw)
+    e1 = err(got, plain)
     check(f"B1 f32 B=1 H=12 n={LONG_TOKENS} r=32 h=64 b=1024", e1, F32_TOL)
-    _, e1b, _ = check_grads(f"B1 backward B=1 H=12 n={LONG_TOKENS} r=32 h=64 b=1024",
-                            ops.polysketch_attention, xs, dout, **kw)
+    c1_line("B1 forward", got, plain, ref, C1_BEFORE["B1"])
+    del got, plain, ref
+    _, e1b, _, _ = check_grads(f"B1 backward B=1 H=12 n={LONG_TOKENS} r=32 h=64 b=1024",
+                               ops.polysketch_attention, xs, dout, **kw)
     del xs, dout
     xs, dout = b2_grad_inputs(32, 1, 12, 12, LONG_TOKENS, 64, 4)
     kw = dict(degree=4, scale=1.0 / 64)
     with torch.no_grad():
-        e2 = err(ops.poly_attention(*xs, **kw), ops.poly_attention(*xs, impl="torch", **kw))
+        got = ops.poly_attention(*xs, **kw)
+        plain = ops.poly_attention(*xs, impl="torch", **kw)
+        ref = ops.poly_attention(*(x.double() for x in xs), impl="torch", **kw)
+    e2 = err(got, plain)
     check(f"B2 f32 causal B=1 H=12 n={LONG_TOKENS} h=64 p=4", e2, F32_TOL)
-    _, e2b, _ = check_grads(f"B2 backward B=1 H=12 n={LONG_TOKENS} h=64 p=4",
-                            ops.poly_attention, xs, dout, kernel=pf.poly_flash_backward_cuda,
-                            **kw)
+    c1_line("B2 forward", got, plain, ref, C1_BEFORE["B2"])
+    del got, plain, ref
+    rel2b, e2b, got, want = check_grads(f"B2 backward B=1 H=12 n={LONG_TOKENS} h=64 p=4",
+                                        ops.poly_attention, xs, dout,
+                                        kernel=pf.poly_flash_backward_cuda, **kw)
+    flat = [x.reshape(12, LONG_TOKENS, 64).double() for x in (*xs, dout)]
+    with torch.no_grad():
+        out64, den64 = pf.poly_flash_torch(*flat[:3], return_den=True, **kw)
+        ref = pf.poly_flash_backward_torch(flat[3], *flat[:3], out64, den64, **kw)
+    del flat, out64, den64
+    ref = [r.reshape(g.shape) for r, g in zip(ref, got)]
+    log(f"  C.1 B2 backward: kernels vs plain f32 {rel2b:.3e} of the gradients' max (PR 20: "
+        f"{C1_BEFORE['B2 backward']:.2e}); vs float64: kernels {grad_err(got, ref):.3e}, "
+        f"plain f32 {grad_err(want, ref):.3e}")
+    check("C.1 B2 backward kernels vs plain f32 (rel.), half of PR 20's", rel2b,
+          C1_B2_BWD_GATE)
+    log(f"  phase 1 at n {LONG_TOKENS}: {time.perf_counter() - t_phase:.1f} s")
+    del got, want, ref
     torch.cuda.empty_cache()
     return {"polysketch_causal": e1, "polysketch_causal_backward": e1b,
             "poly_flash": e2, "poly_flash_backward": e2b}
+
+
+def c1_line(name, got, plain, ref, before):
+    """Log a forward's error against its plain f32 version (absolute, as
+    PR 20 logged it) and, as a share of max|out|, both against float64."""
+    top = ref.abs().max().item()
+    log(f"  C.1 {name}: kernel vs plain f32 {err(got, plain):.3e} (PR 20: {before:.2e}); vs "
+        f"float64, relative to max|out| {top:.3f}: kernel {err(got, ref) / top:.3e}, "
+        f"plain f32 {err(plain, ref) / top:.3e}")
+
+
+def phase_b1_h128_grid(card):
+    """B1's forward and backward at head width 128 (the dense models'),
+    f32 and bf16, against their plain versions through
+    ops.polysketch_attention: GQA 12:1 (starcoder2-3b's heads) over two
+    blocks, GQA 5:1 (qwen3-14b's) at a ragged n zero-padded to the block,
+    MHA with local_exact off, and a seeded z0; then, in bf16, a prefill
+    resumed at a block boundary equals a cold one and two backward calls
+    give the same gradients, bit for bit. Returns the worst f32 forward and
+    gradient errors, and the worst bf16 ones."""
+    log("phase 1: B1 forward and backward at h 128 vs plain (f32 gate 1e-4, bf16 gate "
+        f"{BF16_TOL:.0e}, gradients relative to their max|.|); {card}")
+    t_phase, before = time.perf_counter(), counts()
+    torch.cuda.reset_peak_memory_stats()
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    cases = (("GQA 12:1 B=1 Hq=24 n=2048 b=1024", 1, 24, 2, 2048, 1024, True, False),
+             ("GQA 5:1 B=1 Hq=10 ragged n=1500 b=512", 1, 10, 2, 1500, 512, True, False),
+             ("MHA B=2 H=4 n=1024 b=256 local_exact=False", 2, 4, 4, 1024, 256, False, False),
+             ("GQA 4:2 B=1 n=768 b=256 seeded z0", 1, 4, 2, 768, 256, True, True))
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt, tol = str(dt)[6:], F32_TOL if dt == torch.float32 else BF16_TOL
+        for i, (name, B, hq, hkv, n, blk, le, z0) in enumerate(cases):
+            rnd = seeded(128 + i)
+            xs = [rnd(B, hq, n, 32, scale=0.5, dtype=dt), rnd(B, hkv, n, 32, scale=0.5, dtype=dt),
+                  rnd(B, hq, n, 128, dtype=dt), rnd(B, hkv, n, 128, dtype=dt),
+                  rnd(B, hkv, n, 128, dtype=dt)]
+            dout = rnd(B, hq, n, 128, dtype=dt)
+            kw = dict(degree=4, scale=1.0 / 128, local_exact=le, block_size=blk)
+            fn = ops.polysketch_attention
+            if z0:   # the state of a previous call, its gradient taken too
+                with torch.no_grad():
+                    _, zs = ops.polysketch_attention(*xs, return_state=True, **kw)
+                xs.append(zs * 0.5)
+
+                def fn(qm, km, q, k, v, z, impl=None, **kw):
+                    return ops.polysketch_attention(qm, km, q, k, v, z0=z, impl=impl, **kw)
+            with torch.no_grad():
+                e = err(fn(*xs, **kw), fn(*xs, impl="torch", **kw))
+            check(f"{name_dt} h=128 {name} (out)", e, tol)
+            rel, _, _, _ = check_grads(f"{name_dt} h=128 {name}", fn, xs, dout, tol=tol, **kw)
+            worst[name_dt] = [max(worst[name_dt][0], e), max(worst[name_dt][1], rel)]
+    rnd = seeded(129)
+    dt = torch.bfloat16
+    xs = [rnd(1, 24, 1024, 32, scale=0.5, dtype=dt), rnd(1, 2, 1024, 32, scale=0.5, dtype=dt)]
+    xs += [rnd(1, h_, 1024, 128, dtype=dt) for h_ in (24, 2, 2)]
+    kw = dict(degree=4, scale=1.0 / 128, block_size=256, return_state=True)
+    with torch.no_grad():
+        o_full, z_full = ops.polysketch_attention(*xs, **kw)
+        o1, z1 = ops.polysketch_attention(*(x[..., :512, :] for x in xs), **kw)
+        o2, z2 = ops.polysketch_attention(*(x[..., 512:, :] for x in xs), z0=z1, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(torch.cat([o1, o2], -2), o_full) and torch.equal(z2, z_full)
+    log(f"  bf16 h=128 GQA 12:1: resumed at token 512 == cold, bit for bit: {same}")
+    if not same:
+        raise AssertionError("B1 h 128 bf16: a resumed prefill differs from a cold one")
+    dout = rnd(1, 24, 1024, 128, dtype=dt)
+    kw.pop("return_state")
+    g1 = grads_of(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    g2 = grads_of(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    log(f"  bf16 h=128 GQA 12:1: two backward calls equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("B1 backward h 128 bf16: two calls differ")
+    launched = {k: v - before[k] for k, v in counts().items() if v > before[k]}
+    log(f"  launches in the phase: {launched}; {time.perf_counter() - t_phase:.1f} s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the registry's dense polysketch models (head width 128,
+# bf16) served and trained at their published widths
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("deepseek-7b", "starcoder2-3b", "qwen3-14b", "yi-34b")
+DENSE_LENS = (4096, 1024, 3072, 2048)     # requests 0, 1 greedy; 2, 3 sampled
+DENSE_SLOTS, DENSE_GEN, DENSE_BUDGET = 2, 16, 2048
+DENSE_SHARE = 0.9              # of the card's memory the reckoning may plan for
+DENSE_SERVE_RESERVE_GIB = 12   # beside the f32 weights: casts, states, logits, the check
+DENSE_TRAIN_RESERVE_GIB = 14   # beside 16 B a parameter: logits, casts, the gradient check
+DENSE_TRAIN_ACT_GIB = 0.5      # a layer's kept activations at 1 x 4096 under remat "dots"
+DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS = 4096, 3
+# bf16 gradient gates (scripts/bf16_grad_study.py on SMOKE, CPU): the
+# reference's own bf16 gradients lie up to 0.189 of a leaf's max|.| from
+# float64, the median leaf up to 0.0474 (the port's 0.125 and 0.0279); two
+# paths each that far from float64 may differ by twice it
+BF16_GRAD_TOL, BF16_GRAD_MEDIAN = 0.38, 0.095
+# kernels vs a blocked plain forward, both bf16, over the same tokens: the
+# served log-probabilities (nats) and the train-mode logits (relative to
+# max|logit|). Both compute attention in f32 from the same bf16 operands
+# and round its output to bf16 (2^-8 of it), so they differ where a
+# rounding flips and the layers carry the flip on: a few bf16 steps
+DENSE_LP_TOL, DENSE_LOGIT_TOL = 1e-2, 2e-2
+
+
+def card_gib() -> float:
+    return torch.cuda.get_device_properties(0).total_memory / 2**30
+
+
+def param_split(cfg):
+    """(parameters of one block, the rest: embedding and final norm),
+    counted on the meta device."""
+    lm = build_model(cfg.replace(n_layers=1), device="meta").lm
+    block = sum(p.numel() for p in lm.layers[0].parameters())
+    return block, sum(p.numel() for p in lm.parameters()) - block
+
+
+def serve_depth(cfg) -> int:
+    """The most layers whose f32 weights fit in DENSE_SHARE of the card
+    beside DENSE_SERVE_RESERVE_GIB (at most the published depth)."""
+    block, rest = param_split(cfg)
+    room = DENSE_SHARE * card_gib() - DENSE_SERVE_RESERVE_GIB - 4 * rest / 2**30
+    return min(cfg.n_layers, int(room // (4 * block / 2**30)))
+
+
+def train_depth(cfg) -> int:
+    """The most layers that train at 16 bytes a parameter (f32 weights,
+    gradients and AdamW's m and v) plus DENSE_TRAIN_ACT_GIB a layer, in
+    DENSE_SHARE of the card beside DENSE_TRAIN_RESERVE_GIB."""
+    block, rest = param_split(cfg)
+    room = DENSE_SHARE * card_gib() - DENSE_TRAIN_RESERVE_GIB - 16 * rest / 2**30
+    return min(cfg.n_layers, int(room // (16 * block / 2**30 + DENSE_TRAIN_ACT_GIB)))
+
+
+def plain_ops():
+    """ops' B1 entry point with its plain version, whatever the device."""
+    return mock.patch.object(ops, "polysketch_attention",
+                             functools.partial(ops.polysketch_attention, impl="torch"))
+
+
+def phase_dense_serve(arch, card, profile=False):
+    """One of the registry's dense polysketch models at its published
+    width, bf16, seeded weights drawn on the card, its depth the most that
+    fits (serve_depth), served through ServeEngine: 4 requests on 2 slots
+    (prompts of 1024-4096 tokens, 16 new tokens, 0 and 1 greedy, 2 and 3
+    sampled), prefill budget 2048, overlap on. B1 launches once a layer per
+    prefill block and nothing else runs (no plain version, no backward);
+    the served log-probabilities of a greedy and a sampled request against
+    a plain-ops forward (B1's blocked plain version) over prompt + emitted
+    tokens, bf16, within DENSE_LP_TOL, and a train-mode forward's logits
+    through B1 against that forward's within DENSE_LOGIT_TOL of max|logit|
+    (with random weights a model mostly repeats its input token, so the
+    chosen tokens' log-probabilities lie near 0); with `profile`, a
+    profile of four decode ticks (profile_dense_ticks). Returns a row of
+    the numbers."""
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    depth = serve_depth(full)
+    cfg = full.replace(n_layers=depth)
+    reduced = f"reduced: {depth} of {full.n_layers} layers" if depth < full.n_layers \
+        else "full depth"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, t_build = timed(lambda: build_model(cfg, device="cuda", seed=0,
+                                               draw_on_device=True))
+    weights = sum(p.numel() for p in model.lm.parameters())
+    log(f"phase 7: {arch} serving, bf16, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim} ({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {depth} layers ({reduced}); {weights / 1e9:.2f}B parameters, "
+        f"{4 * weights / 2**30:.1f} GiB f32 weights drawn on the card (seed 0) in "
+        f"{t_build:.1f} s; {card}")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in DENSE_LENS]
+    samp = [SamplingParams() if i < 2 else SamplingParams(seed=100 + i, **ENGINE_SAMPLED)
+            for i in range(len(prompts))]
+
+    def engine():
+        return ServeEngine(model, slots=DENSE_SLOTS, max_len=max(DENSE_LENS) + DENSE_GEN,
+                           logprobs=True, prefill_budget=DENSE_BUDGET, overlap=True)
+    warm = engine()                               # allocator, cuBLAS
+    warm.submit(prompts[1][:512], 2)
+    warm.run()
+    del warm
+    gc.collect()
+    torch.cuda.synchronize()
+    eng = engine()
+    zero_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rid_of = {eng.submit(p, DENSE_GEN, sampling=sp): i
+                  for i, (p, sp) in enumerate(zip(prompts, samp))}
+        outs = {rid_of[o.rid]: o for o in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    run_counts = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats()
+    blocks = sum(-(-len(p) // cfg.lt_block_size) for p in prompts)
+    expected = {k: depth * blocks if k == "polysketch_causal" else 0 for k in KERNELS}
+    ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+    gen = sum(len(o.tokens) for o in outs.values())
+    tick_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    log(f"  run: {wall * 1e3:.1f} ms for {gen} generated tokens = {gen / wall:.1f} generated "
+        f"tok/s (prompts {sum(map(len, prompts))} tokens); TTFT p50 "
+        f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{st['decode_steps']} decode ticks, {tick_ms:.2f} ms a tick; peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"  launches in the run: {run_counts} (expected {expected}: one B1 a layer per "
+        f"{cfg.lt_block_size}-token block of each prompt); plain-version calls: "
+        f"{plain.calls}")
+    if run_counts != expected or plain.calls:
+        raise AssertionError(f"{arch}: the engine did not launch B1 once a layer per "
+                             "prefill block and nothing else, or called a plain version")
+    for i, o in outs.items():
+        if len(o.tokens) != DENSE_GEN or o.tokens.min() < 0 \
+                or o.tokens.max() >= cfg.vocab_size or not np.isfinite(o.logprobs).all():
+            raise AssertionError(f"{arch} request {i}: bad output {o.tokens}, {o.logprobs}")
+    worst, worst_logit = 0.0, 0.0
+    for i in (1, 2):
+        seq = torch.from_numpy(np.concatenate([prompts[i], outs[i].tokens[:-1]]))[None].cuda()
+        with torch.inference_mode():
+            got, _ = model.lm(seq, mode="train")
+            with plain_ops():
+                logits, _ = model.lm(seq, mode="train")
+            worst_logit = max(worst_logit, err(got, logits) / logits.float().abs().max().item())
+            lsm = torch.log_softmax(logits[0, len(prompts[i]) - 1:].float(), dim=-1)
+            want = lsm.gather(1, torch.from_numpy(outs[i].tokens.astype(np.int64)).cuda()[:, None])
+        worst = max(worst, float(np.abs(want[:, 0].cpu().numpy() - outs[i].logprobs).max()))
+        del got, logits, lsm
+    check(f"{arch}: served logprobs (B1) vs a blocked plain bf16 forward (nats)", worst,
+          DENSE_LP_TOL)
+    check(f"{arch}: train-mode logits, B1 vs blocked plain, bf16 (rel. to max)", worst_logit,
+          DENSE_LOGIT_TOL)
+    log(f"  req0: {' '.join(map(str, outs[0].tokens.tolist()))}")
+    prof = profile_dense_ticks(model) if profile else (None, None, None)
+    row = {"arch": arch, "layers": depth, "published_layers": full.n_layers,
+           "params_b": round(weights / 1e9, 3), "tick_ms": round(tick_ms, 2),
+           "ttft_p50_ms": round(float(np.percentile(ttft, 50)), 1),
+           "ttft_p99_ms": round(float(np.percentile(ttft, 99)), 1),
+           "gen_tok_s": round(gen / wall, 1), "peak_gib": round(peak, 2),
+           "logprob_err": worst, "logit_rel_err": worst_logit,
+           "b1_launches": run_counts["polysketch_causal"],
+           "profiled_tick_ms": prof[0], "profiled_busy_ms": prof[1],
+           "kernels_a_tick": prof[2]}
+    del model, eng, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 7 {arch}: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def profile_dense_ticks(model, ticks=4):
+    """Wall and device time of `ticks` decode ticks with both slots decoding
+    (256-token prompts, no admission in flight), kernels a tick and the
+    kernels that take the most device time, from torch.profiler. Returns
+    (ms a tick, device-busy ms a tick, kernels a tick)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ServeEngine(model, slots=DENSE_SLOTS, max_len=256 + ticks + 8,
+                      prefill_budget=DENSE_BUDGET, overlap=True)
+    rng = np.random.default_rng(5)
+    for _ in range(DENSE_SLOTS):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, size=256), ticks + 8)
+    while eng.n_active < DENSE_SLOTS or eng.scheduler.active:
+        eng.step()
+    eng.step()                                   # the pipeline holds a tick
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: [eng.step() for _ in range(ticks)])
+    rows = device_rows(prof)
+    busy = sum(dev_us(e) for e in rows) / 1e3 / ticks
+    kernels = sum(e.count for e in rows) / ticks
+    log(f"  profile of {ticks} decode ticks (2 slots decoding): {wall * 1e3 / ticks:.1f} ms a "
+        f"tick (profiler on), device busy {busy:.1f} ms a tick = "
+        f"{busy / (wall * 1e3 / ticks):.1%}, {kernels:.0f} kernels a tick; the top kernels:")
+    for e in sorted(rows, key=dev_us, reverse=True)[:6]:
+        log(f"    {dev_us(e) / 1e3 / ticks:9.3f} ms a tick  x{e.count // ticks:<5d} {e.key[:80]}")
+    eng.run()
+    del eng
+    gc.collect()
+    return wall * 1e3 / ticks, busy, kernels
+
+
+def leaf_errors(got, want):
+    """Each leaf's max|err| as a share of its max|.|, sorted."""
+    return sorted((err(got[n], want[n]) / max(want[n].abs().max().item(), 1e-30), n)
+                  for n in want)
+
+
+def phase_dense_train(card, arch="starcoder2-3b"):
+    """starcoder2-3b trained at its published width, bf16, remat "dots" as
+    published, 1 x 4096 tokens a step, its depth the most that trains
+    (train_depth), seeded weights drawn on the card: (1) one step's
+    gradients through B1 and its backward against the plain path's, leaf by
+    leaf, within the bf16 gates; (2) a warm-up and DENSE_TRAIN_STEPS timed
+    steps (step ms, tokens/s, peak GiB), B1 launched twice a layer a step
+    (remat runs the forward again) and its backward once, no plain
+    version; (3) two runs of 2 steps from the seed give the same
+    parameters bit for bit (deterministic algorithms on). Returns a row
+    with the launches."""
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    depth = train_depth(full)
+    cfg = full.replace(n_layers=depth)
+    block, rest = param_split(full)
+    log(f"phase 8: {arch} training, bf16, remat {cfg.remat!r}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim} ({cfg.n_kv_heads} kv), 1 x "
+        f"{DENSE_TRAIN_SEQ} tokens a step, {depth} of {full.n_layers} layers (reckoned: "
+        f"{16 * block / 2**30:.2f} GiB a layer at 16 B a parameter + "
+        f"{DENSE_TRAIN_ACT_GIB} GiB of activations, {16 * rest / 2**30:.2f} GiB for the "
+        f"embedding, {DENSE_TRAIN_RESERVE_GIB} GiB reserve, in {DENSE_SHARE:.0%} of "
+        f"{card_gib():.1f} GiB); {card}")
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), 1, DENSE_TRAIN_SEQ, seed=0,
+                      device="cuda")
+    batches = [next(it) for _ in range(DENSE_TRAIN_STEPS + 1)]
+    tcfg = TrainConfig(seq_len=DENSE_TRAIN_SEQ, global_batch=1, steps=100, peak_lr=3e-3)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return build_model(cfg, device="cuda", seed=0, trainable=True,
+                           draw_on_device=True).lm
+
+    lm = fresh()
+    loss_fn = make_loss_fn(cfg)
+
+    def grads():
+        for p in lm.parameters():
+            p.grad = None
+        loss, _ = loss_fn(lm, batches[0])
+        loss.backward()
+        out = {n: p.grad.clone() for n, p in lm.named_parameters() if p.grad is not None}
+        for p in lm.parameters():
+            p.grad = None
+        return out
+
+    got = grads()
+    with plain_ops():
+        want = grads()
+    errs = leaf_errors(got, want)
+    median = float(np.median([e for e, _ in errs]))
+    log(f"  one step's gradients, kernels vs plain ({len(errs)} leaves, rel. to each leaf's "
+        f"max|.|): worst {errs[-1][0]:.3e} ({errs[-1][1]}), median {median:.3e}")
+    check(f"{arch} gradients kernels vs plain, worst leaf", errs[-1][0], BF16_GRAD_TOL)
+    check(f"{arch} gradients kernels vs plain, median leaf", median, BF16_GRAD_MEDIAN)
+    del got, want
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(lm)
+    step = make_train_step(cfg, tcfg)
+    state, _ = step(state, batches[0])            # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    with PlainCalls() as plain:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+    run_counts = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(times)
+    expected = {k: 0 for k in KERNELS}
+    expected["polysketch_causal"] = 2 * depth * n
+    expected["polysketch_causal_backward"] = depth * n
+    step_ms = float(np.median(times)) * 1e3
+    log(f"  losses {[round(x, 4) for x in losses]}; step time median {step_ms:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times]}; {DENSE_TRAIN_SEQ / np.median(times):.0f} "
+        f"tokens/s; peak device memory {peak:.2f} GiB")
+    log(f"  launches over the {n} steps: {run_counts} (expected {expected}); plain-version "
+        f"calls: {plain.calls}")
+    if not all(np.isfinite(losses)) or run_counts != expected or plain.calls:
+        raise AssertionError(f"{arch} training: non-finite loss, or not B1 twice and its "
+                             "backward once a layer a step, or a plain version called")
+    del state, step, lm
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run():
+            lm = fresh()
+            state, step = init_train_state(lm), make_train_step(cfg, tcfg)
+            for batch in batches[:2]:
+                state, _ = step(state, batch)
+            return [p.detach().cpu() for p in lm.parameters()]
+        first = run()
+        second = run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"  (deterministic algorithms on) two runs of 2 steps from seed 0: parameters equal "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{arch} training is not bit-reproducible on the card")
+    del first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": arch, "layers": depth, "published_layers": full.n_layers,
+            "step_ms": round(step_ms, 1),
+            "tokens_s": round(DENSE_TRAIN_SEQ / float(np.median(times))),
+            "peak_gib": round(peak, 2), "grad_worst": errs[-1][0], "grad_median": median,
+            "launches": {k: run_counts[k] for k in ("polysketch_causal",
+                                                    "polysketch_causal_backward")}}
 
 
 # ---------------------------------------------------------------------------
@@ -1668,16 +2133,20 @@ B1_BWD_PASSES = (("prep", "grad_prep"), ("fold", "grad_fold"), ("suffix", "grad_
 B1_BWD_HEAVY = ("grad_query_state", "grad_key_state", "grad_query_diag", "grad_key_diag")
 
 
-def kernel_occupancy(label, rows, logged, heavy=()):
+def kernel_occupancy(label, rows, logged, heavy=(), inst=""):
     """Print each kernel of `rows` (a wrapper's backward_occupancy()): its
     registers a thread and spills (the most over its template instantiations
-    in `logged`, its source's ptxas -v entries from build_kernels), shared
+    in `logged`, its source's ptxas -v entries from build_kernels; only
+    those whose template arguments hold `inst`, where some do), shared
     memory a CTA and CTAs an SM. A kernel in `heavy` is flagged unless it
     holds 8 warps an SM with no spills."""
     log(f"phase 4: {label}")
     for name, row in rows.items():
-        spills = [v for k, v in logged.items() if k.startswith(name)
+        spills = [(k, v) for k, v in logged.items() if k.startswith(name)
                   and k[len(name):len(name) + 1] in ("", "I")]
+        if any(inst in k for k, _ in spills):
+            spills = [(k, v) for k, v in spills if inst in k]
+        spills = [v for _, v in spills]
         spill = max((s["spill_stores"] + s["spill_loads"] for s in spills), default=None)
         flag = ""
         if name in heavy:
@@ -1721,7 +2190,7 @@ def phase_timing_backward(ptxas):
     forward that saves its inputs."""
     kernel_occupancy("B1 backward kernels on the card (local_exact, h 64)",
                      pc.backward_occupancy(local_exact=True, h=64),
-                     ptxas.get("polysketch_causal_bwd", {}), B1_BWD_HEAVY)
+                     ptxas.get("polysketch_causal_bwd", {}), B1_BWD_HEAVY, inst="Li64E")
     log("phase 4: B1 backward time at the training shape (CUDA events, warmed up)")
     xs, dout = train_attention_inputs()
     flat = [x.reshape(24, 4096, -1).contiguous() for x in xs]
@@ -1739,6 +2208,52 @@ def phase_timing_backward(ptxas):
         fn.launches = before[name]
     log(f"  B1 forward at the same shape, saving Z_l and 1 + den: {fwd_ms:.3f} ms")
     return timing
+
+
+def phase_timing_h128(ptxas):
+    """B1's forward and backward at starcoder2-3b's training shape (1 x 24
+    heads, n 4096, r 32, h 128, b 256), bf16 as the model trains and f32:
+    the backward kernels' occupancy at h 128, and each time beside its
+    plain version's and its bound (bytes at the operands' width). Returns
+    {dtype: {"fwd": (ms, plain ms, bound), "bwd": (...)}}."""
+    kernel_occupancy("B1 backward kernels on the card (local_exact, h 128, bf16)",
+                     pc.backward_occupancy(local_exact=True, h=128, dtype=torch.bfloat16),
+                     ptxas.get("polysketch_causal_bwd", {}), B1_BWD_HEAVY, inst="Li128E")
+    log("phase 4: B1 forward and backward at h 128, bh 24 n 4096 r 32 b 256 (starcoder2-3b's "
+        "training shape; CUDA events, warmed up)")
+    before = counts()
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        rnd = seeded(64)
+        bh, n, r, h, b = 24, 4096, 32, 128, 256
+        flat = [rnd(bh, n, r, scale=0.5, dtype=dt), rnd(bh, n, r, scale=0.5, dtype=dt)]
+        flat += [rnd(bh, n, h, dtype=dt) for _ in range(3)]
+        dout = rnd(bh, n, h, dtype=dt)
+        kw = dict(degree=4, scale=1.0 / h, block_size=b)
+        isz = 2 if dt == torch.bfloat16 else 4
+        run = lambda: pc.polysketch_causal_cuda(*flat, return_saved=True, **kw)  # noqa: E731
+        ms = event_ms(run)
+        plain_ms = event_ms(lambda: pc.polysketch_causal_torch(*flat, return_saved=True, **kw),
+                            iters=5, warmup=1)
+        ms2 = event_ms(run)
+        bd = b1_bound(bh, n, r, h, b, 4, itemsize=isz)
+        name = str(dt)[6:]
+        log(f"  B1 forward {name} (saving Z_l and 1 + den): kernel {min(ms, ms2):.3f} ms (runs "
+            f"{ms:.3f}, {ms2:.3f}), plain PyTorch {plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms "
+            f"by {bd.tc_by} ({bd.flops / 1e9:.1f} GFLOP, {bd.nbytes / 1e6:.1f} MB), "
+            f"{bd.tc_ms / min(ms, ms2):.1%} of it; library call: {NO_LIBRARY}")
+        o, _, _, saved = run()
+        bwd = time_backward(
+            f"B1 backward {name} bh=24 n=4096 r=32 h=128 b=256",
+            lambda: pc.polysketch_causal_backward_cuda(dout, *flat, o, saved, **kw),
+            lambda: pc.polysketch_causal_backward_torch(dout, *flat, o, saved, **kw),
+            B1_BWD_PASSES, b1_bwd_bound(bh, n, r, h, b, 4, itemsize=isz), plain_iters=2)
+        out[name] = {"fwd": (min(ms, ms2), plain_ms, bd), "bwd": bwd}
+        del flat, dout, o, saved
+        torch.cuda.empty_cache()
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    return out
 
 
 def b2_bound(bh, n, h, degree, itemsize=4):
@@ -1972,7 +2487,7 @@ def build_kernels():
     for name, built in libs.items():
         kernel = "?"
         for line in built.log.splitlines():
-            entry = re.search(r"\d([a-z_]+_kernel|grad_[a-z_]+)(I\w*?E)?\w*' for", line)
+            entry = re.search(r"\d([a-z_]+_kernel|grad_[a-z_]+)(I\w*?EE)?\w*' for", line)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if entry:
                 kernel = entry.group(1) + (entry.group(2) or "")
@@ -2005,7 +2520,9 @@ def main(argv=None):
     b2_err = phase_poly_flash_grid()
     b2_bwd_err = phase_b2_backward_grid()
     long_errs = phase_long_kernels()
-    max_err = max(max_err, long_errs["polysketch_causal"])
+    h128_errs = phase_b1_h128_grid(card)
+    max_err = max(max_err, long_errs["polysketch_causal"], h128_errs["float32"][0])
+    bwd_err = max(bwd_err, h128_errs["float32"][1])
     bwd_err = max(bwd_err, long_errs["polysketch_causal_backward"])
     b2_err = max(b2_err, long_errs["poly_flash"])
     b2_bwd_err = max(b2_bwd_err, long_errs["poly_flash_backward"])
@@ -2068,6 +2585,16 @@ def main(argv=None):
             long_launches[k] += v
     log(f"phase 6: {time.perf_counter() - t6:.1f} s for the three models")
     log(json.dumps({"long_context": long_rows}))
+    h128_times = phase_timing_h128(ptxas)
+    dense_rows = [phase_dense_serve(arch, card, profile=arch == "starcoder2-3b")
+                  for arch in DENSE_ARCHS]
+    dense_train = phase_dense_train(card)
+    log(json.dumps({"dense_serve": dense_rows, "dense_train": dense_train}))
+    dense_launches = {
+        "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
+                              "train": dense_train["launches"]["polysketch_causal"]},
+        "polysketch_causal_backward": {
+            "serve": 0, "train": dense_train["launches"]["polysketch_causal_backward"]}}
 
     engine_launches = {"polysketch_causal": b1_engine, "poly_flash": b2_engine}
 
@@ -2080,6 +2607,15 @@ def main(argv=None):
                "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
                "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
                "library_ms": None}
+        if name in dense_launches:   # this slice's paths: the dense models at h 128, bf16
+            key = "fwd" if name == "polysketch_causal" else "bwd"
+            h_ms, h_plain, h_bd = h128_times["bfloat16"][key]
+            out["h128_bf16"] = {"shape": "bh 24, n 4096, r 32, h 128, b 256", "ms": h_ms,
+                                "plain_ms": h_plain, "bound_ms": h_bd.tc_ms,
+                                "bound_by": h_bd.tc_by,
+                                "launches": dense_launches[name],
+                                "max_abs_err_bf16": h128_errs["bfloat16"][
+                                    0 if name == "polysketch_causal" else 1]}
         if name in long_times:
             l_ms, l_plain, l_bd = long_times[name]
             out["long_context"] = {"shape": f"bh 12, n {LONG_TOKENS}", "ms": l_ms,

@@ -1,10 +1,16 @@
 """Config registry of the port: --arch <id> resolves here.
 
-Only the configurations the port serves are registered.
+Only the configurations the port serves are registered: the paper's
+model and the registry's dense polysketch models (GLU FFN, head width 128,
+bf16 at full width).
 """
 from repro_torch.configs.base import ArchConfig, TrainConfig
 
 _MODULES = {
+    "qwen3-14b": "qwen3_14b",
+    "yi-34b": "yi_34b",
+    "starcoder2-3b": "starcoder2_3b",
+    "deepseek-7b": "deepseek_7b",
     "gpt2s-polysketch": "gpt2_paper",
 }
 

@@ -38,7 +38,7 @@ class ArchConfig:
     learned_sketch: bool = True
     local_exact: bool = True
     lt_block_size: int = 256
-    qk_norm: bool = False          # per-head RMS q/k-norm (not ported)
+    qk_norm: bool = False          # per-head RMS q/k-norm over head_dim, before RoPE
     use_rope: bool = True
     rope_theta: float = 10000.0
 

@@ -34,7 +34,7 @@
 // work.
 //
 // What the design does about latency. Each product's three mma go to one
-// accumulator, so every helper issues them in three passes over 8 (or 9)
+// accumulator, so every helper issues them in three passes over 4 to 8
 // independent accumulators. A tile whose keys all lie below the diagonal
 // takes a straight-line path whose loops have compile-time trip counts
 // and no guards (kFull), so the compiler interleaves the shared-memory
@@ -153,10 +153,9 @@ __device__ __forceinline__ void pow_frag(float (&y)[kN][4], float (&x)[kN][4], i
 // The backwards' row preparation (B1's grad_prep, B2's prep kernel), one
 // warp a row of a grid of kWarps-warp blocks: with D = 1 + den of the
 // row, dNum = dO / D and dDen = -(dO . out) / D, the dot product summed
-// in a fixed order.
-template <int kWarps>
-__device__ __forceinline__ void prep_row(const float* __restrict__ dout,
-                                         const float* __restrict__ out,
+// in a fixed order; dO and out in T (f32 or bf16), the rest f32.
+template <int kWarps, typename T>
+__device__ __forceinline__ void prep_row(const T* __restrict__ dout, const T* __restrict__ out,
                                          const float* __restrict__ den, float* __restrict__ dnum,
                                          float* __restrict__ dden, int rows, int h) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -165,8 +164,8 @@ __device__ __forceinline__ void prep_row(const float* __restrict__ dout,
   const size_t base = (size_t)row * h;
   float dot = 0.f;
   for (int d = lane; d < h; d += 32) {
-    const float go = dout[base + d];
-    dot += go * out[base + d];
+    const float go = to_f32(dout[base + d]);
+    dot += go * to_f32(out[base + d]);
     dnum[base + d] = go * inv;
   }
 #pragma unroll
@@ -346,20 +345,41 @@ constexpr int kTcTile = 16 * kTcWarps;   // query rows of a CTA, keys of a tile
 constexpr int kKeyTile = 64;
 
 // acc[nd] += a * B for the n-tiles nd < count, B's fragment of n-tile nd
-// being (p[8 nd], p[step + 8 nd]): mma_3xtf32 over groups of 8 n-tiles (one
-// group of 9 when kNT is 9, so that no n-tile is left to a group alone).
+// being (p[8 nd], p[step + 8 nd]): mma_3xtf32 over groups of 4 n-tiles
+// (and one of the 1 to 3 left, if any), each group into a fresh
+// accumulator that is then added to acc with f32 adds. The tensor cores
+// add a product into their accumulator with truncation, so a running sum
+// kept there in place loses a little at every k-step, toward zero, and the
+// more the longer the sum: the flash loop's W V over 512 key tiles at n
+// 32768 drifted 5.4e-5 of B2's gradients' max through the output the
+// backward reads. A fresh accumulator truncates only within one 8-wide
+// k-step, and acc's adds round to nearest, in a fixed order.
 template <int kNT>
 __device__ __forceinline__ void mma_3xtf32_cols(float (&acc)[kNT][4], const FragA& a,
                                                 const float* p, int step, int count) {
-  constexpr int kG = kNT <= 9 ? kNT : 8;
+  constexpr int kG = 4;
 #pragma unroll
   for (int g0 = 0; g0 < kNT; g0 += kG) {
+    if (g0 >= count) break;
+    const int m = min(min(kG, kNT - g0), count - g0);
     FragB b[kG];
+    float part[kG][4];
 #pragma unroll
     for (int i = 0; i < kG; ++i) {
-      if (g0 + i < kNT && g0 + i < count) b[i] = split_b(p[8 * (g0 + i)], p[step + 8 * (g0 + i)]);
+      if (i < m) {
+        b[i] = split_b(p[8 * (g0 + i)], p[step + 8 * (g0 + i)]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][c] = 0.f;
+      }
     }
-    mma_3xtf32(acc, g0, a, b, count - g0);
+    mma_3xtf32(part, 0, a, b, m);
+#pragma unroll
+    for (int i = 0; i < kG; ++i) {
+      if (i < m) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g0 + i][c] += part[i][c];
+      }
+    }
   }
 }
 

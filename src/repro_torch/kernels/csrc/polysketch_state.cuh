@@ -27,12 +27,22 @@ constexpr int kFoldKeys = 64;                // rows per staged chunk
 
 // One staged chunk of the fold for the calling warp: acc[mt][nt] +=
 // X_chunk^T U_chunk over the chunk's first `rows` rows (all kFoldKeys when
-// kFull: no guard, so the k-steps are one straight line).
+// kFull: no guard, so the k-steps are one straight line). The chunk's
+// products go into a fresh accumulator, added to acc in f32: the tensor
+// cores' adds truncate, and a sum kept in place over a block's 1024 keys
+// would lose a little at every k-step (as common.cuh's mma_3xtf32_cols).
 template <int kMT, bool kFull>
-__device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float* kd, int kms,
+__device__ __forceinline__ void fold_chunk(float (&sum)[kMT][4][4], const float* kd, int kms,
                                            const float* vd, int vs, const int (&cj)[4],
                                            const int (&dj)[4], int rows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  float acc[kMT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
 #pragma unroll
   for (int s0 = 0; s0 < kFoldKeys; s0 += 8) {
     if (!kFull && s0 >= rows) break;
@@ -64,6 +74,12 @@ __device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float*
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], a[mt].hi, bf[nt].hi);
   }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[mt][nt][c] += acc[mt][nt][c];
 }
 
 // Pass 1: H_l as one product. Column col of the output is c*h + d for the
@@ -74,9 +90,11 @@ __device__ __forceinline__ void fold_chunk(float (&acc)[kMT][4][4], const float*
 // grid (ceil((r*h + r) / 256), t, bh). Warp w owns 32 columns and all r
 // rows (kMT m-tiles of 16: 2 for r <= 32, 4 for r <= 64). A = X^T from
 // the staged x chunk, B = x (x) [Y | y] formed in registers from the
-// staged chunks, both split in registers.
-template <typename T, int kMT>
-__device__ __forceinline__ void fold_block(const T* __restrict__ km, const T* __restrict__ v,
+// staged chunks, both split in registers. X and Y may differ in type (the
+// backward's qm in the operands' type, dNum in f32); bf16 is converted to
+// f32 as it is staged.
+template <typename T, typename U, int kMT>
+__device__ __forceinline__ void fold_block(const T* __restrict__ km, const U* __restrict__ v,
                                            const float* __restrict__ last,
                                            float* __restrict__ hv, float* __restrict__ hd,
                                            int n, int r, int h, int b) {
@@ -167,7 +185,7 @@ template <typename T, int kMT>
 __global__ void __launch_bounds__(kFoldThreads)
 fold_kernel(const T* __restrict__ km, const T* __restrict__ v, const float* __restrict__ last,
             float* __restrict__ hv, float* __restrict__ hd, int n, int r, int h, int b) {
-  fold_block<T, kMT>(km, v, last, hv, hd, n, r, h, b);
+  fold_block<T, T, kMT>(km, v, last, hv, hd, n, r, h, b);
 }
 
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }

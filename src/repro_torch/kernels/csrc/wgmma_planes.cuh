@@ -8,7 +8,8 @@
 // - split planes: an operand staged once into shared memory as its TF32
 //   high and low halves, in wgmma's K-major layout (Plane, plane_desc,
 //   perm8), the chunk copy and split helpers that fill them, and wg_pair,
-//   two 3xTF32 products at once with B read from the planes.
+//   two 3xTF32 products at once with B read from the planes (n up to 128,
+//   A from registers or read a k-step ahead).
 #pragma once
 
 #include "common.cuh"
@@ -237,8 +238,18 @@ __device__ __forceinline__ void copy_chunk(float* dst, const float* src, int chu
   }
 }
 
+// The same from a bf16 row, converted to f32 through registers: in place
+// once this thread's loads have returned, which its own later reads of the
+// chunk (the split) wait for; the copy is not part of a cp.async group.
+__device__ __forceinline__ void copy_chunk(float* dst, const __nv_bfloat16* src, int chunk,
+                                           int width, bool) {
+  const int c0 = 4 * chunk;
+  for (int i = 0; i < 4 && c0 + i < width; ++i) dst[c0 + i] = __bfloat162float(src[c0 + i]);
+}
+
 // 16-byte copies are possible when every row starts 16-byte aligned.
-__device__ __forceinline__ bool vec_ok(const float* src, int width) {
+template <typename T>
+__device__ __forceinline__ bool vec_ok(const T* src, int width) {
   return (width & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
 }
 
@@ -287,51 +298,86 @@ __device__ __forceinline__ void put_t(float* hi, float* lo, int row, int c0, flo
   put1(hi, lo, PT::off(c0 + 3, col), x.w);
 }
 
+// d += A B^T as wg_mma, for n up to 128: at 16 n-tiles, two n64 products,
+// the second reading B's rows 64 .. 127, eight 8-row groups of plane P
+// further on.
+template <class P, int kN>
+__device__ __forceinline__ void wg_mma_p(float (&d)[kN][4], const uint32_t (&a)[4],
+                                         uint64_t desc, bool acc = true) {
+  if constexpr (kN == 16) {
+    wgmma_n64(*reinterpret_cast<float(*)[8][4]>(&d[0]), a, desc, acc);
+    wgmma_n64(*reinterpret_cast<float(*)[8][4]>(&d[8]), a, desc + (uint64_t)(2 * P::kGS), acc);
+  } else {
+    wg_mma(d, a, desc, acc);
+  }
+}
+
+// A operand fragments (16 x 8, mma.sync's A layout) of k-step kk, from an
+// array held in registers or from an object that reads them (OwnRows in
+// polysketch_causal_bwd.cu).
+struct Frag4 {
+  float x[4];
+};
+template <int kK>
+__device__ __forceinline__ Frag4 frag_of(const float (&a)[kK][4], int kk) {
+  return Frag4{{a[kk][0], a[kk][1], a[kk][2], a[kk][3]}};
+}
+template <class F>
+__device__ __forceinline__ Frag4 frag_of(const F& f, int kk) {
+  return f(kk);
+}
+
 // Two products at once for the warpgroup: acc1 += A1 B1^T and acc2 += A2
 // B2^T, the three products of each k-step wgmma over all n-tiles, B read
 // from the planes by descriptor, the two products' wgmma alternating. A
-// operands are split per k-step. kAcc: A is a 16 x 8 kKS block of scores
-// in accumulator layout, taken as the A operand in place (k index t stands
-// for column 2t of each 8, t + 4 for 2t + 1), which B's transposed plane
-// matches by its permuted columns (perm8). kKS2 may be 0. With fresh,
-// acc1 = A1 B1^T and acc2 = A2 B2^T (their old values are not read). Each
-// k-step is a group of its own, and the one before it is waited for: a
-// group's A registers stay allocated until it completes, so no more than
-// two k-steps' fragments are live. The caller commits and waits for the
-// last.
+// operands are split per k-step; each is an array of fragments or an
+// object that reads them (frag_of), read one k-step ahead of its use so
+// that a read from memory runs under the k-step before. kAcc: A is a 16 x 8
+// kKS block of scores in accumulator layout, taken as the A operand in
+// place (k index t stands for column 2t of each 8, t + 4 for 2t + 1),
+// which B's transposed plane matches by its permuted columns (perm8). kKS2
+// may be 0. With fresh, acc1 = A1 B1^T and acc2 = A2 B2^T (their old values
+// are not read). Each k-step is a group of its own, and the one before it
+// is waited for: a group's A registers stay allocated until it completes,
+// so no more than two k-steps' fragments are live. The caller commits and
+// waits for the last.
 template <bool kAcc>
 __device__ __forceinline__ FragA split_frag(const float (&x)[4]) {
   return kAcc ? split_a(x[0], x[2], x[1], x[3]) : split_a(x[0], x[1], x[2], x[3]);
 }
 
-template <bool kAcc, int kN1, int kKS1, class P1, int kN2, int kKS2, class P2, class A2>
-__device__ __forceinline__ void wg_pair(float (&acc1)[kN1][4], const float (&a1)[kKS1][4],
-                                        const float* hi1, const float* lo1,
-                                        float (&acc2)[kN2][4], const A2& a2, const float* hi2,
-                                        const float* lo2, bool fresh = false) {
+template <bool kAcc, int kN1, int kKS1, class P1, int kN2, int kKS2, class P2, class A1,
+          class A2>
+__device__ __forceinline__ void wg_pair(float (&acc1)[kN1][4], const A1& a1, const float* hi1,
+                                        const float* lo1, float (&acc2)[kN2][4], const A2& a2,
+                                        const float* hi2, const float* lo2, bool fresh = false) {
   constexpr int kKS = kKS1 > kKS2 ? kKS1 : kKS2;
+  Frag4 n1 = frag_of(a1, 0), n2 = {};
+  if (kKS2 > 0) n2 = frag_of(a2, 0);
 #pragma unroll
   for (int kk = 0; kk < kKS; ++kk) {
     FragA f1, f2;
     uint64_t h1 = 0, l1 = 0, h2 = 0, l2 = 0;
     if (kk < kKS1) {
-      f1 = split_frag<kAcc>(a1[kk]);
+      f1 = split_frag<kAcc>(n1.x);
       h1 = plane_desc<P1>(hi1 + 2 * kk * P1::kCS);
       l1 = plane_desc<P1>(lo1 + 2 * kk * P1::kCS);
     }
     if (kk < kKS2) {
-      f2 = split_frag<kAcc>(a2[kk]);
+      f2 = split_frag<kAcc>(n2.x);
       h2 = plane_desc<P2>(hi2 + 2 * kk * P2::kCS);
       l2 = plane_desc<P2>(lo2 + 2 * kk * P2::kCS);
     }
+    if (kk + 1 < kKS1) n1 = frag_of(a1, kk + 1);
+    if (kk + 1 < kKS2) n2 = frag_of(a2, kk + 1);
     const bool acc = !fresh || kk > 0;
     wg_fence();
-    if (kk < kKS1) wg_mma(acc1, f1.lo, h1, acc);
-    if (kk < kKS2) wg_mma(acc2, f2.lo, h2, acc);
-    if (kk < kKS1) wg_mma(acc1, f1.hi, l1);
-    if (kk < kKS2) wg_mma(acc2, f2.hi, l2);
-    if (kk < kKS1) wg_mma(acc1, f1.hi, h1);
-    if (kk < kKS2) wg_mma(acc2, f2.hi, h2);
+    if (kk < kKS1) wg_mma_p<P1>(acc1, f1.lo, h1, acc);
+    if (kk < kKS2) wg_mma_p<P2>(acc2, f2.lo, h2, acc);
+    if (kk < kKS1) wg_mma_p<P1>(acc1, f1.hi, l1);
+    if (kk < kKS2) wg_mma_p<P2>(acc2, f2.hi, l2);
+    if (kk < kKS1) wg_mma_p<P1>(acc1, f1.hi, h1);
+    if (kk < kKS2) wg_mma_p<P2>(acc2, f2.hi, h2);
     wg_commit();
     wg_wait1();
   }

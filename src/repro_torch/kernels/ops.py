@@ -10,7 +10,7 @@ can be held against it on the card.
 
 Gradients: with grad on, ``polysketch_attention`` runs through
 ``polysketch_causal_autograd`` (B1's forward and its backward kernel, or
-both plain versions), and causal ``poly_attention`` through
+both plain versions; float32 or bfloat16), and causal ``poly_attention`` through
 ``poly_flash_autograd`` (B2's forward and its backward kernel, or both
 plain versions; float32 only, and non-causal raises). B3 has no backward
 yet: ``lt_mult`` raises when a CUDA input requires grad, rather than
@@ -89,9 +89,9 @@ def polysketch_attention(qm, km, q, k, v, *, degree: int, scale: float,
     partial block included (padded keys add exact zeros).
     impl: None picks by device (the CUDA kernel for CUDA tensors, the
     plain PyTorch version on the CPU); "torch" asks for the plain version.
-    With grad on, the gradient reaches qm, km, q, k, v and z0 (float32;
-    the CUDA backward takes r <= 32, h <= 64); none flows back through the
-    returned state.
+    With grad on, the gradient reaches qm, km, q, k, v and z0 (float32 or
+    bfloat16; the CUDA backward takes r <= 32, h <= 128); none flows back
+    through the returned state. The CUDA forward takes r <= 64, h <= 128.
     """
     fn = _pick(impl, q, polysketch_causal_cuda, polysketch_causal_torch)
     grad = _wants_grad(qm, km, q, k, v, z0)

@@ -54,10 +54,11 @@ def poly_flash_torch(q, k, v, *, degree: int, scale: float,
 
     f32 accumulators; out = num / (1 + den), as the kernel computes it.
     With return_den, returns (out, D) with D = 1 + den (bh, n) float32,
-    what the backward reads.
+    what the backward reads. float64 inputs are computed in float64: the
+    reference the f32 paths' errors are measured against.
     """
     _, n, t, _ = _check_shapes(q, k, v, causal)
-    f32 = torch.float32
+    f32 = torch.float64 if q.dtype == torch.float64 else torch.float32
     kf, vf = k.to(f32), v.to(f32)
     outs, dens = [], []
     for q0 in range(0, n, block_q):
@@ -79,7 +80,8 @@ def poly_flash_torch(q, k, v, *, degree: int, scale: float,
 def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
                               scale: float, block_q: int = 256):
     """Gradients (dq, dk, dv) of causal poly_flash_torch (n == t), from its
-    output and D = 1 + den (return_den), float32, one query block at a time.
+    output and D = 1 + den (return_den), float32 (or float64 throughout, as
+    a reference), one query block at a time.
 
     With Delta_i = <do_i, out_i>, s_ij = <q_i, k_j> scale, w_ij = s_ij^p,
     dW_ij = (<do_i, v_j> - Delta_i) / D_i and dS_ij = dW_ij p s_ij^(p-1):
@@ -87,9 +89,10 @@ def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
       dq_i = scale sum_{j<=i} dS_ij k_j,   dk_j = scale sum_{i>=j} dS_ij q_i.
     """
     bh, n, _, _ = _check_shapes(q, k, v, True)
-    f32 = torch.float32
+    f32 = torch.float64 if q.dtype == torch.float64 else torch.float32
     if any(x.dtype != f32 for x in (dout, q, k, v, out, den)):
-        raise TypeError("the backward takes float32 only")
+        raise TypeError("the backward takes float32 only (or float64 "
+                        "throughout, as a reference)")
     if dout.shape != q.shape or out.shape != q.shape or den.shape != (bh, n):
         raise ValueError(f"shape mismatch: dout {tuple(dout.shape)} out "
                          f"{tuple(out.shape)} den {tuple(den.shape)}")

@@ -51,6 +51,9 @@ def factored_to_z(zv, zd):
     return zf.reshape(*lead, r * r, h + 1)
 
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
 def _check_block(n, block_size):
     blk = min(block_size, n)
     if n % blk:
@@ -71,12 +74,14 @@ def polysketch_causal_torch(qm, km, q, k, v, zv0=None, zd0=None, *,
     With return_saved, returns (out, zv, zd, saved) where saved = (hv
     (bh, t, r, r*h), hd (bh, t, r, r), den1 (bh, n)): the exclusive prefix
     state each block read and 1 + den of each row, what the backward needs.
-    The arithmetic of the Pallas kernel's body, one block at a time.
+    The arithmetic of the Pallas kernel's body, one block at a time, in
+    f32 (float64 for float64 inputs: the reference the f32 paths' errors
+    are measured against).
     """
     bh, n, r = qm.shape
     h = v.shape[-1]
     blk = _check_block(n, block_size)
-    f32 = torch.float32
+    f32 = torch.float64 if v.dtype == torch.float64 else torch.float32
     dev = qm.device
     zv = (torch.zeros(bh, r, r * h, dtype=f32, device=dev) if zv0 is None
           else zv0.to(f32))
@@ -123,7 +128,11 @@ def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
     """Gradients of polysketch_causal_torch's output, in the kernel's three
     passes, from what the forward saved (float32).
 
-    dout, out: (bh, n, h); saved = (hv, hd, den1) from return_saved.
+    dout, out: (bh, n, h); saved = (hv, hd, den1) from return_saved, float32.
+    The operands are float32 or bfloat16, one type; bfloat16 ones are
+    taken to float32, as the kernel stages them, the arithmetic is float32,
+    and the gradients are returned in the operands' type (dzv0, dzd0 in
+    float32).
     Returns (dqm, dkm, dq, dk, dv, dzv0, dzd0); dq and dk are zero without
     local_exact (q and k are not read then).
 
@@ -134,13 +143,27 @@ def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
               local_exact); dqm = (M + M^T) qm with M = Z_l g; dkm =
               (N + N^T) km with N = dH_l [v | 1]; dv += Phi(km) dHv_l.
     """
+    dt = qm.dtype
+    if dt not in _DTYPES or any(x.dtype != dt for x in (dout, km, q, k, v, out)):
+        raise TypeError("the backward takes float32 or bfloat16 operands of "
+                        f"one type, got {[x.dtype for x in (dout, qm, km, q, k, v, out)]}")
+    if any(x.dtype != torch.float32 for x in saved):
+        raise TypeError("the forward's saved state and 1 + den are float32")
+    dout, qm, km, q, k, v, out = (x.to(torch.float32)
+                                  for x in (dout, qm, km, q, k, v, out))
+    grads = _backward_f32(dout, qm, km, q, k, v, out, saved, degree=degree,
+                          scale=scale, local_exact=local_exact,
+                          block_size=block_size)
+    return tuple(g.to(dt) for g in grads[:5]) + grads[5:]
+
+
+def _backward_f32(dout, qm, km, q, k, v, out, saved, *, degree, scale,
+                  local_exact, block_size):
     bh, n, r = qm.shape
     h = v.shape[-1]
     blk = _check_block(n, block_size)
     t = n // blk
     f32 = torch.float32
-    if any(x.dtype != f32 for x in (dout, qm, km, q, k, v, out)):
-        raise TypeError("the backward takes float32 only")
     hv, hd, den1 = saved
     z = factored_to_z(hv, hd)                                # (bh, t, r*r, h+1)
     inv = 1.0 / den1
@@ -200,9 +223,6 @@ def polysketch_causal_backward_torch(dout, qm, km, q, k, v, out, saved, *,
     else:
         dq, dk = torch.zeros_like(q), torch.zeros_like(k)
     return cat(dqm), cat(dkm), dq, dk, cat(dv), dzv0, dzd0
-
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib():
@@ -295,12 +315,12 @@ def _bwd_lib():
     fn = lib.polysketch_causal_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 21 + [i] * 6 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 24 + [i] * 6 + [ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-BWD_MAX_R, BWD_MAX_H = 32, 64   # the backward kernel's widths (csrc/polysketch_causal_bwd.cu)
+BWD_MAX_R, BWD_MAX_H = 32, 128   # the backward kernel's widths (csrc/polysketch_causal_bwd.cu)
 
 
 def check_backward_shapes(r: int, h: int):
@@ -316,7 +336,8 @@ def polysketch_causal_backward_cuda(dout, qm, km, q, k, v, out, saved, *,
                                     block_size: int = 256):
     """The CUDA backward; same contract as polysketch_causal_backward_torch.
 
-    Takes contiguous float32 CUDA tensors with r <= 32 and h <= 64; raises
+    Takes contiguous CUDA tensors, the operands all float32 or all
+    bfloat16 (the saved state float32), with r <= 32 and h <= 128; raises
     on anything else. Launches on the current stream and does not
     synchronise.
     """
@@ -328,9 +349,12 @@ def polysketch_causal_backward_cuda(dout, qm, km, q, k, v, out, saved, *,
                          f"got {dev}")
     if any(x.device != dev for x in xs):
         raise ValueError("all inputs must be on one device")
-    if any(x.dtype != torch.float32 for x in xs):
-        raise TypeError("the backward takes float32 only (bf16 training is "
-                        f"not ported), got {[x.dtype for x in xs]}")
+    dt = qm.dtype
+    if dt not in _DTYPES or any(x.dtype != dt for x in xs[:7]) \
+            or any(x.dtype != torch.float32 for x in xs[7:]):
+        raise TypeError("the backward takes float32 or bfloat16 operands of "
+                        "one type and the float32 saved state, got "
+                        f"{[x.dtype for x in xs]}")
     bh, n, r = qm.shape
     h = v.shape[-1]
     check_backward_shapes(r, h)
@@ -356,16 +380,26 @@ def polysketch_causal_backward_cuda(dout, qm, km, q, k, v, out, saved, *,
     dq, dk, dv = make(q), make(k), torch.empty_like(v)
     dzv0 = torch.empty(bh, r, r * h, dtype=f32, device=dev)
     dzd0 = torch.empty(bh, r, r, dtype=f32, device=dev)
+    # the f32 sums of the outputs two kernels add to: the outputs
+    # themselves in float32
+    part = (lambda x: x) if dt == f32 else (
+        lambda x: torch.empty(x.shape, dtype=f32, device=dev))
+    dv_part = part(dv)
+    dqm_part, dkm_part = (None, None) if local_exact else (part(dqm), part(dkm))
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (qm, km, q, k, v, out, dout, den1, hv, hd, dnum,
-                                   dden, dhv, dhd, dqm, dkm, dq, dk, dv, dzv0,
-                                   dzd0)]
+                                   dden, dhv, dhd, dqm, dkm, dq, dk, dv)]
+    ptrs += [None if x is None else x.data_ptr()
+             for x in (dqm_part, dkm_part, dv_part)]
+    ptrs += [dzv0.data_ptr(), dzd0.data_ptr()]
     with torch.cuda.device(dev):
         err = _bwd_lib().polysketch_causal_backward(
-            *ptrs, bh, n, r, h, blk, degree, scale, int(local_exact), stream)
+            *ptrs, bh, n, r, h, blk, degree, scale, int(local_exact),
+            _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"polysketch_causal_backward failed: CUDA error "
-                           f"{err} (bh={bh}, n={n}, r={r}, h={h}, b={blk})")
+                           f"{err} (bh={bh}, n={n}, r={r}, h={h}, b={blk}, "
+                           f"{dt})")
     polysketch_causal_backward_cuda.launches += 1
     return dqm, dkm, dq, dk, dv, dzv0, dzd0
 
@@ -377,13 +411,15 @@ BWD_KERNELS = ("grad_prep", "grad_fold", "grad_suffix", "grad_query_state",
                "grad_key_state", "grad_query_diag", "grad_key_diag")
 
 
-def backward_occupancy(local_exact: bool = True, h: int = BWD_MAX_H) -> dict:
-    """What each backward kernel holds on the current card at head width h:
-    {name: {"registers", "local_bytes", "smem_bytes", "threads",
-    "ctas_per_sm", "warps_per_sm"}} (cudaFuncGetAttributes and
+def backward_occupancy(local_exact: bool = True, h: int = 64,
+                       dtype=torch.float32) -> dict:
+    """What each backward kernel holds on the current card at head width h
+    (its 64 or its 128 instantiation) for operands of `dtype`: {name:
+    {"registers", "local_bytes", "smem_bytes", "threads", "ctas_per_sm",
+    "warps_per_sm"}} (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor). Needs a CUDA card."""
     return build.occupancy(_bwd_lib().polysketch_causal_backward_occupancy,
-                           BWD_KERNELS, int(local_exact), h)
+                           BWD_KERNELS, int(local_exact), h, _DTYPES[dtype])
 
 
 class _PolysketchCausal(torch.autograd.Function):
@@ -420,10 +456,8 @@ def polysketch_causal_autograd(qm, km, q, k, v, zv0, zd0, *, fwd, bwd,
                                block_size: int = 256):
     """(out, zv, zd) of `fwd` (polysketch_causal_cuda or _torch) with a
     gradient from `bwd` (polysketch_causal_backward_cuda or _torch) to qm,
-    km, q, k, v and, when given, zv0 and zd0. float32 only."""
-    if any(x.dtype != torch.float32 for x in (qm, km, q, k, v)):
-        raise TypeError("polysketch attention trains in float32 only (bf16 "
-                        "training is not ported)")
+    km, q, k, v and, when given, zv0 and zd0. float32 or bfloat16 (the
+    state and its gradient float32)."""
     if bwd is polysketch_causal_backward_cuda:
         check_backward_shapes(qm.shape[-1], v.shape[-1])
     kw = dict(degree=degree, scale=scale, local_exact=local_exact,

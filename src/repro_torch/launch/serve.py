@@ -21,6 +21,15 @@ request i samples with seed --seed + i):
         --temperature 0.8 --top-k 40 --top-p 0.95 --seed-per-request
 
 Overlapped chunked admission: --overlap --prefill-budget 64.
+
+The registry's dense polysketch models (head width 128, bf16):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --smoke \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --draw-on-device --prompt-len 4096 --gen 16 --slots 2 --requests 4
+
+(`--layers N` cuts the depth, as yi-34b needs on one 80 GB card.)
 """
 from __future__ import annotations
 
@@ -105,9 +114,16 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     _reject_unported(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="gpt2s-polysketch")
+    ap.add_argument("--arch", default="gpt2s-polysketch",
+                    help="a registered config: gpt2s-polysketch, deepseek-7b, "
+                         "starcoder2-3b, qwen3-14b, yi-34b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (for the CPU)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0 = the config's)")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the seeded weights on the device (seconds for "
+                         "billions of weights; other values than the CPU draw)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -147,8 +163,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     overrides = {"lt_block_size": args.block_size} if args.block_size else {}
+    if args.layers:
+        overrides["n_layers"] = args.layers
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
-    model = build_model(cfg, device=args.device, seed=args.seed)
+    model = build_model(cfg, device=args.device, seed=args.seed,
+                        draw_on_device=args.draw_on_device)
     engine = ServeEngine(model, slots=args.slots,
                          max_len=args.prompt_len + args.gen,
                          logprobs=args.logprobs,

@@ -16,7 +16,15 @@ card:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2s-polysketch \
         --seq 32768 --batch 1 --set remat=full --steps 3
 
-It logs the device's peak memory at the end.
+It logs the device's peak memory at the end. The registry's dense
+polysketch models train in bf16 (head width 128), e.g. starcoder2-3b cut
+to the depth one 80 GB card holds (`--draw-on-device` draws the seeded
+weights there):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+        --draw-on-device --set n_layers=16 --batch 1 --seq 4096 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b --smoke \
+        --device cpu --steps 4 --batch 2 --seq 64
 """
 from __future__ import annotations
 
@@ -38,8 +46,13 @@ log = logging.getLogger("repro_torch.train")
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="gpt2s-polysketch")
+    ap.add_argument("--arch", default="gpt2s-polysketch",
+                    help="a registered config: gpt2s-polysketch, deepseek-7b, "
+                         "starcoder2-3b, qwen3-14b, yi-34b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the seeded weights on the device (seconds for "
+                         "billions of weights; other values than the CPU draw)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -63,7 +76,7 @@ def main(argv=None):
         overrides[k] = type(getattr(base, k))(v) if hasattr(base, k) else v
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
     model = build_model(cfg, device=args.device, seed=args.seed,
-                        trainable=True)
+                        trainable=True, draw_on_device=args.draw_on_device)
     dev = model.device
     tcfg = TrainConfig(seq_len=args.seq, global_batch=args.batch,
                        steps=args.steps, peak_lr=args.lr,

@@ -5,9 +5,10 @@ knob ``cfg.attention``: "polysketch", "polynomial" (exact, quadratic) or
 Port of those three branches of the JAX package's ``models/attention.py``
 (``attention_init``, ``_project``, ``_poly_ln``, ``_out``,
 ``attention_apply``, ``_fill_kv``). Parameter names and layouts are the
-reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), for the two
-polynomial mechanisms the q/k LayerNorm's pln_*, and for polysketch only
-the learned sketch.
+reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), with
+``cfg.qk_norm`` the per-head q/k RMS norms' q_norm and k_norm (h,), for
+the two polynomial mechanisms the q/k LayerNorm's pln_*, and for
+polysketch only the learned sketch.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.core import decode as dec
 from repro_torch.core.poly_attention import qk_layernorm, softmax_attention_full
 from repro_torch.core.sketches import init_sketch, sketch_half
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rope
+from repro_torch.models.layers import dense_init, rms, rope
 from repro_torch.utils import const_param, normal_param
 
 
@@ -34,8 +35,6 @@ class Attention(nn.Module):
             raise NotImplementedError(
                 f"the port serves {', '.join(MECHANISMS)} attention, "
                 f"got {cfg.attention!r}")
-        if cfg.qk_norm:
-            raise NotImplementedError("qk_norm is not ported")
         self.cfg = cfg
         d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         hd = cfg.resolved_head_dim
@@ -44,6 +43,9 @@ class Attention(nn.Module):
         self.wk = dense_init(d, (hkv, hd), **kw)
         self.wv = dense_init(d, (hkv, hd), **kw)
         self.wo = normal_param((hq, hd, d), 1.0 / math.sqrt(hq * hd), **kw)
+        if cfg.qk_norm:   # per-head RMS norms of q and k (qwen3)
+            self.q_norm = const_param((hd,), 1.0, device=device)
+            self.k_norm = const_param((hd,), 1.0, device=device)
         if cfg.attention != "softmax":
             # Paper S2.1: LayerNorm on q/k before the polynomial.
             self.pln_q_scale = const_param((hd,), 1.0, device=device)
@@ -55,7 +57,8 @@ class Attention(nn.Module):
                                       cfg.learned_sketch, **kw)
 
     def _project(self, x, positions):
-        """x: (B, S, D) -> q (B,Hq,S,h), k,v (B,Hkv,S,h) with RoPE applied."""
+        """x: (B, S, D) -> q (B,Hq,S,h), k,v (B,Hkv,S,h): q/k RMS-normed per
+        head when cfg.qk_norm, then RoPE applied."""
         dt = x.dtype
         bsz, s, d = x.shape
 
@@ -64,6 +67,8 @@ class Attention(nn.Module):
             return y.reshape(bsz, s, w.shape[1], w.shape[2]).transpose(1, 2)
 
         q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
+        if self.cfg.qk_norm:
+            q, k = rms(q, self.q_norm), rms(k, self.k_norm)
         if self.cfg.use_rope:
             q = rope(q, positions, self.cfg.rope_theta)
             k = rope(k, positions, self.cfg.rope_theta)

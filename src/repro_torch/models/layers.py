@@ -38,16 +38,22 @@ class Norm(nn.Module):
 
 
 def norm_apply(norm: Norm, x, eps=1e-6):
+    if norm.bias is None:
+        return rms(x, norm.scale, eps)
     x32 = x.float()
-    if norm.bias is not None:
-        mu = x32.mean(-1, keepdim=True)
-        var = x32.var(-1, unbiased=False, keepdim=True)
-        y = (x32 - mu) * torch.rsqrt(var + eps)
-        y = y * norm.scale + norm.bias
-    else:
-        ms = (x32 * x32).mean(-1, keepdim=True)
-        y = x32 * torch.rsqrt(ms + eps) * norm.scale
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * norm.scale + norm.bias
     return y.to(x.dtype)
+
+
+def rms(x, scale, eps=1e-6):
+    """RMS norm over the last axis in float32, times `scale`, in x's dtype
+    (the reference's RMSNorm and its attention's per-head q/k norm)."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 class Embedding(nn.Module):

@@ -31,19 +31,23 @@ class Model:
 
 def build_model(cfg, *, device=None, seed: int = 0,
                 params: dict[str, torch.Tensor] | None = None,
-                trainable: bool = False) -> Model:
+                trainable: bool = False, draw_on_device: bool = False) -> Model:
     """Build the LM on `device` (default cuda; raises with no card).
 
     Weights are drawn from a CPU torch.Generator seeded with `seed`, with
     the reference's init distributions, so a seed gives the same weights
-    on every device; on the meta device nothing is drawn. `params` (a
-    state dict, e.g. from bridge.params_from_jax) replaces them.
-    trainable: train mode, gradients on (the random sketch's g excepted);
-    otherwise eval mode with every parameter frozen.
+    on every device; on the meta device nothing is drawn. With
+    draw_on_device, from a generator on `device` seeded with `seed`
+    instead: billions of weights in seconds (a CPU draw of a 14B model
+    takes minutes of host time and its size in host memory), the same for
+    a seed on that device type, but other values than the CPU draw.
+    `params` (a state dict, e.g. from bridge.params_from_jax) replaces
+    them. trainable: train mode, gradients on (the random sketch's g
+    excepted); otherwise eval mode with every parameter frozen.
     """
     dev = (torch.device("meta") if device == "meta"
            else resolve_device(device))
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev if draw_on_device else "cpu").manual_seed(seed)
     lm = LM(cfg, generator=gen, device=dev)
     if params is not None:
         lm.load_state_dict(params, strict=True)

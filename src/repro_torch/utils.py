@@ -76,14 +76,19 @@ def const_param(shape, value, *, device="cpu") -> nn.Parameter:
                                    device=device))
 
 
+def _draw_device(generator):
+    return torch.device("cpu") if generator is None else generator.device
+
+
 def normal_param(shape, std, *, generator=None, device="cpu") -> nn.Parameter:
-    """N(0, 1) * std, drawn from a CPU `generator` and moved to `device`,
-    so a seed gives the same weights on every device. Nothing is drawn on
-    the meta device."""
+    """N(0, 1) * std, drawn from `generator` on the generator's device and
+    moved to `device`: a CPU generator gives the same weights on every
+    device. Nothing is drawn on the meta device."""
     device = torch.device(device)
     if device.type == "meta":
         return nn.Parameter(torch.empty(shape, device=device))
-    w = torch.empty(shape, dtype=torch.float32).normal_(generator=generator)
+    w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
+    w.normal_(generator=generator)
     return nn.Parameter((w * std).to(device))
 
 
@@ -92,6 +97,6 @@ def uniform_param(shape, bound, *, generator=None, device="cpu") -> nn.Parameter
     device = torch.device(device)
     if device.type == "meta":
         return nn.Parameter(torch.empty(shape, device=device))
-    w = torch.empty(shape, dtype=torch.float32).uniform_(-bound, bound,
-                                                         generator=generator)
+    w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
+    w.uniform_(-bound, bound, generator=generator)
     return nn.Parameter(w.to(device))

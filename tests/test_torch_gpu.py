@@ -670,3 +670,73 @@ def test_remat_product_ops_cover_what_the_card_dispatches(card):
     products = {f for f in Ops.seen
                 if any(k in str(f) for k in ("mm", "dot", "matmul", "linear", "einsum"))}
     assert products and products <= transformer.PRODUCT_OPS, products
+
+
+# ---------------------------------------------------------------------------
+# head width 128 (the registry's dense models), bf16 training, and C.1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("local_exact", [True, False])
+def test_h128_forward_and_backward_match_plain_version(card, dtype, local_exact):
+    """B1 and its backward at h 128, GQA 6:2 over two blocks and a ragged
+    n (zero-padded to the block): outputs and every gradient within the
+    dtype's gate of the plain versions' (gradients relative to max|.|)."""
+    dt = getattr(torch, dtype)
+    xs = _inputs(11, (1, 6, 400), (1, 2, 400), 128, 32, dt, card)
+    dout = _normal(12, card)(1, 6, 400, 128).to(dt)
+    kw = dict(degree=4, scale=1.0 / 128, local_exact=local_exact, block_size=256)
+    before = pc.polysketch_causal_backward_cuda.launches
+    with torch.no_grad():
+        got = ops.polysketch_attention(*xs, **kw)
+        want = ops.polysketch_attention(*xs, impl="torch", **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    g = _grads(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    w = _grads(lambda *a: ops.polysketch_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pc.polysketch_causal_backward_cuda.launches == before + 1
+    assert all(x.dtype == dt for x in g)
+    _assert_grads_close(g, w, rel=tol)
+
+
+def test_h128_bf16_resume_is_bit_identical(card):
+    """A bf16 prefill at h 128 (GQA 12:1) resumed at a block boundary from
+    the state the kernel returned equals a cold one, outputs and state."""
+    xs = _inputs(13, (1, 24, 768), (1, 2, 768), 128, 32, torch.bfloat16, card)
+    kw = dict(degree=4, scale=1.0 / 128, block_size=256, return_state=True)
+    full, zf = ops.polysketch_attention(*xs, **kw)
+    o1, z1 = ops.polysketch_attention(*(x[..., :256, :] for x in xs), **kw)
+    o2, z2 = ops.polysketch_attention(*(x[..., 256:, :] for x in xs), z0=z1, **kw)
+    assert torch.equal(torch.cat([o1, o2], dim=-2), full)
+    assert torch.equal(z2, zf)
+
+
+@pytest.mark.parametrize("kernel", ["polysketch_causal", "poly_flash"])
+def test_c1_forward_error_against_float64_at_32k(card, kernel):
+    """C.1: at bh 12, n 32768, h 64 the forward kernels' outputs lie
+    within 1e-5 of max|out| of a float64 plain version (the plain f32
+    version within 3e-6): every 8-key step of W V (and each chunk of B1's
+    fold) goes into a fresh accumulator, so the tensor cores' truncating
+    adds do not pile up over the 512 key tiles. Accumulating in place, B2
+    lay ~6e-5 off."""
+    rnd = _normal(32, card)
+    n, h = 32768, 64
+    q, k, v = rnd(1, 12, n, h), rnd(1, 12, n, h), rnd(1, 12, n, h)
+    with torch.no_grad():
+        if kernel == "polysketch_causal":
+            qm, km = rnd(1, 12, n, 32) * 0.5, rnd(1, 12, n, 32) * 0.5
+            kw = dict(degree=4, scale=1.0 / h, block_size=1024)
+            run = lambda *a, **k_: ops.polysketch_attention(*a, **kw, **k_)  # noqa: E731
+            xs = (qm, km, q, k, v)
+        else:
+            ln = lambda x: torch.nn.functional.layer_norm(x, (h,), eps=1e-6)  # noqa: E731
+            run = lambda *a, **k_: ops.poly_attention(*a, degree=4, scale=1.0 / h, **k_)  # noqa: E731
+            xs = (ln(q), ln(k), v)
+        got = run(*xs)
+        plain = run(*xs, impl="torch")
+        ref = run(*(x.double() for x in xs), impl="torch")
+    top = ref.abs().max().item()
+    e_kernel = (got.double() - ref).abs().max().item() / top
+    e_plain = (plain.double() - ref).abs().max().item() / top
+    assert e_kernel <= 1e-5 and e_plain <= 1e-5, (e_kernel, e_plain)

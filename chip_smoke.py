@@ -3,7 +3,8 @@ plain version on the card, serve gpt2s-polysketch, gpt2s-poly4 and
 gpt2s-softmax and train all three at full width, at 2 x 4096 and at
 32,768 tokens a step from 4k to 32k context, serve the registry's four
 dense polysketch models (head width 128, bf16) at their published widths
-and train starcoder2-3b in bf16, and check the port against itself.
+and train starcoder2-3b in bf16, serve a shared system prompt through the
+prefix cache with tracing on, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -108,7 +109,21 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      tokens/s and peak memory over 3 timed steps (B1 twice and its
      backward once a layer a step), and two runs bit for bit. The rows of
      B1 and its backward in the JSON line carry their h 128 bf16 time and
-     these phases' launches under `h128_bf16`.
+     these phases' launches under `h128_bf16`;
+  9. the prefix-reuse snapshot cache and the serving telemetry (run after
+     phase 5): gpt2s-polysketch at full width and depth, f32, serves 8
+     requests on 4 slots, each a 3072-token shared system prompt and its
+     own 256-1023-token suffix (32 new tokens, greedy and sampled, budget
+     2048, overlap on) with no prefix cache (A), with a PrefixCache of 512
+     MiB and a disk tier under build/ plus tracing and memory sampling
+     after a warm-up and reset_stats() (B), and through a new engine and
+     a fresh cache on the same directory (C): tokens and log-probabilities
+     bit for bit across the three, hits in B and disk loads in C, B1 once
+     a layer per prefilled block (A every block, B and C the suffix's),
+     B's decode ticks at one host sync and one device-to-host copy with
+     tracing on, B's trace valid, no retrace after the warm-up, and one
+     snapshot's bytes as reckoned (41,533,440). The row of B1 in the JSON
+     line carries the three runs' launches under `prefix_cache_launches`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -150,7 +165,9 @@ from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, generate  # noqa: E402
+from repro_torch.serve.prefix_cache import PrefixCache, snapshot_nbytes  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams, sample_step  # noqa: E402
+from repro_torch.serve.telemetry import Telemetry, validate_trace  # noqa: E402
 from repro_torch.train import init_train_state, make_loss_fn, make_train_step  # noqa: E402
 
 F32_TOL, BF16_TOL = 1e-4, 5e-2      # the reference's kernel-sweep tolerances
@@ -998,32 +1015,44 @@ def engine_workload(vocab):
     return prompts, samp
 
 
-def engine_run(model, prompts, samp, order, **kw):
-    """Serve the requests in `order` (all submitted at t = 0) through
-    ServeEngine. Returns ({request index: RequestOutput}, engine, wall s)."""
-    eng = ServeEngine(model, slots=ENGINE_SLOTS,
-                      max_len=max(ENGINE_LENS) + ENGINE_GEN, logprobs=True,
-                      prefill_budget=ENGINE_BUDGET, overlap=True, **kw)
+def new_engine(model, **kw):
+    """phase 5's engine: ENGINE_SLOTS slots, log-probabilities, prefill
+    budget ENGINE_BUDGET, overlap on; `kw` adds a prefix cache, telemetry."""
+    return ServeEngine(model, slots=ENGINE_SLOTS, max_len=max(ENGINE_LENS) + ENGINE_GEN,
+                       logprobs=True, prefill_budget=ENGINE_BUDGET, overlap=True, **kw)
+
+
+def engine_serve(eng, prompts, samp, order):
+    """Serve the requests in `order` (all submitted at t = 0) through `eng`.
+    Returns ({request index: RequestOutput}, wall s)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rid_of = {eng.submit(prompts[i], ENGINE_GEN, sampling=samp[i]): i for i in order}
     outs = eng.run()
     torch.cuda.synchronize()
-    return {rid_of[o.rid]: o for o in outs}, eng, time.perf_counter() - t0
+    return {rid_of[o.rid]: o for o in outs}, time.perf_counter() - t0
 
 
-def profile_engine_ticks(model, prompts, samp, ticks=8):
+def engine_run(model, prompts, samp, order, **kw):
+    """Serve the requests in `order` through a new engine. Returns
+    ({request index: RequestOutput}, engine, wall s)."""
+    eng = new_engine(model, **kw)
+    outs, wall = engine_serve(eng, prompts, samp, order)
+    return outs, eng, wall
+
+
+def profile_engine_ticks(model, prompts, samp, ticks=8, eng=None, cut=600):
     """The CUDA runtime calls and device memory copies of `ticks` decode
-    ticks with every slot decoding (four sampled requests and no admission
-    in flight), from torch.profiler, less what the profiler makes around an
-    empty region: returns ({runtime call: count a tick}, {copy kind: count
-    a tick}, kernel launches of one sample_step over the slots), copy kinds
-    "DtoH", "HtoD", "DtoD"."""
+    ticks with every slot decoding (four sampled requests, the first `cut`
+    tokens of prompts 4-7, and no admission in flight), from
+    torch.profiler, less what the profiler makes around an empty region:
+    returns ({runtime call: count a tick}, {copy kind: count a tick},
+    kernel launches of one sample_step over the slots), copy kinds "DtoH",
+    "HtoD", "DtoD". `eng`: the engine to profile (default a new one)."""
     from torch.profiler import ProfilerActivity, profile
-    eng = ServeEngine(model, slots=ENGINE_SLOTS, max_len=max(ENGINE_LENS) + ENGINE_GEN,
-                      logprobs=True, prefill_budget=ENGINE_BUDGET, overlap=True)
+    eng = eng or new_engine(model)
     for i in range(4, 8):                        # long enough for the window
-        eng.submit(prompts[i][:600], ticks + 8, sampling=samp[i])
+        eng.submit(prompts[i][:cut], ticks + 8, sampling=samp[i])
     while eng.n_active < ENGINE_SLOTS or eng.scheduler.active:
         eng.step()
     eng.step()                                   # the pipeline holds a tick
@@ -1148,6 +1177,184 @@ def phase_engine(model, kernel=None):
         log(f"  req{i}: {' '.join(map(str, outs[i].tokens[:16].tolist()))} ...")
     log(f"  phase 5 for {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
     return run_counts.get(kernel, 0) if kernel else 0
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the prefix-reuse snapshot cache and the serving telemetry
+# ---------------------------------------------------------------------------
+
+PREFIX_SHARED = 3072                # the shared system prompt: 3 blocks of 1024
+PREFIX_SUFFIX = (256, 1024)         # each request's own suffix: 256-1023 tokens
+PREFIX_CACHE_BYTES = 512 << 20
+PREFIX_DIR = os.path.join(ROOT, "build", "prefix_cache")   # git-ignored
+
+
+def reckon_snapshot_bytes(cfg) -> int:
+    """One prefix snapshot: the folded state z of every layer, (kv heads,
+    r^2, h + 1) in f32, whatever the prefix's length."""
+    return (cfg.n_layers * cfg.n_kv_heads * cfg.sketch_size ** 2
+            * (cfg.resolved_head_dim + 1) * 4)
+
+
+def prefix_workload(vocab):
+    """8 requests: one 3072-token shared system prompt, then a seeded suffix
+    each (lengths in PREFIX_SUFFIX), requests 0-3 greedy and 4-7 sampled as
+    in phase 5. Also 8 warm-up prompts: the same system prompt and suffix
+    lengths, other suffix tokens. Returns (prompts, warm prompts, samp)."""
+    rng = np.random.default_rng(9)
+    shared = rng.integers(0, vocab, PREFIX_SHARED)
+    lens = rng.integers(*PREFIX_SUFFIX, size=8)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, n)]) for n in lens]
+    warm = [np.concatenate([shared, rng.integers(0, vocab, n)]) for n in lens]
+    _, samp = engine_workload(vocab)
+    return prompts, warm, samp
+
+
+def prefix_run(label, eng, prompts, samp, blk):
+    """One counted run of the workload through `eng`: B1's launches, the
+    peaks of host RSS and device memory (the engine's memory sampler), and
+    a summary line. Returns (outputs by request, its row for the JSON line)."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with PlainCalls() as plain:
+        outs, wall = engine_serve(eng, prompts, samp, range(8))
+    eng.telemetry.memory.sample()
+    launched = counts()
+    st = eng.stats()
+    reg = eng.telemetry.registry
+    pcs = st.get("prefix_cache", {})
+    ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+    gen = sum(len(o.tokens) for o in outs.values())
+    row = {"run": label, "wall_ms": wall * 1e3, "ttft_p50_ms": np.percentile(ttft, 50),
+           "ttft_p99_ms": np.percentile(ttft, 99),
+           "ms_a_tick": st["decode_s"] * 1e3 / st["decode_steps"],
+           "generated_tok_s": gen / wall, "prefill_host_ms": st["prefill_s"] * 1e3,
+           "b1_launches": launched["polysketch_causal"], "plain_calls": plain.calls,
+           "hits": pcs.get("hits", 0), "restored_tokens": pcs.get("hit_tokens", 0),
+           "disk_loads": pcs.get("disk_loads", 0), "disk_writes": pcs.get("disk_writes", 0),
+           "cache_bytes": pcs.get("bytes", 0), "coalesced": st["scheduler"]["coalesced"],
+           "promote_splits": st["scheduler"]["promote_splits"],
+           "retraces": st["retraces"],
+           "host_peak_gib": reg.get("serve_host_rss_peak_bytes").value / 2**30,
+           "device_peak_gib": reg.get("serve_device_peak_bytes").value / 2**30}
+    log(f"  run {label}: {wall * 1e3:.1f} ms, TTFT p50 {row['ttft_p50_ms']:.1f} ms, p99 "
+        f"{row['ttft_p99_ms']:.1f} ms; {row['ms_a_tick']:.2f} ms a tick; "
+        f"{row['generated_tok_s']:.1f} generated tok/s; prefill host dispatch "
+        f"{row['prefill_host_ms']:.1f} ms; B1 launches {row['b1_launches']} (expected "
+        f"{blk}); hits {row['hits']}, restored tokens {row['restored_tokens']}, disk "
+        f"loads {row['disk_loads']}, writes {row['disk_writes']}, cache "
+        f"{row['cache_bytes']} B; coalesced {row['coalesced']}, promote splits "
+        f"{row['promote_splits']}; retraces {row['retraces']}; peak host "
+        f"{row['host_peak_gib']:.2f} GiB, device {row['device_peak_gib']:.2f} GiB")
+    expected = {name: blk if name == "polysketch_causal" else 0 for name in KERNELS}
+    if launched != expected or plain.calls:
+        raise AssertionError(f"run {label}: launches {launched} (B1 expected {blk}, no "
+                             f"other kernel) and {plain.calls} plain-version calls")
+    return outs, row
+
+
+def phase_prefix_cache(model, card):
+    """gpt2s-polysketch at full width and depth, f32, serving a shared
+    system prompt through the prefix cache: 8 requests on 4 slots, each a
+    3072-token system prompt and its own 256-1023-token suffix, 32 new
+    tokens, requests 0-3 greedy and 4-7 sampled, prefill budget 2048,
+    overlap on, all at t = 0, in three runs: A with no prefix cache; B
+    with PrefixCache(512 MiB, save_dir) and Telemetry(trace, memory),
+    after a warm-up run of the same system prompt with other suffixes and
+    reset_stats(); C a new engine with a fresh PrefixCache on the same
+    save_dir, warming from the disk. Gates: tokens and log-probabilities
+    equal bit for bit across A, B, C; B hits, C loads from the disk; B1
+    launches once a layer per block of what is prefilled (A: every block
+    of every prompt; B and C: the suffix's block); B's decode ticks with
+    tracing on keep phase 5's one host sync and one device-to-host copy;
+    B's trace is valid; no retrace in B; one snapshot's bytes equal
+    reckon_snapshot_bytes. Returns {run: B1 launches}."""
+    cfg = model.cfg
+    blk = cfg.lt_block_size
+    t_phase = time.perf_counter()
+    log(f"phase 9: {cfg.name} full width and depth ({cfg.n_layers} layers), f32, prefix "
+        f"cache: 8 requests, {ENGINE_SLOTS} slots, a {PREFIX_SHARED}-token shared system "
+        f"prompt + suffixes of {PREFIX_SUFFIX[0]}-{PREFIX_SUFFIX[1] - 1} tokens, "
+        f"{ENGINE_GEN} new tokens, requests 0-3 greedy, 4-7 sampled {ENGINE_SAMPLED}, "
+        f"prefill budget {ENGINE_BUDGET}, overlap on, all at t = 0; card {card}")
+    prompts, warm, samp = prefix_workload(cfg.vocab_size)
+    per_layer = cfg.n_layers
+    cold_blocks = per_layer * sum(-(-len(p) // blk) for p in prompts)
+    hit_blocks = per_layer * sum(-(-(len(p) - PREFIX_SHARED) // blk) for p in prompts)
+    shutil.rmtree(PREFIX_DIR, ignore_errors=True)
+    rows, outs = {}, {}
+
+    outs["A"], rows["A"] = prefix_run("A (no prefix cache)", new_engine(
+        model, telemetry=Telemetry(memory=True)), prompts, samp, cold_blocks)
+    tel = Telemetry(trace=True, memory=True)
+    pc = PrefixCache(PREFIX_CACHE_BYTES, save_dir=PREFIX_DIR)
+    eng_b = new_engine(model, prefix_cache=pc, telemetry=tel)
+    engine_serve(eng_b, warm, samp, range(8))
+    warm_sch = eng_b.stats()["scheduler"]
+    warm_pc = pc.stats()
+    log(f"  B's warm-up (the system prompt, other suffixes): hits {warm_pc['hits']}, "
+        f"inserts {warm_pc['inserts']}, disk writes {warm_pc['disk_writes']} (the "
+        f"admission ticks that insert: each write copies a snapshot to the host), "
+        f"coalesced {warm_sch['coalesced']}, promote splits {warm_sch['promote_splits']}")
+    eng_b.reset_stats()
+    outs["B"], rows["B"] = prefix_run("B (memory tier, tracing on)", eng_b, prompts, samp,
+                                      hit_blocks)
+    gc.collect()
+    outs["C"], rows["C"] = prefix_run("C (a new engine, the disk tier)", new_engine(
+        model, prefix_cache=PrefixCache(PREFIX_CACHE_BYTES, save_dir=PREFIX_DIR),
+        telemetry=Telemetry(memory=True)), prompts, samp, hit_blocks)
+
+    for run in ("B", "C"):
+        for i, o in outs["A"].items():
+            got = outs[run][i]
+            if not (np.array_equal(got.tokens, o.tokens)
+                    and np.array_equal(got.logprobs, o.logprobs)):
+                raise AssertionError(f"request {i}: run {run}'s tokens or log-probabilities "
+                                     "differ from run A's")
+    log("  tokens and log-probabilities of the 8 requests equal bit for bit across A, B "
+        "and C: True")
+    b, c = rows["B"], rows["C"]
+    if not (b["hits"] > 0 and b["restored_tokens"] > 0 and c["disk_loads"] > 0):
+        raise AssertionError(f"B hits {b['hits']}, restored {b['restored_tokens']}; C disk "
+                             f"loads {c['disk_loads']}")
+    if not b["b1_launches"] < rows["A"]["b1_launches"] > c["b1_launches"]:
+        raise AssertionError("B1 launched no fewer times with the prefix cache")
+    if b["retraces"]:
+        raise AssertionError(f"B: {b['retraces']} retraces after the warm-up "
+                             f"({tel.watchdog.cache_sizes()})")
+    trace = tel.export_trace()
+    errs = validate_trace(trace)
+    log(f"  B's trace: {len(trace['traceEvents'])} events, validate_trace: "
+        f"{errs[:3] or 'valid'}; entry-point signatures {tel.watchdog.cache_sizes()}")
+    if errs:
+        raise AssertionError(f"B's trace is not valid: {errs[:5]}")
+    nbytes = [snapshot_nbytes(e.snapshot) for e in pc._entries.values()]
+    want = reckon_snapshot_bytes(cfg)
+    log(f"  snapshot bytes: {nbytes} (reckoned {want} = {cfg.n_layers} layers x "
+        f"{cfg.n_kv_heads} kv heads x {cfg.sketch_size}^2 x {cfg.resolved_head_dim + 1} x 4)")
+    if not nbytes or any(n != want for n in nbytes):
+        raise AssertionError(f"snapshot bytes {nbytes} != {want}")
+
+    calls, copies, _ = profile_engine_ticks(model, prompts, samp, eng=eng_b,
+                                            cut=None)
+    syncs = sum(v for k, v in calls.items() if k in SYNC_CALLS)
+    d2h = copies.get("DtoH", 0)
+    log(f"  B's decode ticks with tracing and the memory sampler on (4 slots decoding, "
+        f"sampled, restored from the cache; no insert, so no disk write): host syncs "
+        f"{syncs:g}, device memory copies {copies} a tick; CUDA runtime calls: "
+        + ", ".join(f"{k} {v:g}" for k, v in calls.items()))
+    if syncs > 1 or d2h > 1:
+        raise AssertionError(f"B's decode tick syncs the host {syncs:g} times and copies "
+                             f"device to host {d2h:g} times; one of each is allowed")
+    rows["B"]["tick_syncs"], rows["B"]["tick_d2h"] = syncs, d2h
+    for run in rows.values():
+        run["card"] = card
+    log(json.dumps({"prefix_cache": list(rows.values()), "snapshot_bytes": want,
+                    "warm_up": {"scheduler": warm_sch, "prefix_cache": warm_pc}},
+                   default=float))
+    shutil.rmtree(PREFIX_DIR, ignore_errors=True)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return {run: row["b1_launches"] for run, row in rows.items()}
 
 
 def phase_lt_mult_path():
@@ -2532,6 +2739,7 @@ def main(argv=None):
     launches, prompts = phase_serve(model)
     phase_self_checks(model, prompts)
     b1_engine = phase_engine(model, "polysketch_causal")
+    b1_prefix = phase_prefix_cache(model, card)
     del model
     gc.collect()            # engines hold reference cycles (metric callbacks)
     torch.cuda.empty_cache()
@@ -2607,7 +2815,9 @@ def main(argv=None):
                "max_abs_err": max_abs_err, "ms": t_ms, "plain_ms": t_plain,
                "bound_ms": bd.tc_ms, "bound_by": bd.tc_by, "bound_fma_ms": bd.fma_ms,
                "library_ms": None}
-        if name in dense_launches:   # this slice's paths: the dense models at h 128, bf16
+        if name == "polysketch_causal":   # phase 9: the prefix cache's path
+            out["prefix_cache_launches"] = b1_prefix
+        if name in dense_launches:   # the dense models at h 128, bf16
             key = "fwd" if name == "polysketch_causal" else "bwd"
             h_ms, h_plain, h_bd = h128_times["bfloat16"][key]
             out["h128_bf16"] = {"shape": "bh 24, n 4096, r 32, h 128, b 256", "ms": h_ms,

@@ -17,6 +17,10 @@ scheduler speak only this protocol and never branch on the mechanism:
   restore / serialize / deserialize``, the partial-prefill carry and the
   slot helpers.
 
+Snapshots and restores copy: a snapshot never shares storage with the
+cache it was taken from, nor a restored cache with its snapshot, so a
+stored snapshot keeps its bits while live caches are written in place.
+
 Snapshot granularity (per kind, composed over a model's kinds, the
 weakest member winning): ``"block"``, valid at the last lt_block_size
 boundary, where the partial tail lives in buffers the snapshot omits
@@ -63,12 +67,17 @@ class NodeOps(NamedTuple):
 
 def _psk_snapshot(node: dec.PolysketchCache):
     # valid at block-aligned positions, where the buffers are empty by
-    # construction: the folded prefix state is the whole story
-    return node.z
+    # construction: the folded prefix state is the whole story. A copy: a
+    # stored snapshot never shares storage with a live cache, which the
+    # engine updates in place
+    return node.z.clone()
 
 
 def _psk_restore(fresh: dec.PolysketchCache, z, n_tokens):
-    return fresh._replace(z=z.to(device=fresh.z.device, dtype=fresh.z.dtype),
+    # a copy for the same reason: the restored cache goes on to be written
+    # while the snapshot stays in the prefix cache
+    return fresh._replace(z=z.to(device=fresh.z.device, dtype=fresh.z.dtype,
+                                 copy=True),
                           pos=int(n_tokens))
 
 
@@ -197,7 +206,7 @@ def serialize_snapshot(snapshot, n_tokens: int) -> bytes:
     axis: polysketch's z is (n_layers, 1, hkv, r^2, h+1). A snapshot
     written by either package loads in the other."""
     buf = io.BytesIO()
-    leaf = torch.stack([z.detach().to("cpu") for z in snapshot])
+    leaf = torch.stack([z.detach() for z in snapshot]).cpu()  # one copy
     np.savez(buf, n_tokens=np.int64(n_tokens), leaf0=leaf.numpy())
     return buf.getvalue()
 
@@ -376,17 +385,22 @@ class DecodeState:
     def restore(self, fresh_state, snapshot, n_tokens):
         return restore_state(fresh_state, snapshot, n_tokens)
 
+    def snapshot_signature(self, max_len: int | None = None) -> list:
+        """(shape, dtype) of each snapshot leaf, read from a fresh slot's
+        state (no prefill runs): what a prefix cache binds to."""
+        return [(tuple(x.shape), str(x.dtype))
+                for x in self.snapshot(self.init_slot(max_len))]
+
     def serialize(self, snapshot, n_tokens: int) -> bytes:
         return serialize_snapshot(snapshot, n_tokens)
 
     def deserialize(self, data: bytes):
         snap, n = deserialize_snapshot(data, self.device)
-        probe = self.snapshot(self.init_slot(self.block_size))
-        if len(snap) != len(probe) or any(
-                a.shape != b.shape for a, b in zip(snap, probe)):
-            raise ValueError(
-                f"snapshot leaves {[tuple(a.shape) for a in snap]} do not "
-                f"fit this model's {[tuple(b.shape) for b in probe]}")
+        want = self.snapshot_signature(self.block_size)
+        got = [(tuple(x.shape), str(x.dtype)) for x in snap]
+        if got != want:
+            raise ValueError(f"snapshot leaves {got} do not fit this "
+                             f"model's {want}")
         return snap, n
 
     # -- partial prefill (chunked admission) -------------------------------

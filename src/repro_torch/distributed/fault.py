@@ -1,15 +1,18 @@
-"""Fault-tolerance utilities for training: preemption handling and
-straggler detection.
+"""Fault-tolerance utilities: preemption handling, straggler detection and
+retried I/O.
 
-The port of ``PreemptionGuard`` and ``StragglerDetector`` from the JAX
-package's ``distributed/fault.py``; host-side Python, no device code.
+The port of ``PreemptionGuard``, ``StragglerDetector`` and ``with_retries``
+from the JAX package's ``distributed/fault.py``; host-side Python, no
+device code.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import signal
 import time
 from collections import deque
+from typing import Callable
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -74,3 +77,24 @@ class StragglerDetector:
         self.durations.append(dt)
         self._step += 1
         return slow
+
+
+def with_retries(fn: Callable, *, retries: int = 3, backoff: float = 0.5,
+                 on_retry: Callable | None = None):
+    """Retry wrapper for flaky I/O (the prefix cache's disk tier): an
+    OSError is retried after `backoff * 2**attempt` seconds, up to
+    `retries` times, then raised. `on_retry(attempt, exc)` is called before
+    each sleep (the caller's retry counter)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        for attempt in range(retries + 1):
+            try:
+                return fn(*args, **kwargs)
+            except OSError as e:  # noqa: PERF203
+                if attempt == retries:
+                    raise
+                if on_retry is not None:
+                    on_retry(attempt + 1, e)
+                log.warning("retry %d/%d after %s", attempt + 1, retries, e)
+                time.sleep(backoff * 2 ** attempt)
+    return wrapped

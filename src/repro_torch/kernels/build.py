@@ -28,6 +28,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict[str, ctypes.CDLL] = {}   # loaded libraries, one per source
 
 
+class _Libraries:
+    """The kernel libraries this process has built or loaded, read by the
+    serve engine's retrace watchdog like an entry point's cache: one built
+    or loaded mid-serve is an nvcc build (or a load) on a live tick."""
+
+    def __init__(self):
+        self.builds = 0
+
+    def _cache_size(self) -> int:
+        return self.builds + len(_LIBS)
+
+
+LOADED = _Libraries()
+
+
 class Built(NamedTuple):
     path: Path        # the shared library
     seconds: float    # nvcc's wall time; 0.0 when an up-to-date library was found
@@ -79,6 +94,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Built]:
             failed.append(f"{src.name}:\n{log}")
             continue
         os.replace(tmp, target)
+        LOADED.builds += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out

@@ -20,7 +20,30 @@ request i samples with seed --seed + i):
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --temperature 0.8 --top-k 40 --top-p 0.95 --seed-per-request
 
-Overlapped chunked admission: --overlap --prefill-budget 64.
+Overlapped chunked admission: --overlap --prefill-budget 64 (with
+--max-tick-gap-ratio R the run fails if the decode tick gap's p95 passes
+R times its median).
+
+Shared-system-prompt workload (every request shares an N-token prefix
+and diverges after it) through the prefix-reuse snapshot cache, persisted
+under a directory (a second run with --expect-disk-hits warms from it):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --requests 8 --prompt-len 96 --shared-prefix 64 --prefix-cache-mb 8 \
+        --prefix-cache-dir /tmp/psk-cache
+
+Observability (serve/telemetry.py): --trace-out writes a schema-validated
+Chrome trace of the run (tick phases, per-slot request timelines, cache
+events; open at ui.perfetto.dev), --metrics-out the Prometheus text of
+the engine's registry, --log-events prints every event as recorded.
+--warm serves warm-up requests first and arms the retrace watchdog;
+--expect-no-retraces then fails the run if an entry point met a new call
+signature (or a kernel library was built) mid-serve:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --requests 8 --overlap --prefill-budget 64 --warm \
+        --trace-out /tmp/serve-trace.json --metrics-out /tmp/serve.prom \
+        --expect-no-retraces
 
 The registry's dense polysketch models (head width 128, bf16):
 
@@ -44,28 +67,19 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve.engine import ServeEngine, generate
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import SamplingParams
+from repro_torch.serve.telemetry import Telemetry, format_event, validate_trace
 
 # flags of the reference's CLI that later slices port, with their ROADMAP item
 UNPORTED_FLAGS = {
-    "--shared-prefix": "A.7 (prefix cache)",
-    "--prefix-cache-mb": "A.7 (prefix cache)",
-    "--prefix-cache-dir": "A.7 (prefix cache)",
-    "--min-snapshot-blocks": "A.7 (prefix cache)",
-    "--expect-disk-hits": "A.7 (prefix cache)",
-    "--max-tick-gap-ratio": "A.7 (telemetry)",
-    "--trace-out": "A.7 (telemetry tracer)",
-    "--metrics-out": "A.7 (telemetry)",
-    "--log-events": "A.7 (telemetry tracer)",
-    "--warm": "A.7 (telemetry retrace watchdog)",
-    "--expect-no-retraces": "A.7 (telemetry retrace watchdog)",
     "--mesh": "A.9 (scale-out)",
     "--shard-model": "A.9 (scale-out)",
     "--replicas": "A.9 (scale-out: replicas)",
     "--chaos": "A.9 (scale-out: chaos)",
     "--shed-above": "A.9 (scale-out: replicas)",
     "--hang-timeout": "A.9 (scale-out: replicas)",
-    "--checkpoint-blocks": "A.7 (recovery and failover)",
+    "--checkpoint-blocks": "A.9 (recovery and failover)",
 }
 
 
@@ -142,6 +156,21 @@ def main(argv=None):
     ap.add_argument("--seed-per-request", action="store_true",
                     help="request i samples with seed --seed+i; default: "
                          "all share --seed")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens of a prompt prefix shared by all requests "
+                         "(system-prompt workload); 0 = independent prompts")
+    ap.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="prefix-reuse snapshot cache budget in MiB "
+                         "(0 = cache off)")
+    ap.add_argument("--prefix-cache-dir", default=None,
+                    help="persist prefix-cache snapshots under this "
+                         "directory (survives restarts)")
+    ap.add_argument("--min-snapshot-blocks", type=int, default=1,
+                    help="prefix-cache admission floor: only snapshot "
+                         "prefixes of at least this many blocks")
+    ap.add_argument("--expect-disk-hits", action="store_true",
+                    help="exit non-zero unless at least one snapshot was "
+                         "loaded from --prefix-cache-dir (restart smoke)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="override cfg.lt_block_size (the resumed-prefill "
                          "grid); 0 = config default")
@@ -151,16 +180,39 @@ def main(argv=None):
     ap.add_argument("--prefill-budget", type=int, default=0,
                     help="max admission-prefill tokens dispatched per "
                          "decode tick (0 = unlimited)")
+    ap.add_argument("--max-tick-gap-ratio", type=float, default=0.0,
+                    help="exit non-zero if the decode tick gap's p95 passes "
+                         "this multiple of its median (0 = no gate)")
     ap.add_argument("--logprobs", action="store_true",
                     help="report per-token log-probabilities of the "
                          "emitted tokens (computed in the decode tick)")
     ap.add_argument("--tokens-out", default=None,
                     help="write every request's emitted tokens (and "
                          "logprobs with --logprobs) as JSON keyed by rid")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a schema-validated Chrome trace of the run "
+                         "(open at ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the engine's metrics as Prometheus text")
+    ap.add_argument("--log-events", action="store_true",
+                    help="print every telemetry event as it is recorded "
+                         "(implies tracing; verbose)")
+    ap.add_argument("--warm", action="store_true",
+                    help="serve warm-up requests of the workload's shapes "
+                         "and reset the stats before the timed run: the "
+                         "retrace watchdog arms")
+    ap.add_argument("--expect-no-retraces", action="store_true",
+                    help="exit non-zero if an entry point met a new call "
+                         "signature, or a kernel library was built, "
+                         "mid-serve (needs --warm)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
+    if args.expect_no_retraces and not args.warm:
+        raise SystemExit("--expect-no-retraces requires --warm (without a "
+                         "warm-up every signature is new, so the gate would "
+                         "be vacuous)")
 
     overrides = {"lt_block_size": args.block_size} if args.block_size else {}
     if args.layers:
@@ -168,11 +220,25 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
     model = build_model(cfg, device=args.device, seed=args.seed,
                         draw_on_device=args.draw_on_device)
+    prefix_cache = (PrefixCache(int(args.prefix_cache_mb * 2 ** 20),
+                                save_dir=args.prefix_cache_dir)
+                    if args.prefix_cache_mb > 0 else None)
+    if args.expect_disk_hits and (prefix_cache is None
+                                  or args.prefix_cache_dir is None):
+        raise SystemExit("--expect-disk-hits needs --prefix-cache-mb and "
+                         "--prefix-cache-dir")
+    trace_on = bool(args.trace_out or args.log_events)
+    telemetry = Telemetry(
+        trace=trace_on, memory=bool(trace_on or args.metrics_out),
+        on_event=(lambda ev: print(format_event(ev))) if args.log_events
+        else None)
     engine = ServeEngine(model, slots=args.slots,
                          max_len=args.prompt_len + args.gen,
+                         prefix_cache=prefix_cache,
+                         min_snapshot_blocks=args.min_snapshot_blocks,
                          logprobs=args.logprobs,
                          prefill_budget=args.prefill_budget or None,
-                         overlap=args.overlap)
+                         overlap=args.overlap, telemetry=telemetry)
     rng = np.random.default_rng(args.seed)
     eos = None if args.eos_id < 0 else args.eos_id
     # a few fixed prompt-length buckets (not a continuum): mixed-length
@@ -180,9 +246,21 @@ def main(argv=None):
     buckets = sorted({max(1, args.prompt_len // 2),
                       max(1, 3 * args.prompt_len // 4), args.prompt_len})
 
-    def make_prompt():
-        plen = int(rng.choice(buckets))
-        return rng.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
+    def random_prompt(gen, plen):
+        return gen.integers(0, cfg.vocab_size, size=plen).astype(np.int32)
+
+    if args.shared_prefix:
+        if not 0 < args.shared_prefix < args.prompt_len:
+            raise SystemExit("--shared-prefix must be in (0, prompt_len)")
+        shared = rng.integers(0, cfg.vocab_size, size=args.shared_prefix)
+
+        def make_prompt():
+            sfx = rng.integers(0, cfg.vocab_size,
+                               size=args.prompt_len - args.shared_prefix)
+            return np.concatenate([shared, sfx]).astype(np.int32)
+    else:
+        def make_prompt():
+            return random_prompt(rng, int(rng.choice(buckets)))
 
     sampled = args.temperature > 0
     if not sampled and (args.top_k != 0 or args.top_p != 1.0
@@ -195,6 +273,29 @@ def main(argv=None):
         return SamplingParams(
             temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
             seed=args.seed + rid if args.seed_per_request else args.seed)
+
+    if args.warm:
+        # warm-up requests of the workload's shapes, from a stream of their
+        # own (the workload's prompts are the same with and without
+        # --warm); the stats reset after it marks the entry points steady.
+        # A shared-prefix workload warms with three requests sharing a
+        # warm-only prefix of the same length, so that the promote split
+        # and a restore from the cache run too (the JAX CLI warms with one
+        # request there and counts the first restore as a retrace)
+        wrng = np.random.default_rng(args.seed + 104729)
+        if args.shared_prefix:
+            wshared = random_prompt(wrng, args.shared_prefix)
+            warm = [np.concatenate([wshared, random_prompt(
+                wrng, args.prompt_len - args.shared_prefix)])
+                for _ in range(3)]
+        else:
+            warm = [random_prompt(wrng, n) for n in buckets]
+        for p in warm:
+            engine.submit(p, min(4, args.gen), None)
+        engine.run()
+        engine.reset_stats()
+        print(f"warm-up: {len(warm)} requests (lengths "
+              f"{sorted({len(p) for p in warm})}), watchdog armed")
 
     t = 0.0
     arrivals = []
@@ -224,9 +325,16 @@ def main(argv=None):
     itl, gap = stats["itl_ms"], stats["tick_gap_ms"]
     print(f"itl     p50={itl['p50']:.1f}ms p95={itl['p95']:.1f}ms "
           f"p99={itl['p99']:.1f}ms")
+    sch = stats["scheduler"]
     print(f"tick gap median={gap['median']:.1f}ms p95={gap['p95']:.1f}ms "
-          f"max={gap['max']:.1f}ms | scheduler: "
-          f"{stats['scheduler']['chunks']} chunks")
+          f"max={gap['max']:.1f}ms | scheduler: {sch['chunks']} chunks, "
+          f"{sch['coalesced']} coalesced, {sch['promote_splits']} promote "
+          "splits")
+    if (args.max_tick_gap_ratio > 0 and gap["median"] > 0
+            and gap["p95"] > args.max_tick_gap_ratio * gap["median"]):
+        raise SystemExit(
+            f"decode stalled: tick-gap p95 {gap['p95']:.1f}ms > "
+            f"{args.max_tick_gap_ratio:.1f}x median {gap['median']:.1f}ms")
     if sampled:
         seed_desc = (f"{args.seed}+rid" if args.seed_per_request
                      else str(args.seed))
@@ -265,6 +373,53 @@ def main(argv=None):
             json.dump({"arch": args.arch, "outputs": payload}, f,
                       sort_keys=True)
         print(f"tokens: {len(payload)} requests -> {args.tokens_out}")
+    if prefix_cache is not None:
+        pc = stats["prefix_cache"]
+        print(f"prefix cache: {pc['hits']}/{pc['lookups']} hits, "
+              f"{pc['hit_tokens']} prompt tokens restored, "
+              f"{pc['entries']} entries / {pc['bytes'] / 2**20:.2f} MiB "
+              f"({pc['evictions']} evictions, {pc['disk_loads']} disk "
+              f"loads, {pc['disk_writes']} disk writes)")
+        if (args.shared_prefix >= cfg.lt_block_size and args.requests >= 3
+                and pc["hits"] == 0):
+            # requests 3+ of a shared-prefix workload hit (request 2
+            # promotes the shared boundary)
+            raise SystemExit("prefix cache: expected hits in a "
+                             "shared-prefix workload, got none")
+        if args.expect_disk_hits and pc["disk_loads"] == 0:
+            raise SystemExit("prefix cache: expected disk loads from "
+                             f"{args.prefix_cache_dir}, got none")
+    if args.trace_out:
+        trace = telemetry.export_trace()
+        errs = validate_trace(trace)
+        if errs:
+            raise SystemExit("trace schema violations:\n  "
+                             + "\n  ".join(errs[:10]))
+        with open(args.trace_out, "w") as f:
+            json.dump(trace, f)
+        print(f"trace: {len(trace['traceEvents'])} events -> "
+              f"{args.trace_out} (schema valid; open at ui.perfetto.dev)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(telemetry.render_prometheus())
+        print(f"metrics: {len(telemetry.registry.names())} series -> "
+              f"{args.metrics_out}")
+    if telemetry.memory is not None:
+        reg = telemetry.registry
+        rss = reg.get("serve_host_rss_peak_bytes").value / 2**20
+        dev_mb = reg.get("serve_device_peak_bytes").value / 2**20
+        print(f"memory: host rss peak {rss:.0f} MiB"
+              + (f", device peak {dev_mb:.0f} MiB" if dev.type == "cuda"
+                 else " (no device allocator on the CPU)"))
+    if args.warm:
+        retr = telemetry.watchdog.retraces
+        print(f"retraces: {retr} mid-serve (call signatures: "
+              + ", ".join(f"{k}={v}" for k, v in
+                          telemetry.watchdog.cache_sizes().items()) + ")")
+        if args.expect_no_retraces and retr > 0:
+            raise SystemExit(
+                f"{retr} entry-point signatures (or kernel builds) appeared "
+                "mid-serve, after the warm-up baseline")
     return outs
 
 

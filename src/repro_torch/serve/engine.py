@@ -33,8 +33,21 @@ The engine owns its slot-stacked state and updates it in place (the
 reference donates it); the protocol-level functions keep value
 semantics.
 
-Not ported: the prefix cache and failover recovery (ROADMAP A.7), the
-serving plan / mesh (A.9). Passing a prefix cache or a plan raises.
+With a ``PrefixCache`` attached (legal when the model's
+``snapshot_granularity`` is not None: polysketch), admission looks up the
+longest cached prefix of each prompt, restores its snapshot and prefills
+only the rest, seeding B1 with the restored state; a shared system prompt
+costs its prefill once, then a dictionary lookup, across restarts too
+when the cache has a ``save_dir``. Tokens are the same bits as a cold
+prefill's (the block grid, core.state).
+
+Observability (serve/telemetry.py): the registry is the accounting; with
+``Telemetry(trace=True)`` the tracer records tick phases, per-slot
+request timelines and cache events; the retrace watchdog counts new call
+signatures of the engine's entry points and kernel builds after warm-up.
+
+Not ported: failover recovery and the serving plan / mesh (ROADMAP A.9).
+Passing a plan raises.
 """
 from __future__ import annotations
 
@@ -46,12 +59,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import (SamplingParams, device_scalars,
                                         init_slot_keys, init_slot_sampling,
                                         request_key, sample_first,
                                         sample_step, set_slot, token_logprobs)
 from repro_torch.serve.scheduler import PrefillScheduler, to_device
-from repro_torch.serve.telemetry import Telemetry
+from repro_torch.serve.telemetry import CallSignatures, Telemetry
 
 def make_serve_fns(model):
     """Returns (prefill_fn, decode_fn), the single-shot serving functions.
@@ -229,25 +244,34 @@ class ServeEngine:
     `prefill_budget` (prompt tokens a tick, None = unlimited) bounds the
     admission work dispatched ahead of each decode step; `overlap=True`
     reads tokens one tick late (see the module docstring).
+
+    `prefix_cache` attaches a PrefixCache (see the module docstring);
+    `min_snapshot_blocks` is its admission floor: only prefixes of at
+    least that many blocks are snapshotted or promoted. `telemetry`
+    carries the registry, tracer, watchdog and memory sampler; the default
+    `Telemetry()` keeps tracing and memory sampling off. One Telemetry
+    per engine.
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 4096,
-                 logprobs: bool = False, prefill_budget: int | None = None,
-                 overlap: bool = False, prefix_cache=None, plan=None):
-        if prefix_cache is not None:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP A.7)")
+                 prefix_cache: PrefixCache | None = None,
+                 min_snapshot_blocks: int = 1, logprobs: bool = False,
+                 prefill_budget: int | None = None, overlap: bool = False,
+                 telemetry: Telemetry | None = None, plan=None):
         if plan is not None:
             raise NotImplementedError(
                 "a serving plan / mesh is not ported yet (ROADMAP A.9)")
         if slots < 1:
             raise ValueError("need at least one decode slot")
+        if min_snapshot_blocks < 1:
+            raise ValueError("min_snapshot_blocks must be >= 1")
         self.model = model
         self.cfg = model.cfg
         self.state = state = model.state
         self.device = dev = model.device
         self.slots = slots
         self.max_len = max_len
+        self.min_snapshot_blocks = min_snapshot_blocks
         self.logprobs = logprobs
         self.overlap = overlap
         self.queue: deque[Request] = deque()
@@ -255,7 +279,8 @@ class ServeEngine:
         self._next_rid = 0
         self._slots = [_Slot() for _ in range(slots)]
         self._pending: _TickRecord | None = None  # overlap double buffer
-        self.telemetry = Telemetry()
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        tr = self.telemetry.tracer
 
         # Device state: the slot-stacked cache (batch axis = slots, one
         # position each), the next token to feed each slot, each slot's
@@ -272,6 +297,26 @@ class ServeEngine:
             self._active = torch.zeros(slots, dtype=torch.bool, device=dev)
         self._active_host = np.zeros(slots, dtype=bool)
 
+        self.prefix_cache = prefix_cache
+        if prefix_cache is not None:
+            if state.snapshot_granularity is None:
+                raise ValueError(
+                    "prefix cache requires a snapshot-capable decode state "
+                    f"(config {self.cfg.name!r}, state kinds "
+                    f"{'/'.join(state.kinds)} declare no constant-size "
+                    "snapshot)")
+            prefix_cache.bind_block_size(state.block_size)
+            # snapshots are weight- and shape-specific: the binding
+            # fingerprints the snapshot leaves' shapes, read from a fresh
+            # slot's state
+            sig = repr(state.snapshot_signature(max_len)).encode()
+            prefix_cache.bind_params(model.lm, state_sig=sig)
+            prefix_cache.bind_codec(state.serialize, state.deserialize)
+            prefix_cache.attach_tracer(tr)
+        # distinct resumed-chunk lengths ever dispatched (bounded by the
+        # power-of-two bucketing)
+        self._resume_lens: set[int] = set()
+
         def prefill(tokens):
             return state.prefill(to_device(tokens, dev),
                                  state.init_slot(self.max_len))
@@ -279,10 +324,38 @@ class ServeEngine:
         def resume(tokens, cache, pos0):
             return state.resume(to_device(tokens, dev), cache, pos0)
 
+        def restore(snapshot, n_tokens):
+            return state.restore(state.init_slot(self.max_len), snapshot,
+                                 n_tokens)
+
+        def decode(tokens, pos, caches):
+            return state.decode_step(tokens, pos, caches, inplace=True)
+
+        # the entry points count their call signatures, the port's jit
+        # caches: the retrace watchdog reads growth after reset_stats()
+        # (warm-up done) as a live tick meeting a new shape; a kernel
+        # library built or loaded mid-serve counts too
+        self._prefill = CallSignatures(prefill)
+        self._prefill_resume = CallSignatures(resume)
+        self._fresh_slot = CallSignatures(lambda: state.init_slot(self.max_len))
+        self._restore = CallSignatures(restore)
+        self._install_slot = CallSignatures(self._install_impl)
+        self._decode = CallSignatures(decode)
+        for name, fn in (("prefill", self._prefill),
+                         ("prefill_resume", self._prefill_resume),
+                         ("fresh_slot", self._fresh_slot),
+                         ("restore", self._restore),
+                         ("install_slot", self._install_slot),
+                         ("decode", self._decode),
+                         ("kernel_libraries", build.LOADED)):
+            self.telemetry.watchdog.register(name, fn)
+
         self.scheduler = PrefillScheduler(
-            state, prefill_fn=prefill, resume_fn=resume,
-            fresh_fn=lambda: state.init_slot(self.max_len),
-            budget=prefill_budget)
+            state, prefill_fn=self._prefill, resume_fn=self._prefill_resume,
+            fresh_fn=self._fresh_slot, restore_fn=self._restore,
+            prefix_cache=prefix_cache,
+            min_snapshot_blocks=min_snapshot_blocks, budget=prefill_budget,
+            resume_lens=self._resume_lens, tracer=tr)
 
         reg = self.telemetry.registry
         self._m_prefills = reg.counter(
@@ -325,8 +398,32 @@ class ServeEngine:
         reg.counter("serve_scheduler_chunk_tokens_total",
                     "prompt tokens dispatched as chunks",
                     fn=lambda: sch.chunk_tokens)
+        reg.counter("serve_scheduler_coalesced_total",
+                    "admissions parked on an in-flight shared prefix",
+                    fn=lambda: sch.coalesced)
+        reg.counter("serve_scheduler_promote_splits_total",
+                    "prefix-cache promote splits planned",
+                    fn=lambda: sch.promotes)
         reg.gauge("serve_scheduler_inflight", "prefills in flight",
                   fn=lambda: float(len(sch.jobs)))
+        reg.gauge("serve_scheduler_parked", "prefills parked on an "
+                  "in-flight shared prefix",
+                  fn=lambda: float(sum(j.waiting for j in sch.jobs)))
+        if prefix_cache is not None:
+            pc = prefix_cache
+            reg.counter("serve_prefix_cache_lookups_total",
+                        "prefix-cache probes", fn=lambda: pc.lookups)
+            reg.counter("serve_prefix_cache_hits_total",
+                        "probes that restored a snapshot",
+                        fn=lambda: pc.hits)
+            reg.counter("serve_prefix_cache_hit_tokens_total",
+                        "prompt tokens skipped via snapshot restore",
+                        fn=lambda: pc.hit_tokens)
+            reg.counter("serve_prefix_cache_evictions_total",
+                        "snapshots evicted", fn=lambda: pc.evictions)
+            reg.counter("serve_prefix_disk_corrupt_total",
+                        "disk-tier snapshots quarantined as corrupt",
+                        fn=lambda: pc.disk_corrupt)
         # gap anchor: the previous tick's read within the current busy
         # streak; None across idle periods
         self._gap_anchor: float | None = None
@@ -355,9 +452,15 @@ class ServeEngine:
                 f"exceeds engine max_len={self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
-        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id,
-                                  time.perf_counter(),
-                                  sampling or SamplingParams()))
+        req = Request(rid, prompt, max_new_tokens, eos_id,
+                      time.perf_counter(), sampling or SamplingParams())
+        self.queue.append(req)
+        tr = self.telemetry.tracer
+        if tr:
+            tr.instant("queue", "submit", rid=rid,
+                       prompt_len=int(prompt.shape[0]),
+                       max_new=int(max_new_tokens),
+                       sampling=req.sampling.describe())
         return rid
 
     @property
@@ -391,6 +494,11 @@ class ServeEngine:
         self._clear_slot(slot)
         self.finished.append(out)
         self._m_finished.labels(reason=reason).inc()
+        tr = self.telemetry.tracer
+        if tr:
+            tr.end(f"slot{si}", rid=out.rid, reason=reason)  # decode span
+            tr.instant(f"slot{si}", "retire", rid=out.rid, reason=reason,
+                       tokens=int(len(out.tokens)))
         return out
 
     def _check_finished(self, si: int) -> RequestOutput | None:
@@ -416,31 +524,41 @@ class ServeEngine:
             self.scheduler.start(req, si)
 
     def _install(self, job):
-        """Completed prefill -> slot device state, all on the device: the
-        first token sampled off the final chunk's logits with the request's
-        stream key (made on the host from its seed and written by fills, so
-        placement never changes the tokens), the cache written into the
-        slot, and the slot's token, position, key and params. Returns the
-        first token and its log-probability (device tensors, (1,) each)."""
+        """Completed prefill -> slot device state (_install_impl, through
+        its signature counter). Returns (slot, rid, first token, its
+        log-probability), the last two device tensors of shape (1,)."""
         req, si = job.req, job.slot
+        tok, lp = self._install_slot(job.part.state, job.part.logits, si, req)
+        self._slots[si].prefilling = False
+        self._m_prefills.inc()
+        if not req.sampling.is_greedy:
+            self._m_sampled.inc()
+        tr = self.telemetry.tracer
+        if tr:
+            tr.end(f"slot{si}", rid=req.rid)  # prefill span
+            tr.begin(f"slot{si}", "decode", rid=req.rid,
+                     prompt_len=int(req.prompt.shape[0]))
+        return si, req.rid, tok, lp
+
+    def _install_impl(self, cache, logits, si: int, req: Request):
+        """All on the device: the first token sampled off the final chunk's
+        `logits` with the request's stream key (made on the host from its
+        seed and written by fills, so placement never changes the tokens),
+        `cache` written into slot `si`, and the slot's token, position, key
+        and params."""
         sp = req.sampling
         k0, k1 = request_key(sp.seed).tolist()
         key = self._keys[si:si + 1]
         key[0, 0].fill_(k0)
         key[0, 1].fill_(k1)
         samp = set_slot(self._samp, si, sp)
-        tok, new_key, lp = sample_first(job.part.logits, key, samp,
+        tok, new_key, lp = sample_first(logits, key, samp,
                                         logprobs=self.logprobs)
         key.copy_(new_key)
-        self.state.slot_scatter(self._caches, job.part.state, si,
-                                inplace=True)
+        self.state.slot_scatter(self._caches, cache, si, inplace=True)
         self._tokens[si].copy_(tok)
         self._pos[si].fill_(int(req.prompt.shape[0]))
-        self._slots[si].prefilling = False
-        self._m_prefills.inc()
-        if not sp.is_greedy:
-            self._m_sampled.inc()
-        return si, req.rid, tok, lp
+        return tok, lp
 
     def cancel(self, rid: int):
         """Withdraw a request that has not yet produced a token: queued or
@@ -450,6 +568,8 @@ class ServeEngine:
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 del self.queue[i]
+                if self.telemetry.tracer:
+                    self.telemetry.tracer.instant("queue", "drop", rid=rid)
                 return req
         for si, slot in enumerate(self._slots):
             if (slot.request is not None and slot.request.rid == rid
@@ -463,14 +583,20 @@ class ServeEngine:
                 return req
         return None
 
-    def _note_token(self, slot: _Slot, now: float):
+    def _note_token(self, slot: _Slot, now: float) -> float | None:
+        """Returns this token's inter-token latency in ms (None for a
+        request's first token)."""
+        itl_ms = None
         if slot.last_tok_s is not None:
-            self._m_itl.observe((now - slot.last_tok_s) * 1e3)
+            itl_ms = (now - slot.last_tok_s) * 1e3
+            self._m_itl.observe(itl_ms)
         slot.last_tok_s = now
+        return itl_ms
 
     def _append_firsts(self, firsts, values, done, now: float):
         """Record admissions' first tokens: (slot, rid, column) into the
         host copy's `values`."""
+        tr = self.telemetry.tracer
         for si, rid, col in firsts:
             slot = self._slots[si]
             req = slot.request
@@ -483,6 +609,9 @@ class ServeEngine:
             self._m_ttft.observe(slot.ttft_s * 1e3)
             self._m_tokens.inc()
             self._note_token(slot, now)
+            if tr:
+                tr.instant(f"slot{si}", "first_token", rid=rid,
+                           ttft_ms=round(slot.ttft_s * 1e3, 3))
             fin = self._check_finished(si)
             if fin is not None:
                 done.append(fin)
@@ -513,8 +642,8 @@ class ServeEngine:
                          for a, s in zip(active, self._slots))
         t0 = time.perf_counter()
         self._set_active(active)
-        logits, self._caches = self.state.decode_step(
-            self._tokens, self._pos, self._caches, inplace=True)
+        logits, self._caches = self._decode(self._tokens, self._pos,
+                                            self._caches)
         keys = self._keys
         if all_greedy:
             # greedy slots never read their keys: leaving them is not
@@ -546,8 +675,13 @@ class ServeEngine:
         admissions recorded on this tick are appended first; a slot whose
         request retired (or was replaced) since dispatch fails the rid
         check and its speculative token is dropped."""
+        tr = self.telemetry.tracer
+        if tr:
+            tr.begin("tick", "host_sync")
         values = rec.copy.read()
         now = time.perf_counter()
+        if tr:
+            tr.end("tick", slots=int(rec.active.sum()))
         t_ref = (rec.t_dispatch if self._last_sync is None
                  else max(rec.t_dispatch, self._last_sync))
         self._m_decode_s.inc(now - t_ref)
@@ -555,6 +689,8 @@ class ServeEngine:
         if self._gap_anchor is not None:
             self._m_tick_gap.observe((now - self._gap_anchor) * 1e3)
         self._gap_anchor = now
+        if tr:
+            tr.begin("tick", "retire")
         self._append_firsts(rec.firsts, values, done, now)
         for si, slot in enumerate(self._slots):
             if not rec.active[si]:
@@ -566,10 +702,15 @@ class ServeEngine:
             if self.logprobs:
                 slot.lps.append(float(values[1, si]))
             self._m_tokens.inc()
-            self._note_token(slot, now)
+            itl_ms = self._note_token(slot, now)
+            if tr:
+                tr.instant(f"slot{si}", "token", rid=req.rid,
+                           itl_ms=round(itl_ms, 3) if itl_ms else 0.0)
             fin = self._check_finished(si)
             if fin is not None:
                 done.append(fin)
+        if tr:
+            tr.end("tick", retired=len(done))
         if not any(s.decoding for s in self._slots) and self._pending is None:
             # busy streak over: the wait for the next admission is idle
             # time, not a decode stall
@@ -590,27 +731,48 @@ class ServeEngine:
 
         Returns requests that finished this tick."""
         done: list[RequestOutput] = []
+        tr = self.telemetry.tracer
+        if tr:
+            tr.begin("tick", "tick", n=int(self._m_ticks.value))
+            tr.begin("tick", "plan")
         self._start_admissions()
+        if tr:
+            tr.end("tick")
+            tr.begin("tick", "chunk_dispatch")
         t0 = time.perf_counter()
         firsts = [self._install(job) for job in self.scheduler.tick()]
+        if not self.overlap and firsts:
+            # lockstep: all admissions' first tokens in one copy
+            copy = _HostCopy(torch.cat(
+                [self._pack(tok, lp) for _, _, tok, lp in firsts], dim=1))
+            values = copy.read()
+        if tr:
+            tr.end("tick", installs=len(firsts))
+        self._m_prefill_s.inc(time.perf_counter() - t0)
         if self.overlap:
-            self._m_prefill_s.inc(time.perf_counter() - t0)
+            if tr:
+                tr.begin("tick", "decode_dispatch")
             rec = self._dispatch_decode(firsts)
+            if tr:
+                tr.end("tick")
             prev, self._pending = self._pending, rec
             if prev is not None:
                 self._sync_record(prev, done)
         else:
             if firsts:
-                copy = _HostCopy(torch.cat(
-                    [self._pack(tok, lp) for _, _, tok, lp in firsts], dim=1))
-                values = copy.read()
                 meta = [(si, rid, i) for i, (si, rid, _, _) in
                         enumerate(firsts)]
                 self._append_firsts(meta, values, done, time.perf_counter())
-            self._m_prefill_s.inc(time.perf_counter() - t0)
+            if tr:
+                tr.begin("tick", "decode_dispatch")
             rec = self._dispatch_decode([])
+            if tr:
+                tr.end("tick")
             if rec is not None:
                 self._sync_record(rec, done)
+        if tr:
+            tr.end("tick")  # the tick span
+        self.telemetry.on_tick()
         return done
 
     def run(self) -> list[RequestOutput]:
@@ -626,12 +788,16 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def reset_stats(self):
-        """Zero the accounting (e.g. after a warm-up run)."""
+        """Zero the accounting (e.g. after a warm-up run) and mark the
+        entry points steady: a call signature or kernel library first seen
+        after this point is a mid-serve retrace the watchdog counts."""
         self.finished = []
         self._gap_anchor = None
         self._last_sync = None
         self.telemetry.reset()
         self.scheduler.reset_stats()
+        if self.prefix_cache is not None:
+            self.prefix_cache.reset_stats()
 
     # histogram bucket edges (milliseconds, final bucket open-ended);
     # Prometheus `le` semantics
@@ -653,7 +819,7 @@ class ServeEngine:
                          + sum(max(len(s.emitted) - 1, 0) for s in live))
         decode_s = self._m_decode_s.value
         gap_p = self._m_tick_gap.percentiles()
-        return {
+        out = {
             "requests": len(self.finished),
             "active_requests": len(live),
             "generated_tokens": gen_tokens,
@@ -670,5 +836,9 @@ class ServeEngine:
                           "counts": self._m_ttft.counts},
             "tick_gap_ms": {**gap_p, "median": gap_p["p50"],
                             "max": self._m_tick_gap.max},
+            "retraces": self.telemetry.watchdog.retraces,
             "scheduler": self.scheduler.stats(),
         }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
+        return out

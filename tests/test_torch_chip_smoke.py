@@ -1,9 +1,12 @@
 """The bounds `chip_smoke.py` reports beside each kernel's time, computed on
 the CPU from the shapes alone (no card, no JAX): the least time an H100
-could take, on the tensor-core route (3xTF32) and on the f32 FMA pipes."""
+could take, on the tensor-core route (3xTF32) and on the f32 FMA pipes;
+and the reckonings its phases make from shapes (long-context memory, the
+prefix phase's snapshot bytes and launches)."""
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -101,3 +104,34 @@ def test_long_context_reckoning_on_an_80_gb_card(chip_smoke, name, seq, fits):
     assert (need <= chip_smoke.LONG_FIT_SHARE * 79.2) == fits, need
     if name == "gpt2s-softmax":
         assert need > 3 * chip_smoke.s2_gib(1, 12, seq)
+
+
+def test_prefix_phase_reckoning(chip_smoke):
+    """Phase 9's CPU-checkable parts: one snapshot of gpt2s-polysketch at
+    full width is 13 layers x 12 kv heads x 32^2 x 65 x 4 B, the same as a
+    real snapshot's bytes; every request's prompt is the 3072-token system
+    prompt plus a 256-1023-token suffix, so each hit restores 3 blocks and
+    prefills one (B1 once a layer), and no measured request inserts (its
+    truncation is the system prompt), so the memory-tier run writes no
+    disk file."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.prefix_cache import snapshot_nbytes
+    cfg = get_config("gpt2s-polysketch")
+    assert chip_smoke.reckon_snapshot_bytes(cfg) == 41_533_440
+    meta = build_model(cfg, device="meta")
+    snap = meta.state.snapshot(meta.state.init_slot(4096))
+    assert snapshot_nbytes(snap) == 41_533_440
+    prompts, warm, samp = chip_smoke.prefix_workload(cfg.vocab_size)
+    blk, shared = cfg.lt_block_size, chip_smoke.PREFIX_SHARED
+    assert len(prompts) == len(warm) == 8 and shared == 3 * blk
+    for p, w in zip(prompts, warm):
+        assert np.array_equal(p[:shared], prompts[0][:shared])
+        assert np.array_equal(w[:shared], p[:shared]) and len(w) == len(p)
+        assert not np.array_equal(w, p)
+        assert 256 <= len(p) - shared < 1024 and len(p) // blk * blk == shared
+        assert len(p) + chip_smoke.ENGINE_GEN <= max(chip_smoke.ENGINE_LENS) + \
+            chip_smoke.ENGINE_GEN
+    assert sum(not s.is_greedy for s in samp) == 4
+    cold = sum(-(-len(p) // blk) for p in prompts)
+    assert cold == 32 and sum(-(-(len(p) - shared) // blk) for p in prompts) == 8

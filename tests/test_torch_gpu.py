@@ -580,6 +580,65 @@ def test_engine_runs_the_kernels_and_no_plain_version(card, attention, kernel,
     assert wrapper.launches > before and not calls
 
 
+def _shared_prefix_run(model, prefix_cache=None, telemetry=None):
+    """Six requests sharing a 4-block prefix (SMOKE block 16), half sampled,
+    on 3 slots with overlap and a one-block budget: outputs by request."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sampling import SamplingParams
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, 128, 64)
+    prompts = [np.concatenate([shared, rng.integers(0, 128, 9 + 5 * i)])
+               for i in range(6)]
+    eng = ServeEngine(model, slots=3, max_len=160, logprobs=True,
+                      overlap=True, prefill_budget=16,
+                      prefix_cache=prefix_cache, telemetry=telemetry)
+    rid_of = {eng.submit(p, 6, sampling=SamplingParams(
+        temperature=0.8, top_k=40, top_p=0.95, seed=i) if i % 2 else None): i
+        for i, p in enumerate(prompts)}
+    return {rid_of[o.rid]: o for o in eng.run()}, eng
+
+
+def test_engine_prefix_hits_equal_a_cold_run_bit_for_bit(card, tmp_path):
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.telemetry import Telemetry, validate_trace
+    model = build_model(get_config("gpt2s-polysketch", smoke=True),
+                        device=card, seed=8)
+    cold, _ = _shared_prefix_run(model)
+    for _ in range(2):   # the memory tier, then a restart from the disk tier
+        tel = Telemetry(trace=True, memory=True)
+        warm, eng = _shared_prefix_run(
+            model, PrefixCache(1 << 24, save_dir=str(tmp_path)), tel)
+        for i, o in cold.items():
+            np.testing.assert_array_equal(warm[i].tokens, o.tokens)
+            np.testing.assert_array_equal(warm[i].logprobs, o.logprobs)
+        st = eng.stats()
+        assert st["prefix_cache"]["hits"] >= 3 and st["retraces"] == 0
+        assert validate_trace(tel.export_trace()) == []
+        assert tel.registry.get("serve_device_peak_bytes").value > 0
+    assert st["prefix_cache"]["disk_loads"] >= 1
+
+
+def test_stored_snapshots_are_never_aliased_on_the_card(card):
+    from repro_torch.serve.prefix_cache import PrefixCache
+    model = build_model(get_config("gpt2s-polysketch", smoke=True),
+                        device=card, seed=9)
+    pc = PrefixCache(1 << 24)
+    _, eng = _shared_prefix_run(model, pc)
+    keep = {k: [z.clone() for z in e.snapshot] for k, e in pc._entries.items()}
+    pc.reset_stats()
+    _, again = _shared_prefix_run(model, pc)   # every request restores, decodes
+    assert again.stats()["prefix_cache"]["hits"] == 6
+    for k, zs in keep.items():
+        assert all(torch.equal(a, b) for a, b in zip(pc._entries[k].snapshot, zs))
+    st = model.state
+    _, cache = st.prefill(torch.arange(35, device=card)[None] % 128, max_len=64)
+    snap = st.snapshot(cache)
+    restored = st.restore(st.init_slot(64), snap, 32)
+    ptrs = {z.untyped_storage().data_ptr() for z in snap}
+    assert not any(n.z.untyped_storage().data_ptr() in ptrs
+                   for n in list(cache) + list(restored))
+
+
 # ---------------------------------------------------------------------------
 # rematerialisation and the 32k context
 # ---------------------------------------------------------------------------

@@ -189,12 +189,12 @@ def test_submit_rejects_invalid_requests_and_unported_options(smoke_model):
         eng.submit(np.zeros(3, np.int64), 0)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.zeros(10, np.int64), 7)
-    for kw, item in ((dict(prefix_cache=object()), "A.7"),
-                     (dict(plan=object()), "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(smoke_model, **kw)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        ServeEngine(smoke_model, plan=object())
     with pytest.raises(ValueError, match="slot"):
         ServeEngine(smoke_model, slots=0)
+    with pytest.raises(ValueError, match="min_snapshot_blocks"):
+        ServeEngine(smoke_model, min_snapshot_blocks=0)
 
 
 def test_stats_and_metrics_registry_agree(smoke_model):
@@ -254,8 +254,8 @@ def test_serve_cli_sampled_run_and_logprobs(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--replicas", "2"],
-                                  ["--prefix-cache-mb", "8"],
-                                  ["--trace-out=x.json"]])
+                                  ["--checkpoint-blocks", "2"],
+                                  ["--chaos=kill@3"]])
 def test_serve_cli_rejects_unported_flags(flag):
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:

@@ -4,7 +4,9 @@ gpt2s-softmax and train all three at full width, at 2 x 4096 and at
 32,768 tokens a step from 4k to 32k context, serve the registry's four
 dense polysketch models (head width 128, bf16) at their published widths
 and train starcoder2-3b in bf16, serve a shared system prompt through the
-prefix cache with tracing on, and check the port against itself.
+prefix cache with tracing on, serve and train the two recurrent families
+(mamba2-780m, recurrentgemma-9b) in bf16, and check the port against
+itself.
 
     python3 chip_smoke.py
 
@@ -124,6 +126,32 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      tracing on, B's trace valid, no retrace after the warm-up, and one
      snapshot's bytes as reckoned (41,533,440). The row of B1 in the JSON
      line carries the three runs' launches under `prefix_cache_launches`.
+ 10. the recurrent families (after phase 8; plain ops, no port kernel on
+     their paths): mamba2-780m (48 SSD layers) and recurrentgemma-9b (38
+     layers of rglru, rglru, local_attn with its 2-layer tail) at their
+     published widths and depths in bf16, seeded weights drawn on the
+     card, each served through ServeEngine (4 requests on 2 slots,
+     prompts 4096 / 1024 / 3072 / 2048, the 4096 one wrapping the
+     2048-slot ring; 16 new, two greedy and two sampled): no port-kernel
+     launch and no plain-version call, the served log-probabilities
+     against a train-mode forward (the same weights served in f32: 1e-3
+     nats; bf16: a fixed limit for each model, REC_BF16_LIMITS), the
+     4096-token request's whole logit rows served through DecodeState
+     (the prefill's every row, then teacher-forced decode steps) against
+     the train-mode forward's, max|diff| / max|logit| and every next
+     token's log-probability (f32: 1e-4 and 1e-3 nats; bf16: the fixed
+     limits, which a control with its recurrent states rounded to
+     float8_e5m2 must fail), at most one host sync and one device-to-host
+     copy a profiled decode tick; prefix reuse at token granularity (4 requests sharing a
+     2048-token system prompt, 300-700-token suffixes, no cache vs a 512
+     MiB memory tier after a warm-up): bit for bit, hits, snapshots of
+     76,455,936 / 26,230,784 B, a resume at 2048 equal to the cold
+     prefill; SMOKE greedy tokens card = CPU (f32); training at 1 x 4096
+     Markov tokens, bf16 (mamba2 at full depth, remat "dots", 1 + 3
+     steps; recurrentgemma at the most whole groups that fit, remat
+     "full", 1 + 2): step ms, tokens/s, peak GiB, no port kernel, two
+     runs bit for bit, and at one group one step's gradients and two
+     steps' losses under "dots" and "full" equal "none"'s bit for bit.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -2199,6 +2227,634 @@ def phase_dense_train(card, arch="starcoder2-3b"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the recurrent families (mamba2-780m's SSD; recurrentgemma-9b's
+# RG-LRU and sliding-window ring attention) served and trained at their
+# published widths, bf16, in plain PyTorch ops (no port kernel on the path)
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
+REC_LENS = (4096, 1024, 3072, 2048)       # requests 0, 1 greedy; 2, 3 sampled
+REC_SLOTS, REC_GEN, REC_BUDGET = 2, 16, 2048
+# The served path against a train-mode forward of the same weights, as
+# phases 5 and 7 hold theirs: the engine's log-probabilities of the emitted
+# tokens (nats), and (rec_rows) whole logit rows of the 4096-token request
+# served through DecodeState's own steps (a prefill on the block grid, every
+# row kept, wrapping recurrentgemma's ring, then teacher-forced decode
+# steps past the wrap) against the train-mode forward's rows: max|diff|
+# over max|logit| (phase 7's measure) and the log-probability of every next
+# token, the prompt's included (with random weights a model mostly repeats
+# its input token, so an emitted token's log-probability lies near 0 while
+# a prompt token's does not). In f32 within REC_LP_TOL and F32_TOL.
+REC_LP_TOL = ENGINE_LP_TOL
+# In bf16, the published dtype, every layer rounds its output to bf16 and
+# the logits are bf16 (spacing 2^-5 at |logit| 4-8, 2^-3 at 16-32), so the
+# two lowerings part by whole bf16 steps that the layers carry on. The
+# limits, (engine log-probabilities in nats, rows' max|diff| / max|logit|,
+# rows' next-token log-probabilities in nats) for each model, are fixed
+# numbers set from this phase's readings on the H100 (PERF.md §6):
+# above the sound run's, and failed by a control computed in lower
+# precision (every recurrent state rounded to float8_e5m2 after each
+# prefill block and decode step), which runs here and must fail a row
+# limit; the bf16 train-mode forward against the f32 one is read beside
+# them. Readings:
+# mamba2 engine 0.0627 (train-mode bf16 vs f32 at those tokens 0.122), rows
+# 2.92e-2 / 0.117 (train-mode bf16 vs f32 3.87e-2 / 0.138, the control
+# 3.11e-2 / 0.137); recurrentgemma engine 4.9e-6, rows 7.9e-3 / 0.234
+# (train-mode bf16 vs f32 7.9e-3 / 0.234, the control 4.63e-2 / 0.281).
+# recurrentgemma's engine log-probabilities meet the f32 limit;
+# mamba2's do not meet 1e-2 nats in bf16 (in f32 they lie within 2.1e-5).
+REC_BF16_LIMITS = {"mamba2-780m": (0.09, 0.034, 0.127),
+                   "recurrentgemma-9b": (REC_LP_TOL, 2e-2, 0.26)}
+REC_SHARED, REC_SUFFIX = 2048, (300, 701)  # the shared system prompt, suffix lengths
+REC_TRAIN_SEQ = 4096
+REC_TRAIN_STEPS = {"mamba2-780m": 3, "recurrentgemma-9b": 2}
+
+
+def reckon_recurrent_snapshot_bytes(cfg, max_len) -> int:
+    """One slot's decode state, the whole of a recurrent model's snapshot:
+    per SSD layer h (heads, N, P) f32 and the conv window (K-1, d_inner+2N);
+    per RG-LRU layer h (w,) f32 and its 3-token conv window (3, w); per
+    local-attention layer the ring's k and v, (kv heads, min(W, max_len),
+    h) each; windows and rings in the compute dtype."""
+    item = torch.tensor([], dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    d_inner = cfg.ssm_expand * cfg.d_model
+    w = cfg.rglru_width or cfg.d_model
+    per = {"ssd": 4 * d_inner * cfg.ssm_state
+           + item * (cfg.ssm_conv - 1) * (d_inner + 2 * cfg.ssm_state),
+           "rglru": 4 * w + item * 3 * w,
+           "local_attn": 2 * item * cfg.n_kv_heads * min(cfg.sliding_window, max_len)
+           * cfg.resolved_head_dim}
+    g = len(cfg.block_pattern)
+    return sum(per[cfg.block_pattern[i % g]] for i in range(cfg.n_layers))
+
+
+def group_split(cfg):
+    """(parameters of one pattern group, the rest: embedding and final
+    norm), counted on the meta device."""
+    lm = build_model(cfg.replace(n_layers=len(cfg.block_pattern)), device="meta").lm
+    group = sum(p.numel() for layer in lm.layers for p in layer.parameters())
+    return group, sum(p.numel() for p in lm.parameters()) - group
+
+
+def rec_train_groups(cfg) -> int:
+    """The most whole pattern groups (at least one, at most the published
+    depth's) that train at 16 bytes a parameter (f32 weights, gradients and
+    AdamW's m and v) plus DENSE_TRAIN_ACT_GIB a layer, in DENSE_SHARE of
+    the card beside DENSE_TRAIN_RESERVE_GIB (logits, casts, the clipped
+    gradients' copy)."""
+    group, rest = group_split(cfg)
+    g = len(cfg.block_pattern)
+    room = DENSE_SHARE * card_gib() - DENSE_TRAIN_RESERVE_GIB - 16 * rest / 2**30
+    fit = int(room // (16 * group / 2**30 + g * DENSE_TRAIN_ACT_GIB))
+    return max(1, min(cfg.n_layers // len(cfg.block_pattern), fit))
+
+
+def rec_model(cfg, **kw):
+    gc.collect()
+    torch.cuda.empty_cache()
+    return build_model(cfg, device="cuda", seed=0, draw_on_device=True, **kw)
+
+
+def rec_engine(model, max_len, **kw):
+    return ServeEngine(model, slots=REC_SLOTS, max_len=max_len, logprobs=True,
+                       prefill_budget=REC_BUDGET, overlap=True, **kw)
+
+
+def rec_samp():
+    return [SamplingParams() if i < 2 else SamplingParams(seed=100 + i, **ENGINE_SAMPLED)
+            for i in range(4)]
+
+
+def rec_serve_run(eng, prompts, samp):
+    """Serve the 4 requests through `eng` (all at t = 0), with every
+    kernel's launches and the plain versions' calls counted over exactly
+    the run. Returns ({request: RequestOutput}, wall s, launches, plain
+    calls)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rid_of = {eng.submit(p, REC_GEN, sampling=sp): i
+                  for i, (p, sp) in enumerate(zip(prompts, samp))}
+        outs = {rid_of[o.rid]: o for o in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return outs, wall, counts(), plain.calls
+
+
+def twin(model, dtype):
+    """The same weights (shared, not copied) under another compute dtype."""
+    cfg = model.cfg.replace(compute_dtype=dtype)
+    other = build_model(cfg, device="meta")
+    other.lm.load_state_dict(model.lm.state_dict(), assign=True)
+    return other
+
+
+def train_logprobs(model, prompt, tokens):
+    """log_softmax of a train-mode forward over prompt + tokens[:-1], at each
+    emitted token (f32, numpy)."""
+    seq = torch.from_numpy(np.concatenate([prompt, tokens[:-1]]))[None].cuda()
+    with torch.inference_mode():
+        logits, _ = model.lm(seq, mode="train")
+        rows = logits[0, len(prompt) - 1:].float()
+        lp = torch.log_softmax(rows, dim=-1).gather(
+            1, torch.from_numpy(tokens.astype(np.int64)).cuda()[:, None])[:, 0]
+        return lp.cpu().numpy()
+
+
+def row_errs(rows, want, nxt, chunk=512):
+    """(max|rows - want|, the largest |difference| of log_softmax at each
+    row's next token `nxt`), over rows (n, V) and want (n, V), in f32 a
+    chunk of rows at a time."""
+    diff = lp = 0.0
+    for s in range(0, rows.shape[0], chunk):
+        r, w = rows[s:s + chunk].float(), want[s:s + chunk].float()
+        t = nxt[s:s + chunk, None]
+        diff = max(diff, (r - w).abs().max().item())
+        d = torch.log_softmax(r, -1).gather(1, t) - torch.log_softmax(w, -1).gather(1, t)
+        lp = max(lp, d.abs().max().item())
+    return diff, lp
+
+
+def train_rows(model, seq):
+    """A train-mode forward's logits over seq[:-1], (len(seq) - 1, V)."""
+    with torch.inference_mode():
+        return model.lm(seq[None, :-1], mode="train")[0][0]
+
+
+def rec_rows(model, seq, plen, want, state_dtype=None):
+    """The serving path over seq[:-1] (a prompt of `plen` tokens, then the
+    emitted ones), through DecodeState's own steps: the prefill on the
+    block grid with every row of each block kept, then teacher-forced
+    decode steps; each row against `want` (train_rows). With a
+    `state_dtype`, every f32 recurrent state h is rounded to it after each
+    block and step: the caches' precision dropped. Returns (max|diff| over
+    max|want|, the largest |log-probability difference| of a next token,
+    nats)."""
+    st, top = model.state, want.float().abs().max().item()
+    diff = lp = 0.0
+
+    def hold(rows, at, state):
+        nonlocal diff, lp
+        d, p = row_errs(rows, want[at:at + rows.shape[0]], seq[at + 1:at + 1 + rows.shape[0]])
+        diff, lp = max(diff, d), max(lp, p)
+        if state_dtype is not None:
+            for node in state:
+                if isinstance(node, dec.RecurrentCache):
+                    node.h.copy_(node.h.to(state_dtype))
+
+    state = st.init(1, len(seq))
+    with torch.inference_mode():
+        for s in range(0, plen, st.block_size):
+            e = min(plen, s + st.block_size)
+            logits, state = model.lm(seq[None, s:e], mode="prefill", cache=state,
+                                     positions=torch.arange(s, e, device=seq.device))
+            hold(logits[0], s, state)
+        for pos in range(plen, len(seq) - 1):
+            logits, state = st.decode_step(seq[None, pos:pos + 1], pos, state)
+            hold(logits, pos, state)
+    return diff / top, lp
+
+
+def rec_no_kernels(label, launched, plain_calls):
+    if any(launched.values()) or plain_calls:
+        raise AssertionError(f"{label}: port kernels launched {launched} or plain versions "
+                             f"called {plain_calls} times on a path that has none")
+
+
+def profile_rec_ticks(model, ticks=4):
+    """`ticks` decode ticks with both slots decoding (a greedy and a sampled
+    request, 256-token prompts, no admission in flight), from torch.profiler
+    with CPU and CUDA activities: host syncs and device-to-host copies a
+    tick (less what the profiler makes around an empty region), kernels a
+    tick, device-busy and wall ms a tick, the device ms a tick of each
+    mixer kind (every kernel its modules launch: projections, conv,
+    recurrence or attention, norm; through a record_function range hooked
+    around each mixer), and the kernels that take the most device time.
+    Returns a dict."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    eng = rec_engine(model, 256 + ticks + 8)
+    rng = np.random.default_rng(5)
+    for sp in (SamplingParams(), SamplingParams(seed=3, **ENGINE_SAMPLED)):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, size=256), ticks + 8, sampling=sp)
+    while eng.n_active < REC_SLOTS or eng.scheduler.active:
+        eng.step()
+    eng.step()                                   # the pipeline holds a tick
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def tally(run):
+        with profile(activities=acts) as prof:
+            out = timed(run)[1]
+        calls, copies = {}, {}
+        for e in prof.key_averages():
+            if e.key.startswith("cuda"):
+                calls[e.key] = e.count
+            elif e.key.startswith("Memcpy"):
+                kind = next((k for k in ("DtoH", "HtoD", "DtoD") if k in e.key), e.key)
+                copies[kind] = copies.get(kind, 0) + e.count
+        return prof, out, calls, copies
+
+    _, _, base, _ = tally(lambda: None)
+    ranges, hooks = [], []
+    for block in model.lm.layers:
+        def enter(mod, args, label=f"mixer {block.kind}"):
+            ranges.append(record_function(label))
+            ranges[-1].__enter__()
+
+        def leave(mod, args, out):
+            ranges.pop().__exit__(None, None, None)
+        hooks += [block.mixer.register_forward_pre_hook(enter),
+                  block.mixer.register_forward_hook(leave)]
+    try:
+        prof, wall, calls, copies = tally(lambda: [eng.step() for _ in range(ticks)])
+    finally:
+        for h in hooks:
+            h.remove()
+    syncs = sum(v - base.get(k, 0) for k, v in calls.items() if k in SYNC_CALLS) / ticks
+    # the ranges also appear as device rows, spanning their kernels and the
+    # idle gaps between them: kernels only count toward busy time
+    rows = [e for e in device_rows(prof) if not e.key.startswith("mixer ")]
+    busy = sum(dev_us(e) for e in rows) / 1e3 / ticks
+    kernels = sum(e.count for e in rows) / ticks
+    top = sorted(rows, key=dev_us, reverse=True)[:6]
+    mixers = {}
+    for e in prof.events():       # host-side ranges: the kernels their ops launch
+        if e.name.startswith("mixer ") and str(e.device_type).endswith("CPU"):
+            mixers[e.name] = mixers.get(e.name, 0.0) + e.device_time_total / 1e3 / ticks
+    eng.run()
+    del eng
+    gc.collect()
+    return {"syncs": syncs, "d2h": copies.get("DtoH", 0) / ticks,
+            "copies": {k: v / ticks for k, v in sorted(copies.items())},
+            "ms": wall * 1e3 / ticks, "busy_ms": busy, "kernels": kernels,
+            "mixers_ms": mixers,
+            "top": [(dev_us(e) / 1e3 / ticks, e.count // ticks, e.key[:80]) for e in top]}
+
+
+def phase_rec_serve(arch, card):
+    """One recurrent model at its published width and depth, bf16, seeded
+    weights drawn on the card, served through ServeEngine: 4 requests on 2
+    slots (prompts of 1024-4096 tokens: the 4096-token prompt wraps
+    recurrentgemma's 2048-slot ring; 16 new tokens, 0 and 1 greedy, 2 and
+    3 sampled), prefill budget 2048, overlap on. Gates: no port kernel
+    launches and no plain version is called; every output in range and
+    finite; the served log-probabilities of every request against
+    log_softmax of a train-mode forward over prompt + emitted tokens,
+    and request 0's logit rows served through DecodeState (rec_rows)
+    against the train-mode forward's, each within its REC_BF16_LIMITS (and
+    within REC_LP_TOL and F32_TOL when the same weights serve in f32), with
+    the lower-precision control failing a bf16 row limit; at most one host sync and one device-to-host copy a decode
+    tick (profile_rec_ticks). Returns (model, row)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model, t_build = timed(lambda: rec_model(cfg))
+    weights = sum(p.numel() for p in model.lm.parameters())
+    log(f"phase 10: {arch} serving, bf16, published width and depth: {cfg.n_layers} layers "
+        f"of {'/'.join(cfg.block_pattern)} (d_model {cfg.d_model}, vocab {cfg.vocab_size}); "
+        f"{weights / 1e9:.3f}B parameters, {4 * weights / 2**30:.1f} GiB f32 weights drawn "
+        f"on the card (seed 0) in {t_build:.1f} s; {card}")
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in REC_LENS]
+    samp = rec_samp()
+    max_len = max(REC_LENS) + REC_GEN
+    warm = rec_engine(model, max_len)             # allocator, cuBLAS
+    warm.submit(prompts[1][:512], 2)
+    warm.run()
+    del warm
+    gc.collect()
+    eng = rec_engine(model, max_len)
+    outs, wall, launched, plain = rec_serve_run(eng, prompts, samp)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats()
+    ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+    gen = sum(len(o.tokens) for o in outs.values())
+    tick_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    log(f"  run: {wall * 1e3:.1f} ms for {gen} generated tokens = {gen / wall:.1f} generated "
+        f"tok/s (prompts {sum(map(len, prompts))} tokens); TTFT p50 "
+        f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{st['decode_steps']} decode ticks, {tick_ms:.2f} ms a tick; "
+        f"{st['scheduler']['chunks']} prefill chunks; peak device memory {peak:.2f} GiB")
+    log(f"  launches in the run: {launched}; plain-version calls: {plain}")
+    rec_no_kernels(f"{arch} serving", launched, plain)
+    for i, o in outs.items():
+        if len(o.tokens) != REC_GEN or o.tokens.min() < 0 \
+                or o.tokens.max() >= cfg.vocab_size or not np.isfinite(o.logprobs).all():
+            raise AssertionError(f"{arch} request {i}: bad output {o.tokens}, {o.logprobs}")
+    f32 = twin(model, "float32")                  # the same weights, f32 compute
+    lim_lp, lim_rel, lim_rows_lp = REC_BF16_LIMITS[arch]
+    worst = max(float(np.abs(o.logprobs - train_logprobs(model, prompts[i], o.tokens)).max())
+                for i, o in outs.items())
+    check(f"{arch}: engine logprobs vs train-mode forward, bf16 (nats)", worst, lim_lp)
+    outs32, _, launched, plain = rec_serve_run(rec_engine(f32, max_len), prompts, samp)
+    rec_no_kernels(f"{arch} serving in f32", launched, plain)
+    worst32 = max(float(np.abs(o.logprobs - train_logprobs(f32, prompts[i], o.tokens)).max())
+                  for i, o in outs32.items())
+    check(f"{arch}: engine logprobs vs train-mode forward, f32 (nats)", worst32, REC_LP_TOL)
+    seq = torch.from_numpy(np.concatenate([prompts[0], outs[0].tokens]).astype(np.int64)).cuda()
+    plen = len(prompts[0])
+    want16, want32 = train_rows(model, seq), train_rows(f32, seq)
+    top = want32.float().abs().max().item()
+    d, p = row_errs(want16, want32, seq[1:])
+    rows = {"bf16": rec_rows(model, seq, plen, want16),
+            "f32": rec_rows(f32, seq, plen, want32),
+            "states rounded to bf16": rec_rows(model, seq, plen, want16, torch.bfloat16),
+            "train-mode bf16 vs f32": (d / top, p),
+            "control: states rounded to float8_e5m2": rec_rows(model, seq, plen, want16,
+                                                              torch.float8_e5m2)}
+    log(f"  request 0 ({plen} prompt tokens + {REC_GEN - 1} decode steps): served logit rows "
+        f"vs the train-mode forward's, max|diff| / max|logit| (max|logit| {top:.3f}) and "
+        f"every next token's log-probability (nats): " + "; ".join(
+            f"{k} {r[0]:.4e}, {r[1]:.4e}" for k, r in rows.items()))
+    check(f"{arch}: served logit rows vs train-mode, f32 (rel. to max)", rows["f32"][0],
+          F32_TOL)
+    check(f"{arch}: served rows' next-token logprobs vs train-mode, f32 (nats)",
+          rows["f32"][1], REC_LP_TOL)
+    check(f"{arch}: served logit rows vs train-mode, bf16 (rel. to max)", rows["bf16"][0],
+          lim_rel)
+    check(f"{arch}: served rows' next-token logprobs vs train-mode, bf16 (nats)",
+          rows["bf16"][1], lim_rows_lp)
+    ctl = rows["control: states rounded to float8_e5m2"]
+    caught = ctl[0] > lim_rel or ctl[1] > lim_rows_lp
+    log(f"  the control (recurrent states rounded to float8_e5m2) fails a bf16 row limit: "
+        f"{caught}")
+    if not caught:
+        raise AssertionError(f"{arch}: the lower-precision control passes the bf16 row limits")
+    del f32, outs32, want16, want32
+    for i in (0, 2):
+        log(f"  req{i}: {' '.join(map(str, outs[i].tokens.tolist()))}")
+    del eng, outs
+    prof = profile_rec_ticks(model)
+    log(f"  profile of 4 decode ticks (2 slots decoding, one sampled): {prof['ms']:.2f} ms a "
+        f"tick (profiler on), device busy {prof['busy_ms']:.2f} ms a tick = "
+        f"{prof['busy_ms'] / prof['ms']:.1%}, {prof['kernels']:.0f} kernel launches a tick; "
+        f"host syncs {prof['syncs']:g} and device memory copies {prof['copies']} a tick; "
+        f"device ms a tick in the mixers (all their kernels): "
+        + ", ".join(f"{k[6:]} {v:.3f} ({v / prof['busy_ms']:.1%} of busy)"
+                    for k, v in prof["mixers_ms"].items()) + "; the top kernels:")
+    for ms, n, key in prof["top"]:
+        log(f"    {ms:9.3f} ms a tick  x{n:<5d} {key}")
+    if prof["syncs"] > 1 or prof["d2h"] > 1:
+        raise AssertionError(f"{arch}: the decode tick syncs the host {prof['syncs']:g} times "
+                             f"and copies device to host {prof['d2h']:g} times")
+    log(f"  phase 10 {arch} serving: {time.perf_counter() - t_phase:.1f} s")
+    return model, {"arch": arch, "layers": cfg.n_layers, "params_b": round(weights / 1e9, 3),
+                   "tick_ms": tick_ms, "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                   "ttft_p99_ms": float(np.percentile(ttft, 99)), "gen_tok_s": gen / wall,
+                   "peak_gib": peak, "logprob_err_bf16": worst, "logprob_err_f32": worst32,
+                   "rows": rows, "profiled_tick_ms": prof["ms"],
+                   "profiled_busy_ms": prof["busy_ms"],
+                   "kernels_a_tick": prof["kernels"], "mixers_ms": prof["mixers_ms"],
+                   "tick_syncs": prof["syncs"],
+                   "tick_d2h": prof["d2h"], "card": card}
+
+
+def phase_rec_prefix(model, card):
+    """The token-granularity prefix reuse: 4 requests sharing a 2048-token
+    system prompt, each with its own 300-700-token suffix (not block-
+    aligned, so the scheduler splits each prefill at its truncation), 16
+    new tokens, 0 and 1 greedy, 2 and 3 sampled, through run A (no prefix
+    cache) and run B (a 512 MiB memory-tier PrefixCache after a warm-up of
+    the same system prompt with other suffixes and reset_stats()). Gates:
+    tokens and log-probabilities equal bit for bit across A and B; B hits;
+    no port kernel and no plain version; every snapshot's bytes equal
+    reckon_recurrent_snapshot_bytes; and a prefill resumed at the 2048
+    block boundary equals the cold prefill of the first request's prompt
+    bit for bit (logits and every layer's state). Returns a row."""
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab_size, REC_SHARED)
+    lens = rng.integers(*REC_SUFFIX, size=4)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)]) for n in lens]
+    warm = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, n)]) for n in lens]
+    samp = rec_samp()
+    max_len = REC_SHARED + REC_SUFFIX[1] + REC_GEN
+    log(f"phase 10: {cfg.name} prefix reuse, token granularity: 4 requests, a "
+        f"{REC_SHARED}-token shared system prompt + suffixes of {lens.tolist()} tokens, "
+        f"{REC_GEN} new, 2 greedy + 2 sampled; A no cache, B a "
+        f"{PREFIX_CACHE_BYTES >> 20} MiB memory tier after a warm-up; {card}")
+    rows = {}
+    outs_a, wall_a, launched, plain = rec_serve_run(rec_engine(model, max_len), prompts, samp)
+    rec_no_kernels(f"{cfg.name} run A", launched, plain)
+    pc = PrefixCache(PREFIX_CACHE_BYTES)
+    eng = rec_engine(model, max_len, prefix_cache=pc)
+    for p, sp in zip(warm, samp):
+        eng.submit(p, REC_GEN, sampling=sp)
+    eng.run()
+    eng.reset_stats()
+    outs_b, wall_b, launched, plain = rec_serve_run(eng, prompts, samp)
+    rec_no_kernels(f"{cfg.name} run B", launched, plain)
+    for label, outs, wall, e in (("A", outs_a, wall_a, None), ("B", outs_b, wall_b, eng)):
+        ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+        rows[label] = {"wall_ms": wall * 1e3, "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                       "ttft_p99_ms": float(np.percentile(ttft, 99))}
+    st = eng.stats()
+    pcs = st["prefix_cache"]
+    rows["B"].update(hits=pcs["hits"], restored_tokens=pcs["hit_tokens"],
+                     inserts=pcs["inserts"], evictions=pcs["evictions"],
+                     promote_splits=st["scheduler"]["promote_splits"],
+                     coalesced=st["scheduler"]["coalesced"])
+    for label in ("A", "B"):
+        r = rows[label]
+        log(f"  run {label}: {r['wall_ms']:.1f} ms, TTFT p50 {r['ttft_p50_ms']:.1f} ms, p99 "
+            f"{r['ttft_p99_ms']:.1f} ms" + ("" if label == "A" else
+            f"; hits {r['hits']}, restored tokens {r['restored_tokens']}, inserts "
+            f"{r['inserts']}, evictions {r['evictions']}, promote splits "
+            f"{r['promote_splits']}, coalesced {r['coalesced']}"))
+    same = all(np.array_equal(outs_a[i].tokens, outs_b[i].tokens)
+               and np.array_equal(outs_a[i].logprobs, outs_b[i].logprobs) for i in outs_a)
+    log(f"  tokens and log-probabilities equal bit for bit across A and B: {same}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: run B's tokens or log-probabilities differ from A's")
+    if not (rows["B"]["hits"] > 0 and rows["B"]["restored_tokens"] > 0):
+        raise AssertionError(f"{cfg.name}: run B has no prefix-cache hit")
+    nbytes = sorted({snapshot_nbytes(e.snapshot) for e in pc._entries.values()})
+    want = reckon_recurrent_snapshot_bytes(cfg, max_len)
+    log(f"  snapshot bytes: {nbytes} (reckoned {want})")
+    if nbytes != [want]:
+        raise AssertionError(f"{cfg.name}: snapshot bytes {nbytes} != {want}")
+    del eng, pc
+    gc.collect()
+    st_ = model.state
+    tokens = torch.from_numpy(prompts[0][None]).cuda()
+    with torch.inference_mode():
+        cold_logits, cold = st_.prefill(tokens, max_len=max_len)
+        _, part = st_.prefill(tokens[:, :REC_SHARED], max_len=max_len)
+        res_logits, res = st_.resume(tokens[:, REC_SHARED:], part, REC_SHARED)
+    same = torch.equal(cold_logits, res_logits) and all(
+        all(torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+        for a, b in zip(cold, res))
+    log(f"  prefill {REC_SHARED} + resume {len(prompts[0]) - REC_SHARED} == cold prefill "
+        f"{len(prompts[0])}, bit for bit (logits and all {len(cold)} layer states): {same}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: the resumed prefill differs from the cold one")
+    log(f"  phase 10 {cfg.name} prefix reuse: {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": cfg.name, "snapshot_bytes": want, "runs": rows, "card": card}
+
+
+def phase_rec_cross_device():
+    """SMOKE greedy tokens on the card equal those on the CPU (f32, weights
+    from one CPU seed), for both recurrent configs: a 40-token prompt and 8
+    steps (past recurrentgemma SMOKE's 32-token window)."""
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(2, 40))
+        on_card = generate(build_model(cfg, device="cuda", seed=3), prompt, 8)
+        on_cpu = generate(build_model(cfg, device="cpu", seed=3), prompt, 8)
+        same = torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+        check(f"{arch} SMOKE generate logits, card vs CPU",
+              err(on_card.logits_last.cpu(), on_cpu.logits_last), F32_TOL)
+        log(f"  {arch} SMOKE greedy tokens equal on card and CPU: {same}")
+        if not same:
+            raise AssertionError(f"{arch}: SMOKE greedy tokens differ between card and CPU")
+
+
+def rec_remat_gate(full):
+    """At 1 x REC_TRAIN_SEQ and one pattern group (mamba2: 3 layers, as
+    its SMOKE), bf16, under torch.use_deterministic_algorithms: one step's
+    gradients and two AdamW steps' losses with remat "dots" and "full"
+    equal remat "none"'s bit for bit."""
+    g = len(full.block_pattern)
+    depth = g if g > 1 else 3
+    cfg = full.replace(n_layers=depth)
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), 1, REC_TRAIN_SEQ, seed=0,
+                      device="cuda")
+    batches = [next(it) for _ in range(2)]
+    tcfg = TrainConfig(seq_len=REC_TRAIN_SEQ, global_batch=1, steps=100, peak_lr=3e-3)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in ("none", "dots", "full"):
+            c = cfg.replace(remat=remat)
+            lm = rec_model(c, trainable=True).lm
+            loss, _ = make_loss_fn(c)(lm, batches[0])
+            loss.backward()
+            grads = {n: p.grad.clone() for n, p in lm.named_parameters()}
+            state, step = init_train_state(lm), make_train_step(c, tcfg)
+            losses = []
+            for batch in batches:
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"].clone())
+            runs[remat] = grads, torch.stack(losses)
+            del state, step, loss, grads, lm
+    finally:
+        torch.use_deterministic_algorithms(False)
+    grads0, losses0 = runs["none"]
+    for remat in ("dots", "full"):
+        grads, losses = runs[remat]
+        same_g = all(torch.equal(grads[n], grads0[n]) for n in grads0)
+        same_l = torch.equal(losses, losses0)
+        log(f"  remat gate, {depth} layers at 1 x {REC_TRAIN_SEQ}: remat={remat}: one step's "
+            f"gradients equal none's bit for bit: {same_g}; two steps' losses "
+            f"{losses.tolist()} equal none's {losses0.tolist()}: {same_l}")
+        if not (same_g and same_l):
+            raise AssertionError(f"{cfg.name}: remat={remat} changed the training bits")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_rec_train(arch, card):
+    """One recurrent model trained at its published width, bf16, with its
+    published remat (mamba2 "dots", recurrentgemma "full"), 1 x 4096
+    Markov tokens a step, at the most whole pattern groups that fit
+    (rec_train_groups: mamba2 at full depth), seeded weights drawn on the
+    card: a warm-up and REC_TRAIN_STEPS timed steps (step ms, tokens/s,
+    peak GiB) with no port kernel and no plain version; two runs of 2 steps
+    from the seed give the same parameters bit for bit (deterministic
+    algorithms on); and the remat gate (rec_remat_gate). Returns a row."""
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    g = len(full.block_pattern)
+    groups = rec_train_groups(full)
+    cfg = full.replace(n_layers=groups * g)
+    group, rest = group_split(full)
+    reckon = {k: round(16 * (rest + k * group) / 1e9, 1) for k in (1, 3, 4)}
+    log(f"phase 10: {arch} training, bf16, remat {cfg.remat!r}, 1 x {REC_TRAIN_SEQ} Markov "
+        f"tokens a step, {cfg.n_layers} of {full.n_layers} layers ({groups} whole groups of "
+        f"{g}; reckoned at 16 B a parameter: {group / 1e6:.0f}M a group, "
+        f"{rest / 1e6:.0f}M embedding, GB for 1/3/4 groups {reckon}, + "
+        f"{DENSE_TRAIN_ACT_GIB} GiB a layer and {DENSE_TRAIN_RESERVE_GIB} GiB reserve in "
+        f"{DENSE_SHARE:.0%} of {card_gib():.1f} GiB); {card}")
+    steps = REC_TRAIN_STEPS[arch]
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), 1, REC_TRAIN_SEQ, seed=0,
+                      device="cuda")
+    batches = [next(it) for _ in range(steps + 1)]
+    tcfg = TrainConfig(seq_len=REC_TRAIN_SEQ, global_batch=1, steps=100, peak_lr=3e-3)
+    lm = rec_model(cfg, trainable=True).lm
+    torch.cuda.reset_peak_memory_stats()
+    state, step = init_train_state(lm), make_train_step(cfg, tcfg)
+    state, _ = step(state, batches[0])            # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    with PlainCalls() as plain:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(times)) * 1e3
+    log(f"  losses {[round(x, 4) for x in losses]}; step time median {step_ms:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times]}; {REC_TRAIN_SEQ / np.median(times):.0f} "
+        f"tokens/s; peak device memory {peak:.2f} GiB; launches {launched}, plain-version "
+        f"calls {plain.calls}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} training: non-finite loss {losses}")
+    rec_no_kernels(f"{arch} training", launched, plain.calls)
+    del state, step, lm
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run():
+            lm = rec_model(cfg, trainable=True).lm
+            state, step = init_train_state(lm), make_train_step(cfg, tcfg)
+            for batch in batches[:2]:
+                state, _ = step(state, batch)
+            return [p.detach().cpu() for p in lm.parameters()]
+        first = run()
+        second = run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"  (deterministic algorithms on) two runs of 2 steps from seed 0: parameters equal "
+        f"bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{arch} training is not bit-reproducible on the card")
+    del first, second
+    rec_remat_gate(full)
+    log(f"  phase 10 {arch} training: {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": arch, "layers": cfg.n_layers, "published_layers": full.n_layers,
+            "groups": groups, "remat": cfg.remat, "step_ms": step_ms,
+            "tokens_s": REC_TRAIN_SEQ / float(np.median(times)), "peak_gib": peak,
+            "losses": losses, "card": card}
+
+
+def phase_recurrent(card):
+    """Phase 10 for both recurrent models: serving and prefix reuse at full
+    depth, the cross-device check, training. Returns its rows."""
+    t0 = time.perf_counter()
+    rows = {"serve": [], "prefix": [], "train": []}
+    for arch in RECURRENT_ARCHS:
+        model, row = phase_rec_serve(arch, card)
+        rows["serve"].append(row)
+        rows["prefix"].append(phase_rec_prefix(model, card))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_rec_cross_device()
+    for arch in RECURRENT_ARCHS:
+        rows["train"].append(phase_rec_train(arch, card))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"recurrent": rows}, default=float))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -2798,6 +3454,9 @@ def main(argv=None):
                   for arch in DENSE_ARCHS]
     dense_train = phase_dense_train(card)
     log(json.dumps({"dense_serve": dense_rows, "dense_train": dense_train}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recurrent(card)
     dense_launches = {
         "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
                               "train": dense_train["launches"]["polysketch_causal"]},

@@ -60,7 +60,7 @@ def port_grads(arch, params, toks):
     loss, _ = make_loss_fn(cfg)(model.lm, {"tokens": torch.from_numpy(toks.astype(np.int64))})
     loss.backward()
     return {k: np.asarray(v, np.float64) for k, v in
-            named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}).items()}
+            named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}, cfg).items()}
 
 
 def rel_errors(got, want):

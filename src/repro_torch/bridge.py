@@ -1,19 +1,27 @@
 """Parameter bridge between the JAX package's tree and the port's modules.
 
-The JAX LM keeps its layers stacked: the leaf at tree path
-``groups/block0/mixer/wq`` has shape (n_layers, d, Hq, h). Flattened by
-tree path (the ``/``-joined format of the reference's ``tree_paths``),
-those leaves map onto the port's parameters as
+The JAX LM stacks its layers in pattern groups: a config's block pattern
+(e.g. recurrentgemma's (rglru, rglru, local_attn), of length g) repeats
+n_layers // g times, and the leaf at ``groups/block{b}/<path>`` holds
+block b of every group, stacked on a leading group axis; the n_layers % g
+layers left over form an unstacked tail, ``tail/block{b}/<path>``. The
+port keeps one module per layer, so its layer i is group i // g, block
+i % g, and the tail follows the groups. Flattened by tree path (the
+``/``-joined format of the reference's ``tree_paths``):
 
-    embed/table                 -> embed.table
-    final_norm/<p>              -> final_norm.<p>
-    groups/block0/<path>[i]     -> layers.<i>.<path with . for />
+    embed/table                   -> embed.table
+    final_norm/<p>                -> final_norm.<p>
+    groups/block{b}/<path>[j]     -> layers.<j * g + b>.<path with . for />
+    tail/block{b}/<path>          -> layers.<n_groups * g + b>.<path>
 
-Arrays move as they are: the port keeps the JAX layouts.
+A dense model (pattern ("attn",)) has g = 1 and no tail: every layer is
+``groups/block0`` stacked over n_layers. Every mapping takes the config,
+which fixes g and the tail. Arrays move as they are: the port keeps the
+JAX layouts.
 
 A training state moves as the flat arrays of the reference's checkpoint
 (``checkpoint/manager.py``'s keys): ``.params/<path>``, ``.opt/.m/<path>``,
-``.opt/.v/<path>``, ``.opt/.count`` and ``.step``, layer-stacked, so a
+``.opt/.v/<path>``, ``.opt/.count`` and ``.step``, group-stacked, so a
 checkpoint written by either package restores in the other.
 """
 from __future__ import annotations
@@ -21,24 +29,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LAYER_GROUP = "groups/block0/"
+GROUPS, TAIL = "groups/", "tail/"
+
+
+def group_shape(cfg) -> tuple[int, int, int]:
+    """(pattern length g, stacked groups, tail layers) of a config."""
+    g = len(cfg.block_pattern)
+    n_groups, rem = divmod(cfg.n_layers, g)
+    return g, n_groups, rem
+
+
+def layer_prefix(i: int, cfg) -> str:
+    """The JAX path prefix of the port's layer i: its block in the stacked
+    groups, or in the unstacked tail."""
+    g, n_groups, _ = group_shape(cfg)
+    if i < n_groups * g:
+        return f"{GROUPS}block{i % g}/"
+    return f"{TAIL}block{i - n_groups * g}/"
 
 
 def params_from_jax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]:
     """A state dict for the port's LM from flattened JAX params. Raises on
-    a leaf it cannot place or a layer count that does not match cfg."""
+    a leaf it cannot place or a group count that does not match cfg."""
+    g, n_groups, rem = group_shape(cfg)
     sd = {}
     for path, arr in flat.items():
         # host numpy; the analyzer reaches this only through the name `restore`
         # jaxlint: disable=host-sync-in-jit-path -- no jit in the port
         arr = np.asarray(arr)
-        if path.startswith(LAYER_GROUP):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{path}: {arr.shape[0]} stacked layers, "
-                                 f"config has {cfg.n_layers}")
-            sub = path[len(LAYER_GROUP):].replace("/", ".")
-            for i in range(cfg.n_layers):
-                sd[f"layers.{i}.{sub}"] = torch.from_numpy(arr[i].copy())
+        if path.startswith((GROUPS, TAIL)):
+            top, block, sub = path.split("/", 2)
+            b = int(block[len("block"):])
+            sub = sub.replace("/", ".")
+            if top + "/" == GROUPS:
+                if b >= g or arr.shape[0] != n_groups:
+                    raise ValueError(f"{path}: {arr.shape[0]} stacked layers, "
+                                     f"config has {n_groups} groups of {g}")
+                for j in range(n_groups):
+                    sd[f"layers.{j * g + b}.{sub}"] = torch.from_numpy(arr[j].copy())
+            else:
+                if b >= rem:
+                    raise KeyError(f"no tail block {b} in the port for {path!r}")
+                sd[f"layers.{n_groups * g + b}.{sub}"] = torch.from_numpy(arr.copy())
         elif path.startswith(("embed/", "final_norm/")):
             sd[path.replace("/", ".")] = torch.from_numpy(arr.copy())
         else:
@@ -46,25 +78,26 @@ def params_from_jax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]
     return sd
 
 
-def jax_path(name: str) -> str:
-    """The JAX tree path of the port's parameter `name` (layer index
-    dropped: the reference stacks the layers)."""
+def jax_path(name: str, cfg) -> str:
+    """The JAX tree path of the port's parameter `name` (the layer index
+    dropped: the reference stacks the groups)."""
     if name.startswith("layers."):
-        return LAYER_GROUP + name.split(".", 2)[2].replace(".", "/")
+        _, i, sub = name.split(".", 2)
+        return layer_prefix(int(i), cfg) + sub.replace(".", "/")
     return name.replace(".", "/")
 
 
 def params_to_jax(lm) -> dict[str, np.ndarray]:
-    """The inverse: the port's parameters as flattened, layer-stacked JAX
+    """The inverse: the port's parameters as flattened, group-stacked JAX
     leaves (path -> array). On the meta device, arrays of the right shape
     and dtype with no data (np.empty)."""
-    return named_to_jax(dict(lm.named_parameters()))
+    return named_to_jax(dict(lm.named_parameters()), lm.cfg)
 
 
-def named_to_jax(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+def named_to_jax(named: dict[str, torch.Tensor], cfg) -> dict[str, np.ndarray]:
     """Tensors keyed by the port's parameter names (parameters, or
-    optimizer moments) as layer-stacked JAX leaves."""
-    per_layer: dict[str, list] = {}
+    optimizer moments) as group-stacked JAX leaves."""
+    stacked: dict[str, list] = {}
     flat = {}
 
     def host(t):
@@ -73,12 +106,12 @@ def named_to_jax(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
         return t.detach().cpu().numpy()
 
     for name, p in named.items():   # layers in order, as named_parameters gives them
-        path = jax_path(name)
-        if path.startswith(LAYER_GROUP):
-            per_layer.setdefault(path, []).append(host(p))
+        path = jax_path(name, cfg)
+        if path.startswith(GROUPS):
+            stacked.setdefault(path, []).append(host(p))
         else:
             flat[path] = host(p)
-    for path, arrs in per_layer.items():
+    for path, arrs in stacked.items():
         flat[path] = np.stack(arrs)
     return flat
 
@@ -86,10 +119,11 @@ def named_to_jax(named: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 def train_state_to_jax(state) -> dict[str, np.ndarray]:
     """The port's TrainState as the reference checkpoint's flat arrays
     (keys as the module docstring lists them; count and step int32)."""
+    cfg = state.lm.cfg
     flat = {}
     for prefix, named in ((".params/", dict(state.lm.named_parameters())),
                           (".opt/.m/", state.opt.m), (".opt/.v/", state.opt.v)):
-        flat.update({prefix + k: v for k, v in named_to_jax(named).items()})
+        flat.update({prefix + k: v for k, v in named_to_jax(named, cfg).items()})
     flat[".opt/.count"] = np.asarray(int(state.opt.count), np.int32)
     flat[".step"] = np.asarray(state.step, np.int32)
     return flat

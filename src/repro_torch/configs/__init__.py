@@ -1,8 +1,9 @@
 """Config registry of the port: --arch <id> resolves here.
 
 Only the configurations the port serves are registered: the paper's
-model and the registry's dense polysketch models (GLU FFN, head width 128,
-bf16 at full width).
+model, the registry's dense polysketch models (GLU FFN, head width 128,
+bf16 at full width) and its two recurrent families (mamba2's SSD, and
+recurrentgemma's RG-LRU with sliding-window attention).
 """
 from repro_torch.configs.base import ArchConfig, TrainConfig
 
@@ -11,6 +12,8 @@ _MODULES = {
     "yi-34b": "yi_34b",
     "starcoder2-3b": "starcoder2_3b",
     "deepseek-7b": "deepseek_7b",
+    "mamba2-780m": "mamba2_780m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "gpt2s-polysketch": "gpt2_paper",
 }
 

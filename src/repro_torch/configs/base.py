@@ -19,7 +19,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # the port serves "dense"
+    family: str                    # the port serves dense|ssm|hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,7 +29,7 @@ class ArchConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
 
     # block structure: cycle of mixer kinds over layers
-    block_pattern: tuple[str, ...] = ("attn",)
+    block_pattern: tuple[str, ...] = ("attn",)   # attn|local_attn|rglru|ssd
 
     # attention mechanism for "attn" mixers (the paper's knob)
     attention: str = "polysketch"
@@ -39,10 +39,21 @@ class ArchConfig:
     local_exact: bool = True
     lt_block_size: int = 256
     qk_norm: bool = False          # per-head RMS q/k-norm over head_dim, before RoPE
+    sliding_window: int = 2048     # for local_attn mixers
     use_rope: bool = True
     rope_theta: float = 10000.0
 
     ffn: str = "glu"
+
+    # ssm (mamba2)
+    ssm_state: int = 128
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+
+    # rglru (recurrentgemma)
+    rglru_width: int = 0           # 0 -> d_model
+    rglru_c: float = 8.0
 
     # numerics
     compute_dtype: str = "float32"

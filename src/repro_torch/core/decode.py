@@ -1,6 +1,6 @@
-"""Decode-time attention state.
+"""Decode-time state: attention caches and the recurrent mixers' nodes.
 
-Port of two kinds of the JAX package's ``core/decode.py``:
+Port of the JAX package's ``core/decode.py``:
 
 - polysketch: the constant-size ``PolysketchCache`` (an r^2 x (h+1)
   prefix matrix per kv head plus one partial-block buffer), its prefill
@@ -13,6 +13,13 @@ Port of two kinds of the JAX package's ``core/decode.py``:
   ``poly_kv_decode_step``.
 - kv_full: the same ``KVCache`` for softmax attention (the paper's
   softmax baseline), read by ``kv_decode_step``.
+- kv_ring: the sliding-window ``RingKVCache`` of local attention (the
+  last W tokens' post-RoPE k and v at slot pos % W), its decode step and
+  its resumable prefill on a fixed sub-block lattice (``ring_grid``).
+- ssd and rglru: the position-free ``RecurrentCache`` (the exact
+  recurrent state h after every token so far, in f32, and the conv's
+  trailing inputs), built and stepped by ``models/ssm.py`` and
+  ``models/rglru.py``.
 
 `pos` takes two forms:
 - a host int shared by the batch (``generate`` and every prefill): the
@@ -25,7 +32,8 @@ Port of two kinds of the JAX package's ``core/decode.py``:
   ``lax.cond`` under the engine's ``vmap`` over slots), so a row that
   does not fold keeps its state bit for bit. A KV write past the cache
   clamps to its last slot, as JAX's ``dynamic_update_index_in_dim`` does
-  (only a free slot decoding along on stale state gets there).
+  (only a free slot decoding along on stale state gets there); a ring
+  write wraps at pos % W.
 
 Caches are values, as in the reference: a step returns a new cache and
 leaves the one it was given as it was, so buffers it writes are copies.
@@ -44,7 +52,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.utils import int_pow, self_kron
+from repro_torch.utils import int_pow, pad_to_multiple, self_kron
 
 
 def _writable(buf: torch.Tensor, inplace: bool = False) -> torch.Tensor:
@@ -284,6 +292,156 @@ def kv_decode_step(cache: KVCache, q, k, v, *, inplace: bool = False):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngs,bnsh->bngh", w, vc.to(f32))
     return out.reshape(bsz, hq, hd).to(v.dtype), KVCache(kc, vc, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# recurrent state (ssd, rglru) and the sliding-window ring (kv_ring)
+# ---------------------------------------------------------------------------
+
+class RecurrentCache(NamedTuple):
+    """Constant-size recurrent decode state (SSD / RG-LRU mixers).
+
+    There is no partial-block buffer: `h` is the exact state after every
+    token consumed so far, so the state is valid at any position (token
+    granularity), and bit-reproducible at the lt_block_size grid the
+    prefill scans run on. The node is position-free: the engine tracks
+    positions."""
+    h: torch.Tensor     # (B, ...) f32 (SSD: (B, H, N, P); RG-LRU: (B, W))
+    conv: torch.Tensor  # (B, K-1, C) trailing conv inputs, compute dtype
+
+
+def recurrent_update(cache: RecurrentCache, h, conv,
+                     inplace: bool = False) -> RecurrentCache:
+    """A decode step's new state: new tensors, or written into `cache`'s
+    own buffers when `inplace` (the engine's state)."""
+    if not inplace:
+        return RecurrentCache(h=h, conv=conv)
+    cache.h.copy_(h)
+    cache.conv.copy_(conv)
+    return cache
+
+
+class RingKVCache(NamedTuple):
+    """Sliding-window ring KV state (local_attn mixers): the last
+    min(pos, W) tokens' post-RoPE k and v at slot = absolute_pos % W, a
+    constant-size O(W) state and so a token-granularity snapshot (the
+    append-only KVCache has none). A type of its own, as core.state
+    dispatches snapshot ops by node type."""
+    k: torch.Tensor   # (B, Hkv, W, h)
+    v: torch.Tensor   # (B, Hkv, W, h)
+    pos: int | torch.Tensor  # tokens written so far (int, or (B,) per row)
+
+
+def init_ring_cache(batch, n_kv_heads, head_dim, window, dtype=torch.float32,
+                    device="cpu") -> RingKVCache:
+    shape = (batch, n_kv_heads, window, head_dim)
+    return RingKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+
+
+def kv_ring_decode_step(cache: RingKVCache, q, k, v, *,
+                        scale: float | None = None, inplace: bool = False):
+    """Sliding-window softmax decode over a ring of W slots. The ring holds
+    post-RoPE keys, so its rotation leaves relative positions alone. Each
+    row writes at slot pos % W and attends over the slots 0..pos (all W
+    once the ring is full). q: (B, Hq, h); k, v: (B, Hkv, h). Returns
+    (out (B, Hq, h), new_cache); `cache` is left as it was unless
+    `inplace`."""
+    bsz, hq, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / float(hd) ** 0.5
+    f32 = torch.float32
+    w = cache.k.shape[2]
+    pos = cache.pos
+    slot = pos % w
+    rows = _rows(pos, bsz, q.device)
+    kc, vc = _writable(cache.k, inplace), _writable(cache.v, inplace)
+    _write_at(kc, rows, slot, k.to(kc.dtype))
+    _write_at(vc, rows, slot, v.to(vc.dtype))
+    qg = q.reshape(bsz, hkv, g, hd).to(f32)
+    logits = torch.einsum("bngh,bnsh->bngs", qg, kc.to(f32)) * scale
+    logits = torch.where(_live(w, pos, q.device), logits, torch.finfo(f32).min)
+    wts = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngs,bnsh->bngh", wts, vc.to(f32))
+    return (out.reshape(bsz, hq, hd).to(v.dtype),
+            RingKVCache(kc, vc, pos + 1))
+
+
+def ring_grid(block_size: int, window: int) -> int:
+    """Sub-block lattice of the kv_ring prefill: the largest divisor of the
+    resume grid (lt_block_size) that fits the ring. Dividing the block
+    keeps any block-aligned resume on the cold prefill's lattice; fitting
+    the ring keeps one sub-block's writes on distinct slots."""
+    g = min(block_size, window)
+    while block_size % g:
+        g -= 1
+    return g
+
+
+def kv_ring_prefill(cache: RingKVCache, q, k, v, *, grid: int,
+                    scale: float | None = None):
+    """Sliding-window softmax prefill resuming from a ring cache.
+
+    q: (B, Hq, S, h); k, v: (B, Hkv, S, h), post-RoPE, at absolute
+    positions cache.pos .. cache.pos + S - 1 (cache.pos a host int on the
+    `grid` lattice). Returns (out (B, Hq, S, h), new RingKVCache covering
+    cache.pos + S tokens); `cache` is left as it was.
+
+    The segment runs in `grid`-token sub-blocks anchored at absolute
+    position 0, padded to whole sub-blocks: each attends its queries over
+    [ring (W), sub-block (grid)] with fixed shapes and masks that depend
+    only on its base position, then writes its live tokens' k and v at
+    ring slots (base + i) % W (padded positions write nothing: their
+    slots may still hold live older tokens). Every sub-block's arithmetic
+    is thus independent of where the call started, and a prefill resumed
+    from a snapshot at a lattice cut equals the cold prefill bit for bit.
+    """
+    bsz, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    w = cache.k.shape[2]
+    if grid > w:
+        raise ValueError(f"grid({grid}) must be <= ring window({w})")
+    if torch.is_tensor(cache.pos) or cache.pos % grid:
+        raise ValueError(f"a ring prefill starts at a host-int position on "
+                         f"its {grid}-token lattice, got {cache.pos}")
+    if scale is None:
+        scale = 1.0 / float(hd) ** 0.5
+    f32 = torch.float32
+    dev = q.device
+    nb = -(-s // grid)
+    q, k, v = (pad_to_multiple(x, grid, 2)[0] for x in (q, k, v))
+    rk, rv = _writable(cache.k), _writable(cache.v)
+    i = torch.arange(grid, device=dev)
+    t = torch.arange(w, device=dev)
+    loc = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    outs = []
+    for j in range(nb):
+        base = cache.pos + j * grid
+        nv = min(s - j * grid, grid)
+        p = base + i                                   # absolute query pos
+        # latest absolute position written to ring slot t (negative if
+        # never written): the value in [base - W, base - 1] congruent to t
+        abs_t = base - w + torch.remainder(t - base, w)
+        ring_ok = (abs_t[None, :] >= 0) & (abs_t[None, :] > p[:, None] - w)
+        mask = torch.cat([ring_ok, loc & (i[None, :] < nv)], dim=1)
+        sl = slice(j * grid, (j + 1) * grid)
+        kj, vj = k[:, :, sl].to(rk.dtype), v[:, :, sl].to(rv.dtype)
+        kcat = torch.cat([rk, kj], dim=2).to(f32)
+        vcat = torch.cat([rv, vj], dim=2).to(f32)
+        qg = q[:, :, sl].reshape(bsz, hkv, g, grid, hd).to(f32)
+        logits = torch.einsum("bngqh,bnkh->bngqk", qg, kcat) * scale
+        logits = torch.where(mask, logits, torch.finfo(f32).min)
+        wts = torch.softmax(logits, dim=-1)
+        outs.append(torch.einsum("bngqk,bnkh->bngqh", wts, vcat))
+        slots = torch.remainder(p[:nv], w)             # distinct: grid <= W
+        rk[:, :, slots] = kj[:, :, :nv]
+        rv[:, :, slots] = vj[:, :, :nv]
+    out = torch.stack(outs, dim=3)                     # (B,Hkv,g,nb,grid,h)
+    out = out.reshape(bsz, hq, nb * grid, hd)[:, :, :s]
+    return out.to(v.dtype), RingKVCache(rk, rv, cache.pos + s)
 
 
 # ---------------------------------------------------------------------------

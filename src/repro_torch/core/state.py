@@ -1,17 +1,20 @@
 """DecodeState protocol: a family-agnostic cache / prefill / snapshot API.
 
-Port of the JAX package's ``core/state.py`` for the state kinds the port
-has (``polysketch``, ``poly_kv``, ``kv_full``); the shard axes belong to
-scale-out and are not ported. The serve engine, ``generate`` and the
-scheduler speak only this protocol and never branch on the mechanism:
+Port of the JAX package's ``core/state.py`` for every decode-state kind:
+``polysketch``, ``poly_kv``, ``kv_full`` and ``kv_ring`` here, ``ssd``
+and ``rglru`` registered by ``models/ssm.py`` and ``models/rglru.py`` on
+import; the shard axes belong to scale-out and are not ported. The serve
+engine, ``generate`` and the scheduler speak only this protocol and never
+branch on the family or the mechanism:
 
 - ``StateSpec`` (registry, keyed by state *kind*): how to build one
   layer's cache node and what the kind supports (snapshot granularity,
   resumable prefill).
 - Node-level snapshot ops, keyed by cache-node *type*
-  (``PolysketchCache``, ``KVCache``): ``snapshot_state`` and
-  ``restore_state`` walk a model cache (a list of per-layer nodes) and
-  dispatch per node.
+  (``PolysketchCache``, ``KVCache``, ``RecurrentCache``,
+  ``RingKVCache``): ``snapshot_state`` and ``restore_state`` walk a model
+  cache (a list of per-layer nodes) and dispatch per node, so a hybrid
+  model's cache snapshots with no model-specific code.
 - ``DecodeState``: the model-level facade (built by ``model_zoo``):
   ``init / init_slot / prefill / resume / decode_step / snapshot /
   restore / serialize / deserialize``, the partial-prefill carry and the
@@ -24,12 +27,16 @@ stored snapshot keeps its bits while live caches are written in place.
 Snapshot granularity (per kind, composed over a model's kinds, the
 weakest member winning): ``"block"``, valid at the last lt_block_size
 boundary, where the partial tail lives in buffers the snapshot omits
-(polysketch); ``"token"``, the state covers exactly the tokens so far (no
-ported kind); ``None``, no constant-size snapshot (full KV).
+(polysketch); ``"token"``, the state covers exactly the tokens so far
+(ssd, rglru, and kv_ring, whose O(W) window is a constant-size suffix
+state), so a snapshot at a block boundary inside a prompt needs the
+prefill split there (serve/scheduler.py does); ``None``, no
+constant-size snapshot (full KV).
 
-Prefill of a resumable kind (polysketch) runs on the block grid: a prompt
-segment goes through the model in chunks that end on multiples of
-``lt_block_size`` (absolute positions). A prefill resumed at a block
+Prefill of a resumable kind runs on the block grid: a prompt segment goes
+through the model in chunks that end on multiples of ``lt_block_size``
+(absolute positions), and inside a chunk the SSD and RG-LRU scans and the
+ring's sub-blocks run on a fixed grid too. A prefill resumed at a block
 boundary therefore makes exactly the calls, on exactly the shapes, that
 the cold prefill of the whole prompt makes from there on, and gives the
 same bits. A one-shot call over the whole prompt would not: cuBLAS picks
@@ -37,7 +44,8 @@ its kernel by shape, and a product over 2040 rows need not round like one
 over 1024 + 1016 rows (seen on an H100). The KV kinds are not resumable:
 prefill is one call over the whole prompt, written into the cache at
 position 0; their cache is sized at init, so ``prefill`` needs
-``max_len`` or a pre-built state.
+``max_len`` or a pre-built state. A ring's window is min(sliding_window,
+max_len), the sliding window when max_len is None.
 
 Positions: a prefill keeps the host int ``pos`` of ``core.decode``;
 ``decode_step`` takes an int shared by the batch or a (B,) tensor, one per
@@ -81,10 +89,53 @@ def _psk_restore(fresh: dec.PolysketchCache, z, n_tokens):
                           pos=int(n_tokens))
 
 
+def _copy_to(x, like):
+    return x.to(device=like.device, dtype=like.dtype, copy=True)
+
+
+def _rec_snapshot(node: dec.RecurrentCache):
+    # the whole node is constant-size; h covers exactly the tokens so far
+    return dec.RecurrentCache(h=node.h.clone(), conv=node.conv.clone())
+
+
+def _rec_restore(fresh: dec.RecurrentCache, snap: dec.RecurrentCache,
+                 n_tokens):
+    del n_tokens  # the position lives with the caller, not the node
+    return dec.RecurrentCache(h=_copy_to(snap.h, fresh.h),
+                              conv=_copy_to(snap.conv, fresh.conv))
+
+
+def _ring_snapshot(node: dec.RingKVCache):
+    # the whole node is O(W): the ring holds exactly the last min(pos, W)
+    # tokens, the entire state a sliding-window resume needs
+    return dec.RingKVCache(k=node.k.clone(), v=node.v.clone(),
+                           pos=int(node.pos))
+
+
+def _ring_restore(fresh: dec.RingKVCache, snap: dec.RingKVCache, n_tokens):
+    return dec.RingKVCache(k=_copy_to(snap.k, fresh.k),
+                           v=_copy_to(snap.v, fresh.v), pos=int(n_tokens))
+
+
 NODE_OPS: dict[type, NodeOps] = {
     dec.PolysketchCache: NodeOps("block", _psk_snapshot, _psk_restore),
+    dec.RecurrentCache: NodeOps("token", _rec_snapshot, _rec_restore),
+    dec.RingKVCache: NodeOps("token", _ring_snapshot, _ring_restore),
     dec.KVCache: NodeOps(None, None, None),
 }
+
+
+def snapshot_fields(snap) -> list:
+    """One layer's snapshot as its leaves, in the reference's tree order: a
+    tensor (polysketch's z), or the node's fields (tensors, and a ring's
+    int position)."""
+    return [snap] if torch.is_tensor(snap) else list(snap)
+
+
+def snapshot_tensors(snapshot) -> list[torch.Tensor]:
+    """Every tensor of a model snapshot (a list of per-layer snapshots)."""
+    return [x for snap in snapshot for x in snapshot_fields(snap)
+            if torch.is_tensor(x)]
 
 
 def snapshot_state(state):
@@ -164,6 +215,19 @@ register_state(StateSpec(
     init=_init_kv))
 
 
+def _init_ring(cfg, batch, max_len, dtype, device):
+    window = (cfg.sliding_window if max_len is None
+              else min(cfg.sliding_window, max_len))
+    return dec.init_ring_cache(batch, cfg.n_kv_heads, cfg.resolved_head_dim,
+                               window, dtype, device)
+
+
+# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
+register_state(StateSpec(
+    kind="kv_ring", node_type=dec.RingKVCache, granularity="token",
+    resumable=True, init=_init_ring))
+
+
 def mixer_state_kind(cfg, mixer: str = "attn") -> str:
     """The decode-state kind a mixer contributes under this config."""
     if mixer == "attn":
@@ -198,29 +262,100 @@ def composite_granularity(kinds) -> str | None:
 # snapshot (de)serialization
 # ---------------------------------------------------------------------------
 
-def serialize_snapshot(snapshot, n_tokens: int) -> bytes:
+def snapshot_layout(cfg) -> list[tuple[str, list[int], bool]]:
+    """The reference's tree of a model cache, in its leaf order: (node path,
+    the port's layer indices it holds, stacked over groups or not). The
+    JAX LM stacks each block of its pattern over the groups
+    (``groups/block{b}``) and keeps the n_layers % g tail unstacked
+    (``tail/block{b}``); dict keys flatten in sorted order."""
+    g = len(cfg.block_pattern)
+    n_groups, rem = divmod(cfg.n_layers, g)
+    out = []
+    for b in sorted(range(g), key=lambda b: f"block{b}") if n_groups else ():
+        out.append((f"groups/block{b}", [j * g + b for j in range(n_groups)],
+                    True))
+    for b in sorted(range(rem), key=lambda b: f"block{b}"):
+        out.append((f"tail/block{b}", [n_groups * g + b], False))
+    return out
+
+
+def _host(vals, stacked: bool):
+    """One leaf as numpy, stacked over groups (one copy to the host) or a
+    single layer's: a bf16 tensor as its int16 bits (numpy has no
+    bfloat16), ring positions as int32."""
+    if not torch.is_tensor(vals[0]):
+        return np.array(vals if stacked else vals[0], dtype=np.int32)
+    x = (torch.stack(vals) if stacked else vals[0]).detach()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.cpu().numpy()
+
+
+def serialize_snapshot(snapshot, n_tokens: int, layout) -> bytes:
     """npz of the snapshot and its position, in the reference's layout:
-    ``n_tokens`` and ``leaf{i}`` in JAX's tree-leaf order. The JAX package
-    stacks a dense model's per-layer state over layers in one group, so a
-    per-layer list of snapshots is one leaf, stacked on a leading layer
-    axis: polysketch's z is (n_layers, 1, hkv, r^2, h+1). A snapshot
-    written by either package loads in the other."""
+    ``n_tokens`` and ``leaf{i}`` in JAX's tree-leaf order, each group-
+    stacked leaf on a leading group axis (``snapshot_layout``). polysketch's
+    z of a dense model is thus one leaf (n_layers, 1, hkv, r^2, h+1). A
+    snapshot written by either package loads in the other."""
+    leaves = []
+    for _, layers, stacked in layout:
+        per_layer = [snapshot_fields(snapshot[i]) for i in layers]
+        for f in range(len(per_layer[0])):
+            leaves.append(_host([fields[f] for fields in per_layer], stacked))
     buf = io.BytesIO()
-    leaf = torch.stack([z.detach() for z in snapshot]).cpu()  # one copy
-    np.savez(buf, n_tokens=np.int64(n_tokens), leaf0=leaf.numpy())
+    np.savez(buf, n_tokens=np.int64(n_tokens),
+             **{f"leaf{i}": x for i, x in enumerate(leaves)})
     return buf.getvalue()
 
 
-def deserialize_snapshot(data: bytes, device=None):
+def _misfit(what):
+    return ValueError(f"snapshot leaves do not fit this model's: {what}")
+
+
+def _from_host(arr, like, device, stacked: int = 0) -> list:
+    """One leaf of serialize's npz back as `like` per layer (one copy to the
+    device): `stacked` layers on its leading axis, or one unstacked."""
+    want = ((stacked,) if stacked else ()) + (
+        tuple(like.shape) if torch.is_tensor(like) else ())
+    if np.shape(arr) != want:
+        raise _misfit(f"{np.shape(arr)} for {want}")
+    if not torch.is_tensor(like):
+        return [int(x) for x in np.reshape(arr, -1)]
+    arr = np.ascontiguousarray(arr)
+    if like.dtype == torch.bfloat16:
+        if arr.dtype.itemsize != 2:
+            raise _misfit(f"{arr.dtype} for bfloat16")
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    if t.dtype != like.dtype:
+        raise _misfit(f"{t.dtype} for {like.dtype}")
+    t = t.to(device)
+    return list(t.unbind(0)) if stacked else [t]
+
+
+def deserialize_snapshot(data: bytes, template, layout, device=None):
     """Inverse of serialize_snapshot: (per-layer list of snapshots on
-    `device`, n_tokens)."""
+    `device`, n_tokens). `template` is a snapshot of this model's fresh
+    state: it supplies the node types and the shapes every leaf must
+    have. Raises ValueError for leaves that do not fit."""
     with np.load(io.BytesIO(data)) as z:
         n = int(z["n_tokens"])
-        if len(z.files) != 2:
-            raise ValueError(f"expected one stacked leaf, got "
-                             f"{len(z.files) - 1}")
-        leaf = torch.from_numpy(np.array(z["leaf0"]))
-    return [x.to(device) for x in leaf.unbind(0)], n
+        leaves = [np.array(z[f"leaf{i}"]) for i in range(len(z.files) - 1)]
+    want = sum(len(snapshot_fields(template[layers[0]]))
+               for _, layers, _ in layout)
+    if len(leaves) != want:
+        raise _misfit(f"{len(leaves)} leaves for {want}")
+    out, it = [None] * len(template), iter(leaves)
+    for _, layers, stacked in layout:
+        tmpl = template[layers[0]]
+        columns = [_from_host(next(it), like, device,
+                              len(layers) if stacked else 0)
+                   for like in snapshot_fields(tmpl)]
+        for j, i in enumerate(layers):
+            vals = [col[j] for col in columns]
+            out[i] = vals[0] if torch.is_tensor(tmpl) else type(tmpl)(*vals)
+    return out, n
 
 
 # ---------------------------------------------------------------------------
@@ -293,12 +428,13 @@ class DecodeState:
         self.lm = lm
         self.cfg = lm.cfg
         self.kinds = state_kinds(lm.cfg)
+        self.layout = snapshot_layout(lm.cfg)
         for kind in self.kinds:
             get_spec(kind)          # raises for a kind the port lacks
 
     @property
     def kind(self) -> str:
-        """The model's state kind (the dense family has one)."""
+        """The model's first state kind (a dense model has one)."""
         return self.kinds[0]
 
     @property
@@ -344,8 +480,9 @@ class DecodeState:
         if s == 0:
             raise ValueError("prefill needs at least one token")
         if not self.resumable and pos0:
-            raise ValueError(f"a {self.kind!r} state is not resumable: its "
-                             f"prefill starts at 0, got pos0={pos0}")
+            raise ValueError(f"a {'/'.join(self.kinds)!r} state is not "
+                             f"resumable: its prefill starts at 0, got "
+                             f"pos0={pos0}")
         start, logits = 0, None
         while start < s:
             if self.resumable:
@@ -386,22 +523,21 @@ class DecodeState:
         return restore_state(fresh_state, snapshot, n_tokens)
 
     def snapshot_signature(self, max_len: int | None = None) -> list:
-        """(shape, dtype) of each snapshot leaf, read from a fresh slot's
-        state (no prefill runs): what a prefix cache binds to."""
-        return [(tuple(x.shape), str(x.dtype))
-                for x in self.snapshot(self.init_slot(max_len))]
+        """(shape, dtype) of each snapshot tensor, read from a fresh slot's
+        state (no prefill runs): what a prefix cache binds to. A ring's
+        window, min(sliding_window, max_len), is in it."""
+        return [(tuple(x.shape), str(x.dtype)) for x in
+                snapshot_tensors(self.snapshot(self.init_slot(max_len)))]
 
     def serialize(self, snapshot, n_tokens: int) -> bytes:
-        return serialize_snapshot(snapshot, n_tokens)
+        return serialize_snapshot(snapshot, n_tokens, self.layout)
 
-    def deserialize(self, data: bytes):
-        snap, n = deserialize_snapshot(data, self.device)
-        want = self.snapshot_signature(self.block_size)
-        got = [(tuple(x.shape), str(x.dtype)) for x in snap]
-        if got != want:
-            raise ValueError(f"snapshot leaves {got} do not fit this "
-                             f"model's {want}")
-        return snap, n
+    def deserialize(self, data: bytes, max_len: int | None = None):
+        """(snapshot, n_tokens) from serialize's bytes, checked leaf by leaf
+        against a fresh slot's snapshot at `max_len` (ValueError if a leaf
+        does not fit)."""
+        template = self.snapshot(self.init_slot(max_len))
+        return deserialize_snapshot(data, template, self.layout, self.device)
 
     # -- partial prefill (chunked admission) -------------------------------
 

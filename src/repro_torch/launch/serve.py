@@ -53,6 +53,14 @@ The registry's dense polysketch models (head width 128, bf16):
         --draw-on-device --prompt-len 4096 --gen 16 --slots 2 --requests 4
 
 (`--layers N` cuts the depth, as yi-34b needs on one 80 GB card.)
+
+The recurrent families (mamba2's SSD; recurrentgemma's RG-LRU and
+sliding-window attention, bf16), with or without the prefix cache:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --smoke \
+        --device cpu --shared-prefix 24 --prefix-cache-mb 8 --block-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --draw-on-device --prompt-len 4096 --gen 16 --slots 2 --requests 4
 """
 from __future__ import annotations
 
@@ -130,7 +138,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
-                         "starcoder2-3b, qwen3-14b, yi-34b")
+                         "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
+                         "recurrentgemma-9b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (for the CPU)")
     ap.add_argument("--layers", type=int, default=0,

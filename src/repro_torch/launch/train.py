@@ -25,6 +25,13 @@ weights there):
         --draw-on-device --set n_layers=16 --batch 1 --seq 4096 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b --smoke \
         --device cpu --steps 4 --batch 2 --seq 64
+
+The recurrent families train the same way (mamba2-780m at full depth
+on one card; recurrentgemma-9b cut to whole groups of its 3-layer
+pattern, e.g. --set n_layers=9):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-9b \
+        --smoke --device cpu --steps 4 --batch 2 --seq 64
 """
 from __future__ import annotations
 
@@ -48,7 +55,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
-                         "starcoder2-3b, qwen3-14b, yi-34b")
+                         "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
+                         "recurrentgemma-9b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--draw-on-device", action="store_true",
                     help="draw the seeded weights on the device (seconds for "

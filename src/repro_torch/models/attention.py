@@ -1,14 +1,16 @@
-"""Attention mixer in train, prefill and decode modes, for the paper's
-knob ``cfg.attention``: "polysketch", "polynomial" (exact, quadratic) or
-"softmax" (the baseline).
+"""Attention mixers in train, prefill and decode modes: the global
+``kind="attn"`` for the paper's knob ``cfg.attention`` ("polysketch",
+"polynomial" (exact, quadratic) or "softmax", the baseline), and the
+sliding-window ``kind="local_attn"`` (softmax over the last
+cfg.sliding_window tokens, whatever cfg.attention says; recurrentgemma).
 
-Port of those three branches of the JAX package's ``models/attention.py``
+Port of those branches of the JAX package's ``models/attention.py``
 (``attention_init``, ``_project``, ``_poly_ln``, ``_out``,
 ``attention_apply``, ``_fill_kv``). Parameter names and layouts are the
 reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), with
 ``cfg.qk_norm`` the per-head q/k RMS norms' q_norm and k_norm (h,), for
-the two polynomial mechanisms the q/k LayerNorm's pln_*, and for
-polysketch only the learned sketch.
+the two polynomial mechanisms of "attn" the q/k LayerNorm's pln_*, and
+for polysketch only the learned sketch.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 from torch import nn
 
 from repro_torch.core import decode as dec
-from repro_torch.core.poly_attention import qk_layernorm, softmax_attention_full
+from repro_torch.core.poly_attention import (qk_layernorm,
+                                              sliding_attention_blocked,
+                                              softmax_attention_full)
 from repro_torch.core.sketches import init_sketch, sketch_half
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms, rope
@@ -26,16 +30,24 @@ from repro_torch.utils import const_param, normal_param
 
 
 MECHANISMS = ("polysketch", "polynomial", "softmax")
+KINDS = ("attn", "local_attn")
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, *, generator=None, device="cpu"):
+    def __init__(self, cfg, kind: str = "attn", *, generator=None,
+                 device="cpu"):
         super().__init__()
-        if cfg.attention not in MECHANISMS:
+        if kind not in KINDS:
+            raise NotImplementedError(f"attention kind {kind!r} is not "
+                                      f"ported (the port has {KINDS})")
+        if kind == "attn" and cfg.attention not in MECHANISMS:
             raise NotImplementedError(
                 f"the port serves {', '.join(MECHANISMS)} attention, "
                 f"got {cfg.attention!r}")
         self.cfg = cfg
+        self.kind = kind
+        # local attention is softmax whatever the knob says
+        self.mech = cfg.attention if kind == "attn" else "softmax"
         d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
         hd = cfg.resolved_head_dim
         kw = dict(generator=generator, device=device)
@@ -46,13 +58,13 @@ class Attention(nn.Module):
         if cfg.qk_norm:   # per-head RMS norms of q and k (qwen3)
             self.q_norm = const_param((hd,), 1.0, device=device)
             self.k_norm = const_param((hd,), 1.0, device=device)
-        if cfg.attention != "softmax":
+        if self.mech != "softmax":
             # Paper S2.1: LayerNorm on q/k before the polynomial.
             self.pln_q_scale = const_param((hd,), 1.0, device=device)
             self.pln_k_scale = const_param((hd,), 1.0, device=device)
             self.pln_q_bias = const_param((hd,), 0.0, device=device)
             self.pln_k_bias = const_param((hd,), 0.0, device=device)
-        if cfg.attention == "polysketch":
+        if self.mech == "polysketch":
             self.sketch = init_sketch(hd, cfg.sketch_size, cfg.poly_degree,
                                       cfg.learned_sketch, **kw)
 
@@ -98,11 +110,33 @@ class Attention(nn.Module):
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         q, k, v = self._project(x, positions)
-        if self.cfg.attention == "polynomial":
+        if self.kind == "local_attn":
+            return self._local(q, k, v, mode, cache, inplace)
+        if self.mech == "polynomial":
             return self._polynomial(q, k, v, mode, cache, inplace)
-        if self.cfg.attention == "softmax":
+        if self.mech == "softmax":
             return self._softmax(q, k, v, mode, cache, inplace)
         return self._polysketch(q, k, v, mode, cache, inplace)
+
+    def _local(self, q, k, v, mode, cache, inplace):
+        """Sliding-window softmax, scale 1/sqrt(h): the ring's decode step,
+        its resumable prefill on the ring_grid lattice, and in train mode
+        the blocked band with the kv heads repeated onto the query heads."""
+        cfg = self.cfg
+        if mode == "decode":
+            y, cache = dec.kv_ring_decode_step(cache, q[:, :, 0], k[:, :, 0],
+                                               v[:, :, 0], inplace=inplace)
+            return self._out(y[:, :, None]), cache
+        if mode == "prefill":
+            y, cache = dec.kv_ring_prefill(
+                cache, q, k, v,
+                grid=dec.ring_grid(cfg.lt_block_size, cache.k.shape[2]))
+            return self._out(y), cache
+        g = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(g, dim=1) if g > 1 else k
+        vr = v.repeat_interleave(g, dim=1) if g > 1 else v
+        y = sliding_attention_blocked(q, kr, vr, window=cfg.sliding_window)
+        return self._out(y), None
 
     def _softmax(self, q, k, v, mode, cache, inplace):
         """Plain ops, as the reference computes it (scale 1/sqrt(h), not

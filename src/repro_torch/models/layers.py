@@ -1,4 +1,5 @@
-"""Shared model layers: norms, dense/embedding init, RoPE, GLU feed-forward.
+"""Shared model layers: norms, dense/embedding init, RoPE, GLU feed-forward,
+the recurrent mixers' causal depthwise conv and the reference's softplus.
 
 Port of the JAX package's ``models/layers.py``. Weights keep the JAX
 layouts (a dense weight is (d_in, *d_out)), so the parameter bridge moves
@@ -98,3 +99,23 @@ def glu_ffn_apply(ffn: GLUFFN, x):
     dt = x.dtype
     h = F.gelu(x @ ffn.wg.to(dt), approximate="tanh") * (x @ ffn.wi.to(dt))
     return h @ ffn.wo.to(dt)
+
+
+def softplus(x):
+    """jax.nn.softplus, logaddexp(x, 0): F.softplus turns into the identity
+    above its threshold of 20, the reference does not."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def causal_conv(conv_w, conv_b, x, state=None):
+    """Causal depthwise conv over the sequence, as the reference's `_conv`
+    and `_conv4` compute it (in x's dtype). x: (B, S, C); state: (B, K-1, C)
+    trailing inputs of the previous call (zeros when None). Returns (the
+    conv plus its bias, the new trailing inputs)."""
+    kw = conv_w.shape[0]
+    pad = (x.new_zeros((x.shape[0], kw - 1, x.shape[-1])) if state is None
+           else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    w = conv_w.to(x.dtype)
+    out = sum(w[i] * xp[:, i:i + x.shape[1]] for i in range(kw))
+    return out + conv_b.to(x.dtype), xp[:, -(kw - 1):].clone()

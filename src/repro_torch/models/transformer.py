@@ -1,14 +1,21 @@
-"""Decoder-only transformer LM, dense family with polysketch, exact
-polynomial or softmax attention.
+"""Decoder-only LM: the dense family (polysketch, exact polynomial or
+softmax attention) and the recurrent families (mamba2's SSD blocks,
+recurrentgemma's (rglru, rglru, local_attn) pattern).
 
-Port of the dense ``block_pattern=("attn",)`` path of the JAX package's
-``models/transformer.py`` (``lm_init``, ``lm_apply`` in train / prefill /
-decode modes, ``lm_init_cache``, ``lm_init_slot_cache``). The JAX
-``lax.scan`` over layer-stacked parameters is a Python loop over an
-``nn.ModuleList`` with one module per block. MoE, SSD, RG-LRU and VLM
-are not ported.
+Port of the JAX package's ``models/transformer.py`` (``effective_pattern``
+as ``layer_kinds``, ``lm_init``, ``lm_apply`` in train / prefill / decode
+modes, ``lm_init_cache``, ``lm_init_slot_cache``). Layers cycle through the
+config's block pattern; the reference stacks each pattern position over
+the groups and runs the groups under ``lax.scan``, then an unscanned tail
+of n_layers % len(pattern) blocks. Here every layer is its own module in
+an ``nn.ModuleList``, looped over in order: layer i is group i // g,
+block i % g, and the tail follows (``bridge`` maps the two layouts). MoE,
+VLM and encoder-decoder models are not ported (ROADMAP A.8).
 
-Each block: pre-norm -> mixer -> residual; pre-norm -> GLU FFN -> residual.
+Each block: pre-norm -> mixer -> residual; pre-norm -> GLU FFN ->
+residual. The mixer is attn (the paper's knob), local_attn (a sliding
+window), rglru or ssd. A mixer-only block (d_ff == 0: mamba2) has no
+second norm and no FFN.
 
 Rematerialisation (``cfg.remat``), as ``lm_apply`` checkpoints its group
 body: in train mode with grad on, each group (here one block) runs under
@@ -32,25 +39,44 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core.state import get_spec, mixer_state_kind
 from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
+from repro_torch.models.rglru import RGLRU
+from repro_torch.models.ssm import SSM
 
 
 REMAT = ("none", "dots", "full")
+FAMILIES = ("dense", "ssm", "hybrid")
+MIXERS = ("attn", "local_attn", "rglru", "ssd")
 
 
 def check_supported(cfg):
-    """Raise for a config outside the port's slice."""
-    if cfg.family != "dense" or tuple(cfg.block_pattern) != ("attn",) \
-            or cfg.ffn != "glu" or cfg.attention not in MECHANISMS:
+    """Raise for a config outside the port's slices: MoE, VLM and
+    encoder-decoder models, and untied embeddings, are ROADMAP A.8's."""
+    if cfg.family not in FAMILIES or cfg.ffn != "glu":
         raise NotImplementedError(
-            f"{cfg.name!r}: the port covers the dense family (block_pattern "
-            f"('attn',), GLU FFN) with {', '.join(MECHANISMS)} attention "
-            f"only")
+            f"{cfg.name!r}: family {cfg.family!r} with a {cfg.ffn!r} FFN is "
+            f"not ported (ROADMAP A.8); the port covers the "
+            f"{', '.join(FAMILIES)} families with GLU FFNs")
+    unknown = [m for m in cfg.block_pattern if m not in MIXERS]
+    if unknown or not cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name!r}: mixers {unknown} are not ported (the port has "
+            f"{', '.join(MIXERS)})")
+    if "attn" in cfg.block_pattern and cfg.attention not in MECHANISMS:
+        raise NotImplementedError(
+            f"{cfg.name!r}: {cfg.attention!r} attention is not ported (the "
+            f"port has {', '.join(MECHANISMS)})")
     if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings are not ported")
-    if cfg.d_ff <= 0:
-        raise NotImplementedError("mixer-only blocks are not ported")
+        raise NotImplementedError("untied embeddings are not ported "
+                                  "(ROADMAP A.8)")
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
+
+
+def layer_kinds(cfg) -> list[str]:
+    """The mixer kind of every layer, groups then tail (the reference's
+    effective pattern: its FFN half is always a GLU until MoE is ported)."""
+    return [cfg.block_pattern[i % len(cfg.block_pattern)]
+            for i in range(cfg.n_layers)]
 
 
 _aten = torch.ops.aten
@@ -82,25 +108,37 @@ def _run_block(remat, block, h, **kw):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, *, generator=None, device="cpu"):
+    def __init__(self, cfg, mixer: str = "attn", *, generator=None,
+                 device="cpu"):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.kind = mixer
         self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.mixer = Attention(cfg, **kw)
-        self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
+        if mixer in ("attn", "local_attn"):
+            self.mixer = Attention(cfg, mixer, **kw)
+        elif mixer == "rglru":
+            self.mixer = RGLRU(cfg, **kw)
+        else:
+            self.mixer = SSM(cfg, **kw)
+        if cfg.d_ff > 0:
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
+            self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
+        else:                                # mixer-only block (mamba2)
+            self.norm2 = self.ffn = None
 
     def forward(self, h, *, positions, mode, cache=None, inplace=False):
         y, new_cache = self.mixer(self.norm1(h), positions=positions,
                                   mode=mode, cache=cache, inplace=inplace)
         h = h + y
-        h = h + self.ffn(self.norm2(h))
+        if self.ffn is not None:
+            h = h + self.ffn(self.norm2(h))
         return h, new_cache
 
 
 class LM(nn.Module):
     """The LM's parameters and forward. Parameter `layers.{i}.<path>` is
-    the JAX leaf `groups/block0/<path>` at layer index i."""
+    the JAX leaf `groups/block{i % g}/<path>` at group i // g, or in the
+    tail `tail/block{b}/<path>` (see bridge)."""
 
     def __init__(self, cfg, *, generator=None, device="cpu"):
         super().__init__()
@@ -108,8 +146,8 @@ class LM(nn.Module):
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
+                                    for kind in layer_kinds(cfg))
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
 
     def forward(self, tokens, *, mode: str = "train", cache=None,
@@ -142,15 +180,16 @@ class LM(nn.Module):
         return logits, new_cache
 
     def init_cache(self, batch: int, max_len: int | None = None):
-        """Decode cache, one node per layer, built by the state kind's
-        registry entry (core.state): a constant-size PolysketchCache
-        (`max_len` sizes nothing), or a KVCache of `max_len` positions for
-        polynomial and softmax attention (required then)."""
-        spec = get_spec(mixer_state_kind(self.cfg))
+        """Decode cache, one node per layer, each built by its mixer's state
+        kind's registry entry (core.state): a constant-size PolysketchCache
+        or RecurrentCache (`max_len` sizes nothing), a RingKVCache of
+        min(sliding_window, max_len) slots, or a KVCache of `max_len`
+        positions for polynomial and softmax attention (required then)."""
         dt = getattr(torch, self.cfg.compute_dtype)
         dev = self.embed.table.device
-        return [spec.init(self.cfg, batch, max_len, dt, dev)
-                for _ in self.layers]
+        return [get_spec(mixer_state_kind(self.cfg, block.kind)).init(
+                    self.cfg, batch, max_len, dt, dev)
+                for block in self.layers]
 
     def init_slot_cache(self, max_len: int | None = None):
         """Decode cache for one serve slot: batch 1 with a host-int `pos`

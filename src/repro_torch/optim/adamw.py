@@ -8,13 +8,19 @@ m and v in float32, bias correction with a float count, and
 
 The state is keyed by the LM's parameter names. ``adamw_update`` writes
 the new values into the parameters in place (they are the module's own
-tensors); m and v come back as new tensors.
+tensors), and the new m and v into the state's own moment tensors: a
+step never holds a second copy of the moments (8 bytes a parameter, 8.4
+GB for recurrentgemma-9b's embedding alone). The state passed in is
+therefore the state returned, less its count.
 
 The weight-decay mask is the reference's ``_wd_mask``, taken on the
-reference's tree: there the layers are stacked, so every per-layer leaf
-(norm scales and biases included) has ndim >= 2 and is decayed. Only a
-top-level leaf of ndim < 2 (``final_norm/*``) and a frozen random sketch
-projection (a path ending in ``/g``) escape decay.
+reference's tree: there the pattern groups are stacked, so every leaf
+under ``groups/`` (norm scales, biases and 1-D recurrent parameters
+included) has ndim >= 2 and is decayed. A leaf of the unstacked tail
+(``tail/``, e.g. recurrentgemma's last two layers) or at the top level
+(``final_norm/*``) is decayed by its own ndim, and a frozen random sketch
+projection (a path ending in ``/g``) never is. The layout comes from the
+config (``bridge.jax_path``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.bridge import LAYER_GROUP, jax_path
+from repro_torch.bridge import GROUPS, jax_path
 
 
 class AdamWState(NamedTuple):
@@ -31,13 +37,13 @@ class AdamWState(NamedTuple):
     count: torch.Tensor            # int32, 0-d
 
 
-def decay_mask(params: dict[str, torch.Tensor]) -> dict[str, float]:
+def decay_mask(params: dict[str, torch.Tensor], cfg) -> dict[str, float]:
     """1.0 for the parameters the reference decays, else 0.0."""
     def decayable(name, p):
-        path = jax_path(name)
+        path = jax_path(name, cfg)
         if path.endswith("/g"):    # frozen random sketch projection
             return 0.0
-        if path.startswith(LAYER_GROUP):   # stacked in the reference
+        if path.startswith(GROUPS):   # stacked in the reference
             return 1.0
         return 1.0 if p.dim() >= 2 else 0.0
 
@@ -54,21 +60,23 @@ def adamw_init(params: dict[str, torch.Tensor]) -> AdamWState:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.95, b2=0.98,
-                 eps=1e-8, weight_decay=0.1) -> AdamWState:
+def adamw_update(grads, state: AdamWState, params, *, lr, cfg, b1=0.95,
+                 b2=0.98, eps=1e-8, weight_decay=0.1) -> AdamWState:
     """One AdamW step: the parameters are updated in place; returns the
-    new state. lr: a float or a float32 0-d tensor."""
+    new state. lr: a float or a float32 0-d tensor; `cfg` gives the
+    decay mask's layout (decay_mask)."""
     count = state.count + 1
     c = count.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=c.device)
-    mask = decay_mask(params)
+    mask = decay_mask(params, cfg)
     new_m, new_v = {}, {}
     for name, p in params.items():
         g32 = grads[name].to(torch.float32)
-        m = b1 * state.m[name] + (1 - b1) * g32
-        v = b2 * state.v[name] + (1 - b2) * g32 * g32
+        # in place, rounding as b1 * m + (1 - b1) * g32 does
+        m = state.m[name].mul_(b1).add_((1 - b1) * g32)
+        v = state.v[name].mul_(b2).add_((1 - b2) * g32 * g32)
         step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         step = step + weight_decay * mask[name] * p.to(torch.float32)
         p.copy_((p - lr * step.to(p.dtype)).to(p.dtype))

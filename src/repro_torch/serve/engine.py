@@ -3,8 +3,9 @@
 Port of the JAX package's ``serve/engine.py``: ``make_serve_fns``,
 ``generate`` (greedy or sampled) and ``ServeEngine``. The engine speaks
 only the DecodeState protocol (core.state), so the same slot machinery
-serves every state kind the port has: polysketch (constant-size), and the
-full KV caches of exact polynomial and softmax attention.
+serves every state kind the port has: polysketch (constant-size), the
+full KV caches of exact polynomial and softmax attention, and the
+recurrent families' SSD, RG-LRU and sliding-window ring states.
 
 The engine keeps a fixed number of decode *slots*. The slots' caches are
 stacked on the batch axis of one model cache (core.decode's slot
@@ -34,9 +35,10 @@ reference donates it); the protocol-level functions keep value
 semantics.
 
 With a ``PrefixCache`` attached (legal when the model's
-``snapshot_granularity`` is not None: polysketch), admission looks up the
-longest cached prefix of each prompt, restores its snapshot and prefills
-only the rest, seeding B1 with the restored state; a shared system prompt
+``snapshot_granularity`` is not None: polysketch, or the recurrent
+kinds), admission looks up the longest cached prefix of each prompt,
+restores its snapshot and prefills only the rest (for polysketch, seeding
+B1 with the restored state); a shared system prompt
 costs its prefill once, then a dictionary lookup, across restarts too
 when the cache has a ``save_dir``. Tokens are the same bits as a cold
 prefill's (the block grid, core.state).
@@ -308,10 +310,13 @@ class ServeEngine:
             prefix_cache.bind_block_size(state.block_size)
             # snapshots are weight- and shape-specific: the binding
             # fingerprints the snapshot leaves' shapes, read from a fresh
-            # slot's state
+            # slot's state (a ring's window is min(sliding_window,
+            # max_len), so engines that differ in max_len may not share)
             sig = repr(state.snapshot_signature(max_len)).encode()
             prefix_cache.bind_params(model.lm, state_sig=sig)
-            prefix_cache.bind_codec(state.serialize, state.deserialize)
+            prefix_cache.bind_codec(
+                state.serialize,
+                lambda data: state.deserialize(data, max_len=max_len))
             prefix_cache.attach_tracer(tr)
         # distinct resumed-chunk lengths ever dispatched (bounded by the
         # power-of-two bucketing)

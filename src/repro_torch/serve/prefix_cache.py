@@ -5,11 +5,13 @@ decode state is constant in size, so a cached prefix of any length is one
 snapshot of the folded prefix state ``z`` per layer (r^2 x (h+1) per kv
 head): a request sharing a system prompt restores it and prefills only its
 suffix. At gpt2s-polysketch's full width a snapshot is 13 layers x 12 kv
-heads x 1024 x 65 x 4 B = 41,533,440 B, whatever the prefix's length.
+heads x 1024 x 65 x 4 B = 41,533,440 B, whatever the prefix's length. The
+recurrent kinds snapshot their whole constant-size state (SSD and RG-LRU:
+h and the conv window; a ring: its W slots of k and v).
 
 The store is written against the DecodeState protocol (core.state): it
-never inspects the model; snapshots are opaque lists of tensors and
-serialization goes through the codec the engine binds.
+never inspects the model; snapshots are opaque lists of per-layer
+snapshots and serialization goes through the codec the engine binds.
 
 Content addressing: a SHA-256 chain over block_size-token prompt blocks,
 key_d = H(key_{d-1} || int32 tokens of block d), so a lookup walks the
@@ -65,8 +67,9 @@ def _leaves(tree):
 
 
 def snapshot_nbytes(snapshot) -> int:
-    """Bytes of a snapshot's tensors."""
-    return sum(x.numel() * x.element_size() for x in _leaves(snapshot))
+    """Bytes of a snapshot's tensors (a ring's host-int position is none)."""
+    return sum(x.numel() * x.element_size() for x in _leaves(snapshot)
+               if torch.is_tensor(x))
 
 
 def params_fingerprint(module: torch.nn.Module) -> bytes:

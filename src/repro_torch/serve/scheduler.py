@@ -16,8 +16,11 @@ With a ``serve.prefix_cache.PrefixCache`` attached, a job plans its
 prefill from a lookup: it restores the deepest snapshot of its prompt's
 prefix and prefills only the rest, splits the prefill at a promoted
 shared boundary to snapshot it there, and snapshots its block-aligned
-truncation when done. Every snapshot a job plans to insert is announced
-in a pending-key map before it exists. A later request whose chain
+truncation: when done for a block-granularity state (polysketch: the
+tail sits in buffers the snapshot omits), or by splitting the prefill at
+the truncation for a token-granularity one (SSD, RG-LRU, ring). Every
+snapshot a job plans to insert is announced in a pending-key map before
+it exists. A later request whose chain
 crosses an announced boundary deeper than its own best snapshot parks
 until that snapshot lands, then replans and restores from it: under N
 concurrent misses on a shared prefix the promote split happens once, and
@@ -259,11 +262,18 @@ class PrefillScheduler:
         want_trunc = (bool(plan.trunc_key)
                       and plan.n_trunc > plan.n_restore
                       and plan.n_trunc != plan.n_promote)
+        # a token-granularity state covers exactly the tokens so far, so its
+        # snapshot at a truncation inside the prompt needs the prefill split
+        # there
+        split_trunc = (want_trunc and plan.n_trunc < plen
+                       and self.state.snapshot_granularity == "token")
+        if split_trunc:
+            snap_at[plan.n_trunc] = plan.trunc_key
         job.snap_at = snap_at
-        if want_trunc:
-            # block granularity (the port's only snapshot granularity): the
-            # final state's prefix matrix covers exactly the truncation,
-            # the tail sits in the buffers
+        if want_trunc and not split_trunc:
+            # block granularity (the final state's prefix matrix covers
+            # exactly the truncation; the tail sits in the buffers), or a
+            # block-aligned prompt whose final state is the truncation
             job.final_key, job.final_pos = plan.trunc_key, plan.n_trunc
         for pos, key in snap_at.items():
             self._announce(job, key, pos)

@@ -4,8 +4,8 @@ clipping over every parameter, AdamW and the lr schedule.
 The port of the JAX package's ``train/step.py`` (``TrainState``,
 ``init_train_state``, ``make_loss_fn``, ``make_train_step``). The
 reference's functional step maps a state to a new one; here the
-parameters live in the LM module and the step updates them in place
-(and the AdamW moments as new tensors), returning the new state. The
+parameters live in the LM module and the step updates them and the
+AdamW moments in place, returning the new state. The
 manual data-parallel step waits for the port's sharding.
 
 Gradients come from autograd; in train mode the attention runs
@@ -89,7 +89,7 @@ def make_train_step(cfg, tcfg):
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = schedule(state.step)
         opt = adamw_update(grads, state.opt, params, lr=lr, b1=tcfg.b1,
-                           b2=tcfg.b2, weight_decay=tcfg.weight_decay)
+                           b2=tcfg.b2, weight_decay=tcfg.weight_decay, cfg=cfg)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(lm, opt, state.step + 1), metrics
 

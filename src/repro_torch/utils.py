@@ -100,3 +100,12 @@ def uniform_param(shape, bound, *, generator=None, device="cpu") -> nn.Parameter
     w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
     w.uniform_(-bound, bound, generator=generator)
     return nn.Parameter(w.to(device))
+
+
+def tensor_param(values: torch.Tensor, device) -> nn.Parameter:
+    """A float32 parameter holding `values` (made on the CPU); on the meta
+    device, its shape only."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return nn.Parameter(torch.empty(values.shape, device=device))
+    return nn.Parameter(values.to(torch.float32).to(device))

@@ -151,7 +151,7 @@ def test_bf16_gradients_match_jax(arch):
                         params=params_from_jax(_flat(params), cfg))
     loss, _ = make_loss_fn(cfg)(model.lm, {"tokens": torch.from_numpy(toks.astype(np.int64))})
     loss.backward()
-    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()})
+    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}, model.cfg)
     want = _flat(jgrads)
     assert sorted(got) == sorted(want)
     errs = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()

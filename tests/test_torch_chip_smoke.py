@@ -135,3 +135,61 @@ def test_prefix_phase_reckoning(chip_smoke):
     assert sum(not s.is_greedy for s in samp) == 4
     cold = sum(-(-len(p) // blk) for p in prompts)
     assert cold == 32 and sum(-(-(len(p) - shared) // blk) for p in prompts) == 8
+
+
+@pytest.mark.parametrize("arch,nbytes", [("mamba2-780m", 76_455_936),
+                                         ("recurrentgemma-9b", 26_230_784)])
+def test_recurrent_snapshot_reckoning(chip_smoke, arch, nbytes):
+    """Phase 10's snapshot bytes at the published width, bf16: mamba2's 48
+    x ((48, 128, 64) f32 h + (3, 3328) conv), recurrentgemma's 26 RG-LRU
+    layers of h (f32) and conv plus 12 rings of (1, 2048, 256) k and v; a
+    real snapshot of a fresh slot (meta device) has those bytes, and a
+    window of max_len < 2048 shrinks only the rings."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.prefix_cache import snapshot_nbytes
+    cfg = get_config(arch)
+    max_len = chip_smoke.REC_SHARED + chip_smoke.REC_SUFFIX[1] + chip_smoke.REC_GEN
+    assert chip_smoke.reckon_recurrent_snapshot_bytes(cfg, max_len) == nbytes
+    meta = build_model(cfg, device="meta")
+    assert snapshot_nbytes(meta.state.snapshot(meta.state.init_slot(max_len))) == nbytes
+    small = chip_smoke.reckon_recurrent_snapshot_bytes(cfg, 1024)
+    assert (small == nbytes) == (arch == "mamba2-780m")
+
+
+@pytest.mark.parametrize("arch,gib,groups", [
+    ("mamba2-780m", 79.19, 48), ("recurrentgemma-9b", 79.19, 3),
+    ("recurrentgemma-9b", 93.0, 4), ("recurrentgemma-9b", 30.0, 1)])
+def test_recurrent_train_depth(chip_smoke, monkeypatch, arch, gib, groups):
+    """Phase 10 trains the most whole pattern groups that fit at 16 B a
+    parameter: mamba2 at full depth on an 80 GB H100 (79.19 GiB), and
+    recurrentgemma at 3 groups of (rglru, rglru, local_attn); at least one
+    group on any card. One group of recurrentgemma holds 656.5M
+    parameters beside its 1048.6M embedding."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(chip_smoke, "card_gib", lambda: gib)
+    assert chip_smoke.rec_train_groups(get_config(arch)) == groups
+    if arch == "recurrentgemma-9b":
+        assert chip_smoke.group_split(get_config(arch)) == (656_498_688, 1_048_580_096)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_recurrent_served_rows(chip_smoke, arch):
+    """Phase 10's whole-row check on a SMOKE model in f32 (block 16; a
+    70-token prompt wraps recurrentgemma's 32-slot ring, then 6 decode
+    steps): every served row, the prefill's and the decode steps', lies
+    within phase 10's f32 limits of the train-mode forward's at its own
+    position, and the control's float8_e5m2 states part from it by far
+    more."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    model = build_model(get_config(arch, smoke=True, lt_block_size=16), device="cpu", seed=0)
+    seq = torch.from_numpy(np.random.default_rng(4).integers(0, 128, 77))
+    want = chip_smoke.train_rows(model, seq)
+    assert want.shape == (76, model.cfg.vocab_size)
+    rel, lp = chip_smoke.rec_rows(model, seq, 70, want)
+    assert rel <= chip_smoke.F32_TOL and lp <= chip_smoke.REC_LP_TOL
+    c_rel, c_lp = chip_smoke.rec_rows(model, seq, 70, want, torch.float8_e5m2)
+    assert c_rel > 100 * rel and c_lp > 100 * lp

@@ -799,3 +799,70 @@ def test_c1_forward_error_against_float64_at_32k(card, kernel):
     e_kernel = (got.double() - ref).abs().max().item() / top
     e_plain = (plain.double() - ref).abs().max().item() / top
     assert e_kernel <= 1e-5 and e_plain <= 1e-5, (e_kernel, e_plain)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (plain ops: SSD, RG-LRU, the sliding-window ring)
+# ---------------------------------------------------------------------------
+
+RECURRENT = ["mamba2-780m", "recurrentgemma-9b"]
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_smoke_on_card_matches_cpu(card, arch):
+    """SMOKE (f32, weights from one CPU seed): greedy tokens past
+    recurrentgemma's 32-token window equal the CPU's, logits within 1e-4."""
+    cfg = get_config(arch, smoke=True)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 45))
+    on_card = generate(build_model(cfg, device=card, seed=4), prompt, 10)
+    on_cpu = generate(build_model(cfg, device="cpu", seed=4), prompt, 10)
+    assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+    assert (on_card.logits_last.cpu() - on_cpu.logits_last).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrent_resume_is_bit_identical_on_card(card, arch, dtype):
+    """A prefill resumed at a block boundary equals the cold one, logits
+    and every layer's state, on the card (block 16, a ring of 32)."""
+    cfg = get_config(arch, smoke=True, lt_block_size=16, compute_dtype=dtype)
+    st = build_model(cfg, device=card, seed=5).state
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(1, 77))).to(card)
+    with torch.inference_mode():
+        cold_logits, cold = st.prefill(toks, max_len=96)
+        _, part = st.prefill(toks[:, :48], max_len=96)
+        logits, res = st.resume(toks[:, 48:], part, 48)
+    assert torch.equal(logits, cold_logits)
+    for a, b in zip(cold, res):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefix_cache_hits_equal_cold_on_card(card, arch):
+    """Shared 3-block prefix, suffixes off the block grid (the truncation
+    split): the cached engine hits and emits the cold engine's tokens and
+    log-probabilities bit for bit."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = get_config(arch, smoke=True, lt_block_size=16)
+    model = build_model(cfg, device=card, seed=7)
+    rng = np.random.default_rng(8)
+    shared = rng.integers(0, cfg.vocab_size, 48)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 13 + 5 * i)])
+               for i in range(4)]
+    runs = {}
+    for name, pc in (("cold", None), ("cached", PrefixCache(1 << 22))):
+        eng = ServeEngine(model, slots=2, max_len=128, prefix_cache=pc, logprobs=True,
+                          overlap=True, prefill_budget=32)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 6, sampling=SamplingParams(temperature=0.8, seed=i) if i % 2
+                       else SamplingParams())
+        runs[name] = {o.rid: o for o in eng.run()}
+        if pc is not None:
+            assert pc.stats()["hits"] >= 2
+    for rid, o in runs["cold"].items():
+        assert np.array_equal(o.tokens, runs["cached"][rid].tokens)
+        assert np.array_equal(o.logprobs, runs["cached"][rid].logprobs)

@@ -164,7 +164,7 @@ def test_polynomial_loss_gradients_match_jax(jax_pair):
     loss, _ = make_loss_fn(model.cfg)(model.lm,
                                       {"tokens": torch.from_numpy(toks.astype(np.int64))})
     loss.backward()
-    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()})
+    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}, model.cfg)
     assert abs(loss.item() - float(want_loss)) <= 1e-5
     want = _flat(want)
     assert sorted(got) == sorted(want)

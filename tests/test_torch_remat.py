@@ -101,7 +101,8 @@ def test_gradients_equal_none_and_follow_jax(pairs, none_grads, mech, remat):
         jax_make_loss_fn(jax_build_model(jcfg), jcfg), has_aux=True))(
             params, {"tokens": jnp.asarray(toks)})
     assert abs(loss.item() - float(jloss)) <= 1e-5
-    jgrads, got = _flat(jgrads), named_to_jax(got)
+    jgrads = _flat(jgrads)
+    got = named_to_jax(got, get_config(ARCH, smoke=True, attention=mech, remat=remat))
     assert sorted(got) == sorted(jgrads)
     for path, w in jgrads.items():
         w = np.asarray(w, np.float64)

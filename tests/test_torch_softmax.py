@@ -238,7 +238,7 @@ def test_softmax_loss_gradients_match_jax(pair):
     model = _trainable(params, cfg)
     loss, _ = make_loss_fn(cfg)(model.lm, {"tokens": torch.from_numpy(toks.astype(np.int64))})
     loss.backward()
-    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()})
+    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}, model.cfg)
     assert abs(loss.item() - float(want_loss)) <= 1e-5
     _leaf_close(got, _flat(want), 1e-4)
 

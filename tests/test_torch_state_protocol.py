@@ -57,16 +57,17 @@ def _same_cache(a, b):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_ported_kinds_as_the_reference_declares_them():
-    assert set(tst.REGISTRY) == set(MECHS.values())
+    assert set(tst.REGISTRY) == set(MECHS.values()) | {"kv_ring", "ssd",
+                                                       "rglru"}
+    assert set(tst.REGISTRY) == set(jst.REGISTRY)
     for kind, spec in tst.REGISTRY.items():
         ref = jst.get_spec(kind)
         assert spec.kind == kind
         assert (spec.granularity, spec.resumable) == (ref.granularity,
                                                       ref.resumable)
         assert spec.node_type.__name__ == ref.node_type.__name__
-    for unported in ("kv_ring", "ssd", "rglru", "nope"):
-        with pytest.raises(KeyError, match="registered"):
-            tst.get_spec(unported)
+    with pytest.raises(KeyError, match="registered"):
+        tst.get_spec("nope")
 
 
 @pytest.mark.parametrize("attention", list(MECHS))
@@ -205,7 +206,7 @@ def test_serialized_layout_is_the_references(pair):
         [z_shape for z_shape in [(cfg.n_layers, 1, cfg.n_kv_heads,
                                   cfg.sketch_size ** 2,
                                   cfg.resolved_head_dim + 1)]]
-    bad = tst.serialize_snapshot([torch.zeros(1, 2, 3)], 0)
+    bad = tst.serialize_snapshot([torch.zeros(1, 2, 3)], 0, [("groups/block0", [0], True)])
     with pytest.raises(ValueError, match="do not fit"):
         tm.state.deserialize(bad)
 

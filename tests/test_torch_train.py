@@ -238,7 +238,7 @@ def test_smoke_loss_gradients_match_jax(jax_pair, seq):
     model = _port_model(params, cfg)
     loss, _ = make_loss_fn(cfg)(model.lm, {"tokens": torch.from_numpy(toks.astype(np.int64))})
     loss.backward()
-    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()})
+    got = named_to_jax({n: p.grad for n, p in model.lm.named_parameters()}, cfg)
     assert abs(loss.item() - float(want_loss)) <= 1e-5
     _leaf_close(got, _flat(want), 1e-4)
 
@@ -273,10 +273,10 @@ def test_decay_mask_is_the_reference_mask(learned):
     want = dict(zip(tree_paths(params), jax.tree_util.tree_leaves(_wd_mask(params))))
     cfg = get_config(ARCH, smoke=True, learned_sketch=learned)
     lm = build_model(cfg, device="cpu", trainable=True).lm
-    got = optim.decay_mask(dict(lm.named_parameters()))
-    assert {jax_path(n) for n in got} == set(want)
+    got = optim.decay_mask(dict(lm.named_parameters()), cfg)
+    assert {jax_path(n, cfg) for n in got} == set(want)
     for name, m in got.items():
-        assert m == want[jax_path(name)], name
+        assert m == want[jax_path(name, cfg)], name
     assert got["final_norm.scale"] == 0.0 and got["layers.0.norm1.bias"] == 1.0
 
 
@@ -326,7 +326,7 @@ def test_adamw_update_matches_jax():
         jp, jst = jax_optim.adamw_update({k: jnp.asarray(v) for k, v in g.items()},
                                          jst, jp, lr=1e-2)
         tst = optim.adamw_update({k: torch.from_numpy(v) for k, v in g.items()},
-                                 tst, tp, lr=1e-2)
+                                 tst, tp, lr=1e-2, cfg=get_config(ARCH, smoke=True))
     assert int(tst.count) == int(jst.count) == 3
     for k in p:
         np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)

@@ -2872,29 +2872,37 @@ def event_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def b1_ops(bh, n, r, h, b, degree):
+def b1_ops(bh, n, r, h, b, degree, itemsize=4):
     """B1's operations as the algorithm needs them (masked pairs not
-    counted), as (products, rest). Products: the diagonal's Q K^T and W V
-    (4h a pair), the cross term Phi(qm) [Zv | Zd] (2r^2 (h + 1) a row), the
-    fold Km^T [Km (x) V | Km] (2br^2 (h + 1) a block). Rest: scale, power
-    and row sum a pair; the cross term's elementwise work a row; the
-    product km (x) v and the prefix a block."""
+    counted), as (products, rest, TF32 products). Products: the diagonal's
+    Q K^T and W V (4h a pair), the cross term Phi(qm) [Zv | Zd] (2r^2 (h + 1)
+    a row), the fold Km^T [Km (x) V | Km] (2br^2 (h + 1) a block). Rest:
+    scale, power and row sum a pair; the cross term's elementwise work a
+    row; the product km (x) v and the prefix a block. TF32 products: three
+    an f32 product (3xTF32); with bf16 operands (itemsize 2) only the
+    passes whose lo half is not zero: Q K^T one, W V two (W is f32), the
+    cross term three (Phi(qm) and Z_l are f32), the fold two (Km is
+    bf16)."""
     t = n // b
     pairs = t * b * (b + 1) // 2
-    prod = (pairs * 4 * h + n * (2 * r * r * h + 2 * r * r)
-            + t * (2 * b * r * r * h + 2 * b * r * r))
+    cross = n * (2 * r * r * h + 2 * r * r)
+    fold = t * (2 * b * r * r * h + 2 * b * r * r)
+    prod = pairs * 4 * h + cross + fold
     rest = (pairs * (2 + pow_muls(degree)) + n * (2 * r * h + 2 * r + h)
             + t * b * r * h + t * (r * r * h + r * r))
-    return bh * prod, bh * rest
+    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * 3 + 3 * cross + 2 * fold
+    return bh * prod, bh * rest, bh * tf32
 
 
 def b1_bound(bh, n, r, h, b, degree, itemsize=4):
     """B1's bounds on an H100: bytes are each input read once (z0 included:
     the wrapper passes zeros when none is given) and each output written
-    once, the returned state included."""
+    once, the returned state included; the TF32 products as b1_ops counts
+    them for the operands' width."""
     state = bh * (r * r * h + r * r) * 4
     nbytes = bh * n * (2 * r + 3 * h) * itemsize + bh * n * h * itemsize + 2 * state
-    return bounds(*b1_ops(bh, n, r, h, b, degree), nbytes)
+    prod, rest, tf32 = b1_ops(bh, n, r, h, b, degree, itemsize)
+    return bounds(prod, rest, nbytes, tf32)
 
 
 class Bounds(NamedTuple):
@@ -2906,13 +2914,14 @@ class Bounds(NamedTuple):
     nbytes: int
 
 
-def bounds(prod, rest, nbytes) -> Bounds:
+def bounds(prod, rest, nbytes, tf32=None) -> Bounds:
     """Least times on an H100 (ms), each the larger of operations and bytes
-    at the HBM rate: on the tensor-core route, three TF32 products per f32
-    product at the TF32 peak plus the rest at the f32 peak; on the FMA
-    route, all operations at the f32 peak."""
+    at the HBM rate: on the tensor-core route, `tf32` TF32 product flops
+    (three TF32 products per f32 product by default) at the TF32 peak plus
+    the rest at the f32 peak; on the FMA route, all operations at the f32
+    peak."""
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_tc = 3 * prod / H100_TF32_FLOPS + rest / H100_F32_FLOPS
+    t_tc = (3 * prod if tf32 is None else tf32) / H100_TF32_FLOPS + rest / H100_F32_FLOPS
     t_fma = (prod + rest) / H100_F32_FLOPS
     by = lambda t_ops: "operations" if t_ops >= t_bytes else "bytes"  # noqa: E731
     return Bounds(max(t_tc, t_bytes) * 1e3, by(t_tc), max(t_fma, t_bytes) * 1e3,
@@ -2984,6 +2993,68 @@ def phase_timing():
             f"it; f32-FMA bound {bd.fma_ms:.3f} ms, {bd.fma_ms / min(ms, ms2):.1%} of it; "
             f"library call: {NO_LIBRARY}")
     pc.polysketch_causal_cuda.launches = launches   # timing launches do not count
+    return out
+
+
+# B1's forward passes (a substring of their kernels' names)
+B1_FWD_PASSES = (("fold", "fold_kernel"), ("prefix", "prefix_kernel"),
+                 ("output", "output_kernel"))
+# the forward kernels that carry B1's diagonal and cross term and B2 on
+# wgmma: each should hold 8 warps an SM (12: two consumer warpgroups and a
+# producer) with no spills
+FWD_HEAVY = ("output_kernel", "poly_flash_kernel")
+
+
+def phase_timing_forward(ptxas):
+    """The forward kernels' registers, spills, shared memory and CTAs an SM
+    (forward_occupancy: B2 causal and B1 local_exact, at h 64 in f32 and at
+    h 128 in bf16), and B1's forward per pass (fold, prefix, output;
+    torch.profiler) at the training shape (bh 24, n 4096, r 32, h 64,
+    b 1024, f32) and at starcoder2-3b's (h 128, b 256, bf16 and f32),
+    saving Z_l and 1 + den. Returns {shape: {pass: ms}}."""
+    for label, rows, src, inst in (
+            ("B2 forward kernel on the card (causal, h 64, f32)", pf.forward_occupancy(64),
+             "poly_flash", "IfLb1ELi8E"),
+            ("B2 forward kernel on the card (causal, h 128, bf16)",
+             pf.forward_occupancy(128, torch.bfloat16), "poly_flash",
+             "I13__nv_bfloat16Lb1ELi16E"),
+            ("B1 forward kernels on the card (local_exact, h 64, f32)",
+             pc.forward_occupancy(True, 64), "polysketch_causal", "IfLb1ELi8E"),
+            ("B1 forward kernels on the card (local_exact, h 128, bf16)",
+             pc.forward_occupancy(True, 128, torch.bfloat16), "polysketch_causal",
+             "I13__nv_bfloat16Lb1ELi16E")):
+        kernel_occupancy(label, rows, ptxas.get(src, {}), FWD_HEAVY, inst=inst)
+    log("phase 4: B1 forward per pass (torch.profiler, device ms a call)")
+    before = counts()
+    xs, _ = train_attention_inputs()
+    shapes = {"bh 24 n 4096 r 32 h 64 b 1024 f32":
+              ([x.reshape(24, 4096, -1).contiguous() for x in xs],
+               dict(degree=4, scale=1.0 / 64, block_size=1024))}
+    del xs
+    for dt in (torch.bfloat16, torch.float32):
+        rnd = seeded(64)
+        flat = [rnd(24, 4096, 32, scale=0.5, dtype=dt), rnd(24, 4096, 32, scale=0.5, dtype=dt)]
+        flat += [rnd(24, 4096, 128, dtype=dt) for _ in range(3)]
+        shapes[f"bh 24 n 4096 r 32 h 128 b 256 {str(dt)[6:]}"] = (
+            flat, dict(degree=4, scale=1.0 / 128, block_size=256))
+    out = {}
+    for name, (flat, kw) in shapes.items():
+        bh, _, r = flat[0].shape
+        h = flat[2].shape[-1]
+        # an explicit zero state: the wrapper's own zeros would add a fill
+        # kernel to the profile
+        flat = flat + [torch.zeros(bh, r, r * h, device="cuda"),
+                       torch.zeros(bh, r, r, device="cuda")]
+        split = profile_passes(
+            lambda: pc.polysketch_causal_cuda(*flat, return_saved=True, **kw),  # noqa: B023
+            B1_FWD_PASSES)
+        out[name] = split
+        log(f"  B1 {name}: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; sum {sum(split.values()):.3f} ms")
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    del shapes
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3122,11 +3193,13 @@ def phase_timing_h128(ptxas):
 def b2_bound(bh, n, h, degree, itemsize=4):
     """Causal B2 (n == t): per pair the products Q K^T and W V (4h), the
     scale, the power and the row sum; per row the normalisation. Bytes:
-    q, k, v read once, out written once."""
+    q, k, v read once, out written once. TF32 products: three an f32
+    product; with bf16 operands Q K^T one and W V two (W is f32)."""
     pairs = bh * n * (n + 1) // 2
     prod = pairs * 4 * h
     rest = pairs * (2 + pow_muls(degree)) + bh * n * (h + 2)
-    return bounds(prod, rest, 4 * bh * n * h * itemsize)
+    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * 3
+    return bounds(prod, rest, 4 * bh * n * h * itemsize, tf32)
 
 
 def b2_bwd_bound(bh, n, h, degree, itemsize=4):
@@ -3434,6 +3507,7 @@ def main(argv=None):
     phase_remat_gate(GPT2_SMALL_SOFTMAX)
     b1_times = phase_timing()
     bwd_times = phase_timing_backward(ptxas)
+    phase_timing_forward(ptxas)
     times = phase_timing_poly_lt()
     b2_bwd_times = phase_timing_b2_backward(ptxas)
     phase_lt_mult_breakdown()

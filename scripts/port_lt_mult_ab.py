@@ -10,8 +10,9 @@ csrc/lt_mult.cu into DIR's build/. For each name in --order (default
 "this,other,other,this") it holds the result against lt_mult_torch
 (max|err| / max|out|, two runs bit for bit), then prints
 chip_smoke.lt_mult_breakdown's device time per pass and host time per
-call, and the CUDA-event time (best of two runs of 20 calls). Prints the
-card's name and power limit first and last.
+call, and the CUDA-event time (best of two runs of 20 calls); then whether
+the two checkouts' outputs are the same bits. Prints the card's name and
+power limit first and last.
 """
 from __future__ import annotations
 
@@ -61,6 +62,11 @@ def main():
                                                           passes.items())
                         + f"] host {host_ms:.4f} rel.err {rel:.2e} bit-stable {same}")
         cs.log(f"{name:8s} " + " | ".join(line))
+    outs = {name: {n: fns[name](a, b, c, block_size=blk) for n, (a, b, c) in inputs.items()}
+            for name in fns}
+    torch.cuda.synchronize()
+    equal = all(torch.equal(outs["this"][n], outs["other"][n]) for n in inputs)
+    cs.log(f"outputs of this and other equal bit for bit: {equal}")
     cs.log(cs.card_line())
     return 0
 

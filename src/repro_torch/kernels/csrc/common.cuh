@@ -7,9 +7,9 @@
 //   backwards;
 // - f32 products as three TF32 products on mma.sync (3xTF32);
 // - cp.async staging into rings of two;
-// - the flash-style diagonal routine all three run, tc_flash_loop over
-//   tc_tile_accumulate, with the weight applied to the scores in registers
-//   (the power for B1 and B2, none for B3).
+// - B3's flash-style diagonal tile, tc_tile_accumulate, with the weight
+//   applied to the scores in registers (none for B3; the power and the
+//   square are also what B1's and B2's wgmma diagonal applies).
 //
 // Why three TF32 products. A TF32 operand keeps 10 of f32's 23 mantissa
 // bits. One TF32 product per f32 product (PyTorch's allow_tf32) missed the
@@ -22,16 +22,21 @@
 // a_hi*b_hi, accumulated in f32 by the tensor cores (CUTLASS's "fast
 // accurate f32"). Only a_lo*b_lo (~2^-22 of a*b) is dropped; errors stay
 // within a few f32 ulps of an f32 product. A bf16 input is exact in TF32
-// (its x_lo is 0); it is converted to f32 in shared memory and takes the
-// same path, lo terms included.
+// (its x_lo is 0). B1's and B2's forwards (wgmma_planes.cuh) convert it as
+// it is written to its hi plane and skip the products with its zero lo
+// half, which is exact; B3 and B1's fold convert it to f32 in shared
+// memory and take the f32 path, lo terms included.
 //
-// Why mma.sync and not wgmma. TF32 wgmma takes both operands K-major from
-// swizzled shared memory. B2's W V product would then need W and V
-// transposed through shared memory, and both halves of every split
-// operand stored there. mma.sync's m16n8k8 takes its fragments from
-// registers: the scores' accumulator becomes the A operand of W V in
-// place, and a split costs four ALU operations a value. wgmma is later
-// work.
+// Why mma.sync here, and wgmma in the others. mma.sync's m16n8k8 takes
+// its fragments from registers, so B3's scores' accumulator becomes the A
+// operand of its second product in place, and a split costs four ALU
+// operations a value. wgmma takes B K-major from shared memory, split once
+// into planes for the whole warpgroup (wgmma_planes.cuh), and A from
+// registers in the same layout as mma.sync's: the rows of V's plane are
+// permuted to match the accumulator's columns (perm8). The two backwards
+// and B1's and B2's forwards run on wgmma, the only route to the card's
+// full tensor-core rate; B3 and B1's fold, off the models' hot paths or
+// small, are queued for it (ROADMAP.md).
 //
 // What the design does about latency. Each product's three mma go to one
 // accumulator, so every helper issues them in three passes over 4 to 8
@@ -323,8 +328,8 @@ __device__ __forceinline__ void zero_pad_cols(float* dst, int rows, int width, i
 }
 
 // ---------------------------------------------------------------------------
-// The flash-style diagonal routine of B1's and B3's pass 3 and of B2, on
-// the tensor cores.
+// B3's flash-style diagonal tile on mma.sync (its pass 3; B1 and B2 ran it
+// until their forwards moved to wgmma_planes.cuh's diagonal).
 //
 // A CTA of kTcWarps warps owns kTcTile = 16 * kTcWarps query rows; warp w
 // owns rows 16w .. 16w + 15. For every 64-key tile the warp computes its
@@ -459,51 +464,6 @@ __device__ __forceinline__ void tc_tile_accumulate(const float* q_s, int qs, con
       const FragA a = split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
       mma_3xtf32_cols(acc, a, v_s + (kk * 8 + 2 * t) * vs + g, vs, nv);
     }
-  }
-}
-
-// The flash loop over key tiles [0, ktiles) of a sequence of klen keys:
-// kf (klen x f) and v (klen x h), row-major in global memory. Tiles are
-// staged with cp.async into a ring of two buffers each of keys and values
-// (k_ring: 2 x kKeyTile x ks, v_ring: 2 x kKeyTile x vs), so the next
-// tile's copy runs under this tile's products. The caller has zeroed the
-// rings' padding columns and staged its query tile into the open cp.async
-// group, which the first tile's commit closes. Returns after a
-// __syncthreads, so the rings may be reused.
-template <int kNT, int kNV, int kF, typename T, typename Weight>
-__device__ __forceinline__ void tc_flash_loop(const float* q_s, int qs, const T* kf,
-                                              const T* v, int f, int h, int klen, int ktiles,
-                                              float* k_ring, int ks, float* v_ring, int vs,
-                                              int q0, int qrows, bool causal, Weight weight,
-                                              float (&acc)[kNT][4], float (&den)[2]) {
-  const auto stage = [&](int kt) {
-    const int k0 = kt * kKeyTile, rows = min(kKeyTile, klen - k0);
-    float* kd = k_ring + (kt & 1) * kKeyTile * ks;
-    float* vd = v_ring + (kt & 1) * kKeyTile * vs;
-    stage_rows<kTcThreads>(kd, kf + (size_t)k0 * f, rows, kKeyTile, f, ks);
-    stage_rows<kTcThreads>(vd, v + (size_t)k0 * h, rows, kKeyTile, h, vs);
-    cp_async_commit();
-  };
-  stage(0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) {
-      stage(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = kt * kKeyTile, krows = min(kKeyTile, klen - k0);
-    const float* k_s = k_ring + (kt & 1) * kKeyTile * ks;
-    const float* v_s = v_ring + (kt & 1) * kKeyTile * vs;
-    if (f == kF && h == 8 * kNV && (!causal || k0 + kKeyTile - 1 <= q0)) {
-      tc_tile_accumulate<kNT, kNV, kF, true>(q_s, qs, k_s, ks, f, v_s, vs, h, q0, qrows, k0,
-                                             krows, causal, weight, acc, den);
-    } else {
-      tc_tile_accumulate<kNT, kNV, kF, false>(q_s, qs, k_s, ks, f, v_s, vs, h, q0, qrows, k0,
-                                              krows, causal, weight, acc, den);
-    }
-    __syncthreads();
   }
 }
 

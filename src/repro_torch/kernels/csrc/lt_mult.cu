@@ -34,7 +34,8 @@
 //           large grid a CTA takes two query tiles of its block, the
 //           heaviest and the lightest, in one pipeline. At other widths
 //           (output_kernel) a warp takes 16 rows through common.cuh's
-//           tc_tile_accumulate, as B1 and B2 do.
+//           tc_tile_accumulate, as B1 and B2 did before their wgmma
+//           forwards.
 // Every product runs on the tensor cores as mma.sync m16n8k8 in 3xTF32
 // (common.cuh). No atomics; every sum runs in a fixed order that bh does
 // not change, so two runs are bit-identical, and so is one bh row computed

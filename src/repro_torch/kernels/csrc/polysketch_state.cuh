@@ -2,17 +2,15 @@
 // (polysketch_causal.cu) and its backward (polysketch_causal_bwd.cu).
 //
 // - fold_block: per block l, H_l = X_l^T [X_l (x) Y_l | X_l (.) y_l] as one
-//   product on the tensor cores (3xTF32), y_l being a ones column (the
-//   forward: X = km, Y = v, so H_l is the block's Zv and Zd) or a given
-//   column (the backward: X = qm, Y = dNum, y = dDen, so H_l is dZ_l).
-//   The forward launches it as fold_kernel, the backward as grad_fold.
+//   product on the tensor cores (mma.sync, 3xTF32), y_l being a given
+//   column: the backward launches it as grad_fold (X = qm, Y = dNum,
+//   y = dDen, so H_l is dZ_l). The forward's fold (X = km, Y = v and a
+//   ones column, so H_l is the block's Zv and Zd) is polysketch_causal.cu's
+//   fold_kernel, on wgmma.
 // - prefix_scan: the exclusive prefix over blocks, left to right from z0
 //   (the forward's Z_l, as prefix_kernel), or the exclusive suffix, right
 //   to left from zero (the backward's dH_l, as grad_suffix); the full sum
 //   is the returned state (or dz0).
-// - cross_block: one sketch index e of Phi(x) Z, Phi(x)[i, e*r + c] =
-//   x_ie x_ic, on the tensor cores (the forward's cross term; the
-//   backward's gradient of v through dH).
 #pragma once
 
 #include <stddef.h>
@@ -82,9 +80,9 @@ __device__ __forceinline__ void fold_chunk(float (&sum)[kMT][4][4], const float*
       for (int c = 0; c < 4; ++c) sum[mt][nt][c] += acc[mt][nt][c];
 }
 
-// Pass 1: H_l as one product. Column col of the output is c*h + d for the
+// H_l as one product. Column col of the output is c*h + d for the
 // Zv part and r*h + c for the Zd part, against a last column y appended
-// to Y (ones when last is null):
+// to Y:
 //   hv[bh, l, i, c*h + d] = sum_s x[s, i] * (x[s, c] * Y[s, d])
 //   hd[bh, l, i, c]       = sum_s x[s, i] * (x[s, c] * y[s])
 // grid (ceil((r*h + r) / 256), t, bh). Warp w owns 32 columns and all r
@@ -137,7 +135,7 @@ __device__ __forceinline__ void fold_block(const T* __restrict__ km, const U* __
     stage_rows<kFoldThreads>(kd, km + (row0 + s0) * r, rows, kFoldKeys, r, kms);
     stage_rows<kFoldThreads>(vd, v + (row0 + s0) * h, rows, kFoldKeys, h, vs);
     for (int s = threadIdx.x; s < kFoldKeys; s += kFoldThreads) {
-      vd[s * vs + h] = s < rows ? (last == nullptr ? 1.f : last[row0 + s0 + s]) : 0.f;
+      vd[s * vs + h] = s < rows ? last[row0 + s0 + s] : 0.f;
     }
     cp_async_commit();
   };
@@ -179,13 +177,6 @@ __device__ __forceinline__ void fold_block(const T* __restrict__ km, const U* __
       }
     }
   }
-}
-
-template <typename T, int kMT>
-__global__ void __launch_bounds__(kFoldThreads)
-fold_kernel(const T* __restrict__ km, const T* __restrict__ v, const float* __restrict__ last,
-            float* __restrict__ hv, float* __restrict__ hd, int n, int r, int h, int b) {
-  fold_block<T, T, kMT>(km, v, last, hv, hd, n, r, h, b);
 }
 
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
@@ -238,42 +229,10 @@ prefix_kernel(float* __restrict__ hv, float* __restrict__ hd, const float* __res
   prefix_scan<V, kReverse>(hv, hd, zv0, zd0, zv_out, zd_out, t, rrh, rr);
 }
 
-// The cross term's row block e for the calling warp: acc += Phi_e Z_e, with
-// Phi_e[row, c] = x[row, e] x[row, c] (qe = x[row, e] and qmr = the
-// thread's x[row, t4 + 4j], rows g and g + 8) and Z_e at `slot` (this
-// thread's element of k-row t4, n-column g; stride zs). kFull: r == 8 kRK,
-// so the k-steps run unguarded.
-template <int kRK, bool kFull, int kNT>
-__device__ __forceinline__ void cross_block(float (&acc)[kNT][4], const float (&qmr)[2][2 * kRK],
-                                            const float (&qe)[2], const float* slot, int zs,
-                                            int r) {
-#pragma unroll
-  for (int kk = 0; kk < kRK; ++kk) {
-    if (!kFull && kk * 8 >= r) break;
-    const FragA a = split_a(qe[0] * qmr[0][2 * kk], qe[1] * qmr[1][2 * kk],
-                            qe[0] * qmr[0][2 * kk + 1], qe[1] * qmr[1][2 * kk + 1]);
-    mma_3xtf32_cols(acc, a, slot + kk * 8 * zs, 4 * zs, kNT);
-  }
-}
-
 // Dynamic shared memory of a fold CTA (the two rings).
 template <int kMT>
 size_t fold_smem_bytes(int h) {
   return (size_t)2 * kFoldKeys * (k_frag_stride(16 * kMT) + k_frag_stride(h + 1)) * sizeof(float);
-}
-
-template <typename T, int kMT>
-cudaError_t launch_fold(const void* x, const void* y, const float* last, float* hv, float* hd,
-                        int bh, int n, int r, int h, int b, cudaStream_t stream) {
-  const size_t smem = fold_smem_bytes<kMT>(h);
-  cudaError_t err = cudaFuncSetAttribute(fold_kernel<T, kMT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((r * h + r + kFoldCols - 1) / kFoldCols, n / b, bh);
-  fold_kernel<T, kMT><<<grid, kFoldThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y), last, hv, hd, n, r, h, b);
-  return cudaGetLastError();
 }
 
 // Pass 2 over t blocks of state (see prefix_kernel); float4 a thread when

@@ -173,6 +173,18 @@ def poly_flash_cuda(q, k, v, *, degree: int, scale: float,
 
 poly_flash_cuda.launches = 0
 
+# The forward's kernel (csrc/poly_flash.cu).
+FWD_KERNELS = ("poly_flash_kernel",)
+
+
+def forward_occupancy(h: int = 64, dtype=torch.float32) -> dict:
+    """What the forward kernel (causal) holds on the current card at head
+    width h (its 64 or its 128 instantiation) for operands of `dtype`:
+    {name: {"registers", "local_bytes", "smem_bytes", "threads",
+    "ctas_per_sm", "warps_per_sm"}} (build.occupancy). Needs a CUDA card."""
+    return build.occupancy(_lib().poly_flash_forward_occupancy, FWD_KERNELS, h,
+                           _DTYPES[dtype])
+
 BWD_MAX_H = 64   # the backward kernel's head width (csrc/poly_flash_bwd.cu)
 BWD_STAGE = 32   # queries a stage of the backward kernel, one ordering counter each
 # The backward's kernels in launch order (csrc/poly_flash_bwd.cu).

@@ -309,6 +309,21 @@ def polysketch_causal_cuda(qm, km, q, k, v, zv0=None, zd0=None, *,
 
 polysketch_causal_cuda.launches = 0
 
+# The forward's kernels in launch order: the fold and the prefix
+# (csrc/polysketch_state.cuh), the outputs (csrc/polysketch_causal.cu).
+FWD_KERNELS = ("fold_kernel", "prefix_kernel", "output_kernel")
+
+
+def forward_occupancy(local_exact: bool = True, h: int = 64,
+                      dtype=torch.float32) -> dict:
+    """What each forward kernel holds on the current card at head width h
+    (the h <= 64, r <= 32 instantiations; at h <= 128 the fold's for
+    r <= 32, the outputs' for r <= 64) for operands of `dtype`: {name: {"registers", "local_bytes",
+    "smem_bytes", "threads", "ctas_per_sm", "warps_per_sm"}}
+    (build.occupancy). Needs a CUDA card."""
+    return build.occupancy(_lib().polysketch_causal_forward_occupancy,
+                           FWD_KERNELS, int(local_exact), h, _DTYPES[dtype])
+
 
 def _bwd_lib():
     lib = build.load("polysketch_causal_bwd")

@@ -28,6 +28,10 @@ CASES = [
     ("b3_bound", (4, 2048, 32, 64, 256), 0.001878, "bytes", 0.004019, "operations"),
     ("b1_bound", (48, 2048, 32, 64, 1024, 4), 0.2491, "operations", 0.5954, "operations"),
     ("b2_bound", (48, 2040, 64, 4), 0.1611, "operations", 0.3879, "operations"),
+    # bf16 operands: only the TF32 passes whose lo half is not zero (B1 at
+    # starcoder2-3b's training shape; B2 at the serving shape)
+    ("b1_bound", (24, 4096, 32, 128, 256, 4, 2), 0.3018, "operations", 0.8916, "operations"),
+    ("b2_bound", (48, 2040, 64, 4, 2), 0.08358, "operations", 0.3879, "operations"),
     ("b1_bwd_bound", (24, 4096, 32, 64, 1024, 4), 0.4938, "operations", 1.1852,
      "operations"),
     # B2's backward at the training shape: 201.4 M causal pairs, 5 x 2h
@@ -61,6 +65,31 @@ def test_backward_kernel_names_are_its_own(chip_smoke):
         assert first.startswith("B1 backward"), (kernel, first)
         assert kernel in passes
     assert set(chip_smoke.B1_BWD_HEAVY) <= set(pc.BWD_KERNELS)
+
+
+def test_forward_kernel_names_are_their_own(chip_smoke):
+    """Every forward kernel (FWD_KERNELS of B1 and B2) is a __global__ of
+    its forward's sources, holds no backward kernel's name, lands in its
+    forward's group of the training step's split, and B1's in exactly one
+    of the per-pass split's passes."""
+    from repro_torch.kernels import poly_flash as pf
+    from repro_torch.kernels import polysketch_causal as pc
+    csrc = ROOT / "src/repro_torch/kernels/csrc"
+    sources = {"B1": "".join((csrc / f).read_text() for f in (
+                   "polysketch_causal.cu", "polysketch_state.cuh")),
+               "B2": (csrc / "poly_flash.cu").read_text()}
+    passes = [key for _, key in chip_smoke.B1_FWD_PASSES]
+    backward = pc.BWD_KERNELS + pf.BWD_KERNELS
+    for label, kernels in (("B1", pc.FWD_KERNELS), ("B2", pf.FWD_KERNELS)):
+        for kernel in kernels:
+            assert f"\n{kernel}(" in sources[label], kernel
+            assert not any(b in kernel or kernel in b for b in backward), kernel
+            first = next(g for g, keys in chip_smoke.STEP_GROUPS
+                         if any(k in kernel for k in keys))
+            assert first.startswith(f"{label} forward"), (kernel, first)
+            if label == "B1":
+                assert sum(key in kernel for key in passes) == 1, kernel
+    assert set(chip_smoke.FWD_HEAVY) <= set(pc.FWD_KERNELS + pf.FWD_KERNELS)
 
 
 def test_b2_backward_kernel_names_are_its_own(chip_smoke):

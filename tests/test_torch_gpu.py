@@ -802,6 +802,100 @@ def test_c1_forward_error_against_float64_at_32k(card, kernel):
 
 
 # ---------------------------------------------------------------------------
+# the forwards on wgmma: 128-query CTAs of two warpgroups, 64-key tiles (32
+# where a width is 128), bulk-copied tiles, bf16 without lo products
+# ---------------------------------------------------------------------------
+
+def _ln(x):
+    return torch.nn.functional.layer_norm(x, (x.shape[-1],), eps=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal,n,t", [
+    (True, 200, 200),     # a ragged last 128-row tile and a ragged 64-key tile
+    (True, 129, 129),     # one row past a CTA's tile
+    (False, 100, 333),    # non-causal, t != n, t off every tile
+])
+def test_b2_forward_tiling_edges_match_plain_version(card, dtype, h, causal, n, t):
+    """B2 (and its 1 + den) at widths on and off the 64- and 128-wide
+    instantiations, n and t off the 128-row and 64-key tiles."""
+    rnd = _normal(h + n, card)
+    dt = getattr(torch, dtype)
+    q, k, v = _ln(rnd(3, n, h)).to(dt), _ln(rnd(3, t, h)).to(dt), rnd(3, t, h).to(dt)
+    kw = dict(degree=4, scale=1.0 / h, causal=causal)
+    before = pf.poly_flash_cuda.launches
+    got, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    want, wden = pf.poly_flash_torch(q, k, v, return_den=True, **kw)
+    torch.cuda.synchronize()
+    assert pf.poly_flash_cuda.launches == before + 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(den, wden, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("local_exact", [True, False])
+@pytest.mark.parametrize("r,h", [(16, 32), (32, 64), (64, 96), (32, 128), (64, 128)])
+def test_b1_forward_tiling_edges_match_plain_version(card, dtype, local_exact, r, h):
+    """B1 with a seeded z0 over two blocks of 200 rows (off the 128-row and
+    64-key tiles), r and h on and off the instantiations' widths: outputs,
+    1 + den, the saved Z_l and the returned state."""
+    n, b = 400, 200
+    rnd = _normal(r + h, card)
+    kw = dict(degree=4, scale=1.0 / h, local_exact=local_exact, block_size=b)
+    _, zv0, zd0 = pc.polysketch_causal_torch(
+        rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5, rnd(2, n, h), rnd(2, n, h), rnd(2, n, h),
+        return_state=True, **kw)
+    dt = getattr(torch, dtype)
+    xs = [x.to(dt) for x in (rnd(2, n, r) * 0.5, rnd(2, n, r) * 0.5, rnd(2, n, h),
+                             rnd(2, n, h), rnd(2, n, h))]
+    got = pc.polysketch_causal_cuda(*xs, zv0, zd0, return_saved=True, **kw)
+    want = pc.polysketch_causal_torch(*xs, zv0, zd0, return_saved=True, **kw)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+    for g, w in ((got[1], want[1]), (got[2], want[2]), (got[3][0], want[3][0]),
+                 (got[3][2], want[3][2])):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def _fwd_run(kernel, dtype, card):
+    """(run(xs), xs) of a forward kernel at a shape over several CTAs and
+    key tiles: B1 at bh 3, n 512, b 256, r 32, h 64; B2 causal at bh 3,
+    n 700, h 64."""
+    rnd = _normal(23, card)
+    dt = getattr(torch, dtype)
+    if kernel == "polysketch_causal":
+        xs = [x.to(dt) for x in (rnd(3, 512, 32) * 0.5, rnd(3, 512, 32) * 0.5,
+                                 rnd(3, 512, 64), rnd(3, 512, 64), rnd(3, 512, 64))]
+        kw = dict(degree=4, scale=1.0 / 64, block_size=256, return_saved=True)
+        return (lambda ys: pc.polysketch_causal_cuda(*ys, **kw)), xs
+    xs = [x.to(dt) for x in (_ln(rnd(3, 700, 64)), _ln(rnd(3, 700, 64)), rnd(3, 700, 64))]
+    return (lambda ys: pf.poly_flash_cuda(*ys, degree=4, scale=1.0 / 64,
+                                          return_den=True)), xs
+
+
+def _flat(out):
+    return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["polysketch_causal", "poly_flash"])
+def test_forward_kernel_is_bit_stable_and_a_head_alone_equals_batch(card, kernel, dtype):
+    """Two calls give the same bits, and each head computed alone gives the
+    bits it gets in the batch (outputs, 1 + den, the saved and returned
+    state)."""
+    run, xs = _fwd_run(kernel, dtype, card)
+    first, again = _flat(run(xs)), _flat(run(xs))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for i in range(xs[0].shape[0]):
+        alone = _flat(run([x[i:i + 1].contiguous() for x in xs]))
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(alone, first))
+
+
+# ---------------------------------------------------------------------------
 # the recurrent families (plain ops: SSD, RG-LRU, the sliding-window ring)
 # ---------------------------------------------------------------------------
 

@@ -5,8 +5,9 @@ gpt2s-softmax and train all three at full width, at 2 x 4096 and at
 dense polysketch models (head width 128, bf16) at their published widths
 and train starcoder2-3b in bf16, serve a shared system prompt through the
 prefix cache with tracing on, serve and train the two recurrent families
-(mamba2-780m, recurrentgemma-9b) in bf16, and check the port against
-itself.
+(mamba2-780m, recurrentgemma-9b) and the two mixture-of-experts models
+(dbrx-132b, llama4-maverick-400b-a17b, depth cut to one card) in bf16,
+and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -95,8 +96,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      each model's shortest and longest context that run (~3 min more);
   7. the registry's dense polysketch models (deepseek-7b, starcoder2-3b,
      qwen3-14b, yi-34b) at their published widths in bf16, seeded
-     weights drawn on the card, each at the most layers whose f32
-     weights fit (serve_depth: all but yi-34b at full depth), served
+     weights drawn on the card, each at 12 layers (serve_depth: the
+     most whose f32 weights fit, at most DENSE_SERVE_LAYERS), served
      through ServeEngine: 4 requests on 2 slots (prompts 1024-4096
      tokens, 16 new, two greedy and two sampled), B1 once a layer per
      prefill block and nothing else, TTFT, ms a tick, tokens/s and peak
@@ -152,6 +153,29 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      "full", 1 + 2): step ms, tokens/s, peak GiB, no port kernel, two
      runs bit for bit, and at one group one step's gradients and two
      steps' losses under "dots" and "full" equal "none"'s bit for bit.
+ 11. the mixture-of-experts family (after phase 10): one dbrx MoE layer at
+     its published width on 1 x 2048 tokens, capacity factor 8.0 (no
+     drops), the sort-based dispatch against the dense oracle in f32
+     (1e-4 of max|y|) and bf16 (5e-2) in 1, 2 and 4 dispatch groups, and
+     twice bit for bit; dbrx-132b (16 experts top-4, every layer) at the
+     most layers whose f32 weights fit (5 of 40) and
+     llama4-maverick-400b-a17b (128 experts top-1, every second layer) at
+     its first (GLU, MoE) cycle, bf16, seeded weights drawn on the card,
+     served through ServeEngine at the published capacity factor 1.25 (4
+     requests on 2 slots, prompts 4096 / 1024 / 3072 / 2048, 16 new, two
+     greedy and two sampled, budget 2048): TTFT, ms a tick, tokens/s, peak
+     GiB, B1 once a layer a prefill block and nothing else, a second run
+     bit for bit with the share of routed assignments dropped in each
+     prefill call of the first MoE layer, a profile of 4 decode ticks and
+     of one 2048-token prefill call split into router, sort/dispatch,
+     expert GEMMs, the experts' bf16 casts, combine and B1; the served
+     logic in f32 at 2 layers and capacity factor 8.0 (nothing drops, which
+     the run checks) against a train-mode forward (1e-3 nats); SMOKE greedy
+     tokens card = CPU; dbrx trained at 1 of 40 layers, 1 x 4096, bf16,
+     remat "full", 1 + 4 steps (step ms, peak GiB, finite aux metrics, B1
+     twice and its backward once a layer a step); B1's time at dbrx's
+     attention shape (bh 48, n 2048, h 128, b 256, bf16), in the JSON
+     line's B1 row under `moe_bf16`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -183,7 +207,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.bridge import train_state_to_jax  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import TrainConfig, get_config  # noqa: E402
+from repro_torch.configs import TrainConfig, effective_pattern, get_config  # noqa: E402
 from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4, GPT2_SMALL_SOFTMAX  # noqa: E402
 from repro_torch.core import decode as dec  # noqa: E402
 from repro_torch.data import DataIterator, make_markov_lm  # noqa: E402
@@ -191,6 +215,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import lt_mult as lt  # noqa: E402
 from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, generate  # noqa: E402
 from repro_torch.serve.prefix_cache import PrefixCache, snapshot_nbytes  # noqa: E402
@@ -1909,6 +1934,10 @@ DENSE_ARCHS = ("deepseek-7b", "starcoder2-3b", "qwen3-14b", "yi-34b")
 DENSE_LENS = (4096, 1024, 3072, 2048)     # requests 0, 1 greedy; 2, 3 sampled
 DENSE_SLOTS, DENSE_GEN, DENSE_BUDGET = 2, 16, 2048
 DENSE_SHARE = 0.9              # of the card's memory the reckoning may plan for
+# phase 7's depth cap: its engine ticks are host-bound (~12.5 ms a layer),
+# and the script must stay well inside its time limit (1036 s in all with
+# the four at up to 40 layers, NVIDIA H100 80GB HBM3, 700 W)
+DENSE_SERVE_LAYERS = 12
 DENSE_SERVE_RESERVE_GIB = 12   # beside the f32 weights: casts, states, logits, the check
 DENSE_TRAIN_RESERVE_GIB = 14   # beside 16 B a parameter: logits, casts, the gradient check
 DENSE_TRAIN_ACT_GIB = 0.5      # a layer's kept activations at 1 x 4096 under remat "dots"
@@ -1940,10 +1969,11 @@ def param_split(cfg):
 
 def serve_depth(cfg) -> int:
     """The most layers whose f32 weights fit in DENSE_SHARE of the card
-    beside DENSE_SERVE_RESERVE_GIB (at most the published depth)."""
+    beside DENSE_SERVE_RESERVE_GIB, at most DENSE_SERVE_LAYERS (and the
+    published depth)."""
     block, rest = param_split(cfg)
     room = DENSE_SHARE * card_gib() - DENSE_SERVE_RESERVE_GIB - 4 * rest / 2**30
-    return min(cfg.n_layers, int(room // (4 * block / 2**30)))
+    return min(cfg.n_layers, DENSE_SERVE_LAYERS, int(room // (4 * block / 2**30)))
 
 
 def train_depth(cfg) -> int:
@@ -2694,11 +2724,12 @@ def phase_rec_prefix(model, card):
     return {"arch": cfg.name, "snapshot_bytes": want, "runs": rows, "card": card}
 
 
-def phase_rec_cross_device():
+def phase_rec_cross_device(archs=RECURRENT_ARCHS):
     """SMOKE greedy tokens on the card equal those on the CPU (f32, weights
-    from one CPU seed), for both recurrent configs: a 40-token prompt and 8
-    steps (past recurrentgemma SMOKE's 32-token window)."""
-    for arch in RECURRENT_ARCHS:
+    from one CPU seed), for both recurrent configs (or `archs`): a
+    40-token prompt and 8 steps (past recurrentgemma SMOKE's 32-token
+    window, and SMOKE's 16-token block)."""
+    for arch in archs:
         cfg = get_config(arch, smoke=True)
         prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(2, 40))
         on_card = generate(build_model(cfg, device="cuda", seed=3), prompt, 8)
@@ -2851,6 +2882,480 @@ def phase_recurrent(card):
         rows["train"].append(phase_rec_train(arch, card))
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"recurrent": rows}, default=float))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the mixture-of-experts family (dbrx-132b: 16 experts top-4 in
+# every layer; llama4-maverick-400b-a17b: 128 experts top-1 in every second
+# layer) served and trained at their published widths, bf16
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b")
+# beside the f32 weights: one expert weight's bf16 cast (moe.CAST_BYTES, 2
+# GiB), the slots' states, a chunk's activations and logits, the checks'
+# train-mode forward
+MOE_SERVE_RESERVE_GIB = 8
+# beside 16 B a parameter: the layer's bf16 expert casts kept for its
+# recomputed backward (6 GiB for dbrx), their gradients, logits
+MOE_TRAIN_RESERVE_GIB = 12
+MOE_NO_DROP = 8.0              # the logic gates' capacity factor (the reference's oracle test)
+MOE_DISPATCH_TOKENS = 2048     # the dispatch gate: one dbrx MoE layer on 1 x 2048
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4096, 4
+# the dispatch against the dense oracle (max|err| / max|y|), f32 and bf16
+MOE_F32_TOL, MOE_BF16_TOL = 1e-4, 5e-2
+
+
+def cycle_split(cfg):
+    """(parameters of one cycle of the effective pattern, its layers, the
+    rest: embedding and final norm), counted on the meta device."""
+    g = len(effective_pattern(cfg))
+    lm = build_model(cfg.replace(n_layers=g), device="meta").lm
+    cycle = sum(p.numel() for layer in lm.layers for p in layer.parameters())
+    return cycle, g, sum(p.numel() for p in lm.parameters()) - cycle
+
+
+def moe_depth(cfg, bytes_a_param, reserve_gib) -> int:
+    """The most layers, in whole cycles of the effective pattern (at least
+    one: never below the first MoE layer; at most the published depth),
+    whose `bytes_a_param` fit in DENSE_SHARE of the card beside
+    reserve_gib."""
+    cycle, g, rest = cycle_split(cfg)
+    room = DENSE_SHARE * card_gib() - reserve_gib - bytes_a_param * rest / 2**30
+    fit = int(room // (bytes_a_param * cycle / 2**30))
+    return g * max(1, min(cfg.n_layers // g, fit))
+
+
+def moe_drops(layer, cfg, x):
+    """(assignments dropped, assignments routed) by an MoE call on x (B, S,
+    D), as 0-d tensors (no host sync): its router and the capacity of that
+    call, recomputed."""
+    _, _, _, ids = moe.route(layer, cfg, x.reshape(-1, x.shape[-1]))
+    keep = moe.dispatch_plan(cfg, ids).keep
+    return (~keep).sum(), keep.numel()
+
+
+def first_moe(lm):
+    return next(b.ffn for b in lm.layers if b.ffn_kind == "moe")
+
+
+def record_drops(lm, calls):
+    """A forward pre-hook on the first MoE layer that appends (tokens,
+    dropped, routed) of each call of more than one token (a prefill chunk
+    or a train-mode forward) to `calls`, as 0-d tensors (no host sync).
+    Returns its handle."""
+    def pre(mod, args):
+        x = args[0]
+        if x.shape[1] > 1:
+            calls.append((x.shape[1],) + moe_drops(mod, mod.cfg, x))
+    return first_moe(lm).register_forward_pre_hook(pre)
+
+
+def drop_shares(calls):
+    return [(int(n), int(d) / r) for n, d, r in calls]
+
+
+def card_moe_layer(cfg):
+    """An MoE layer with seed-0 weights drawn on the card, frozen."""
+    return moe.MoE(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda").requires_grad_(False)
+
+
+def phase_moe_dispatch():
+    """One dbrx MoE layer at its published width (16 experts of 6144 x
+    10752, top-4), seed-0 weights drawn on the card, on 1 x 2048 tokens at
+    capacity factor 8.0 (nothing drops, as the reference's own test):
+    moe_apply against moe_apply_dense_oracle in f32 (1e-4 of max|y|) and
+    bf16 (5e-2), in 1, 2 and 4 dispatch groups, and the bf16 dispatch
+    twice bit for bit. Returns its errors."""
+    t0 = time.perf_counter()
+    cfg = get_config("dbrx-132b").replace(capacity_factor=MOE_NO_DROP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer = card_moe_layer(cfg)
+    x32 = seeded(31)(1, MOE_DISPATCH_TOKENS, cfg.d_model)
+    log(f"phase 11: one dbrx-132b MoE layer ({cfg.n_experts} experts of {cfg.d_model} x "
+        f"{cfg.d_ff}, top-{cfg.moe_top_k}) on 1 x {MOE_DISPATCH_TOKENS} tokens, capacity "
+        f"factor {MOE_NO_DROP} (no drops): the sort-based dispatch against the dense oracle")
+    errs = {}
+    with torch.inference_mode():
+        for dt, tol in ((torch.float32, MOE_F32_TOL), (torch.bfloat16, MOE_BF16_TOL)):
+            x = x32.to(dt)
+            want = moe.moe_apply_dense_oracle(layer, cfg, x)
+            top = want.float().abs().max().item()
+            name = str(dt)[6:]
+            for groups in (1, 2, 4):
+                c = cfg.replace(moe_dispatch_groups=groups)
+                dropped, routed = moe_drops(layer, c, x)
+                got, _ = moe.moe_apply(layer, c, x)
+                e = err(got, want) / top
+                errs[(name, groups)] = e
+                check(f"dbrx MoE dispatch vs dense oracle, {name}, {groups} group(s), "
+                      f"cap {moe.capacity(c, MOE_DISPATCH_TOKENS // groups)} (rel.)", e, tol)
+                if int(dropped):
+                    raise AssertionError(f"{int(dropped)} of {routed} assignments dropped "
+                                         f"at capacity factor {MOE_NO_DROP}")
+                del got
+            if dt == torch.bfloat16:
+                a, _ = moe.moe_apply(layer, cfg, x)
+                b, _ = moe.moe_apply(layer, cfg, x)
+                same = torch.equal(a, b)
+                log(f"  bf16 dispatch twice, bit for bit: {same}")
+                if not same:
+                    raise AssertionError("the bf16 MoE dispatch is not bit-reproducible")
+                del a, b
+            del want
+    del layer, x32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 11 dispatch: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+MOE_RANGES = (("router", "route"), ("sort/dispatch", "dispatch_plan"),
+              ("sort/dispatch", "dispatch"), ("experts", "expert_glu"),
+              ("casts", "cast_experts"), ("combine", "combine"))
+
+
+def profile_moe(model, ticks=4):
+    """torch.profiler over `ticks` decode ticks with both slots decoding (a
+    greedy and a sampled request, 256-token prompts) and over one
+    2048-token prefill call (model.state.prefill): wall and device-busy ms,
+    kernel launches, and the device ms of each MoE stage (router,
+    sort/dispatch, expert GEMMs and their elementwise work, the experts'
+    bf16 casts, combine; through record_function ranges around moe's
+    functions), of every cast or copy kernel, and of B1's kernels. Returns
+    {"tick": {...}, "prefill": {...}}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(label, fn):
+        def run(*a, **k):
+            with record_function(f"moe {label}"):
+                return fn(*a, **k)
+        return run
+
+    def split(prof, wall, n):
+        rows = [e for e in device_rows(prof) if not e.key.startswith("moe ")]
+        busy = sum(dev_us(e) for e in rows) / 1e3 / n
+        stages = dict.fromkeys(["router", "sort/dispatch", "experts", "casts", "combine"], 0.0)
+        for e in prof.events():        # host-side ranges: the kernels their ops launch
+            if e.name.startswith("moe ") and str(e.device_type).endswith("CPU"):
+                stages[e.name[4:]] += e.device_time_total / 1e3 / n
+        stages["experts"] -= stages["casts"]          # the cast ranges nest in the experts'
+        copies = sum(dev_us(e) for e in rows if "copy" in e.key.lower()) / 1e3 / n
+        b1 = sum(dev_us(e) for e in rows
+                 if any(k in e.key for k in pc.FWD_KERNELS)) / 1e3 / n
+        return {"ms": wall * 1e3 / n, "busy_ms": busy,
+                "kernels": sum(e.count for e in rows) / n, "stages_ms": stages,
+                "all_copies_ms": copies, "b1_ms": b1,
+                "top": [(dev_us(e) / 1e3 / n, e.count // n, e.key[:80])
+                        for e in sorted(rows, key=dev_us, reverse=True)[:6]]}
+
+    patches = [mock.patch.object(moe, fn, ranged(label, getattr(moe, fn)))
+               for label, fn in MOE_RANGES]
+    eng = rec_engine(model, 256 + ticks + 8)
+    rng = np.random.default_rng(5)
+    for sp in (SamplingParams(), SamplingParams(seed=3, **ENGINE_SAMPLED)):
+        eng.submit(rng.integers(0, model.cfg.vocab_size, size=256), ticks + 8, sampling=sp)
+    while eng.n_active < REC_SLOTS or eng.scheduler.active:
+        eng.step()
+    eng.step()                                   # the pipeline holds a tick
+    tokens = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (1, DENSE_BUDGET))).cuda()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for p in patches:
+        p.start()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            _, wall = timed(lambda: [eng.step() for _ in range(ticks)])
+        tick = split(prof, wall, ticks)
+        with torch.inference_mode():
+            model.state.prefill(tokens, max_len=DENSE_BUDGET + 8)     # warm
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                _, wall = timed(lambda: model.state.prefill(tokens, max_len=DENSE_BUDGET + 8))
+        pre = split(prof, wall, 1)
+    finally:
+        for p in patches:
+            p.stop()
+    eng.run()
+    del eng
+    gc.collect()
+    return {"tick": tick, "prefill": pre}
+
+
+def log_profile(label, prof):
+    log(f"  {label}: {prof['ms']:.2f} ms (profiler on), device busy {prof['busy_ms']:.2f} ms "
+        f"= {prof['busy_ms'] / prof['ms']:.1%}, {prof['kernels']:.0f} kernel launches; device "
+        f"ms: " + ", ".join(f"{k} {v:.3f}" for k, v in prof["stages_ms"].items())
+        + f", B1 {prof['b1_ms']:.3f}; all cast and copy kernels {prof['all_copies_ms']:.3f}; "
+        f"the top kernels:")
+    for ms, n, key in prof["top"]:
+        log(f"    {ms:9.3f} ms  x{n:<5d} {key}")
+
+
+def phase_moe_serve(arch, card):
+    """One MoE model at its published width, bf16, seeded weights drawn on
+    the card, at the most whole cycles that fit (moe_depth: dbrx 5 of 40
+    layers, maverick its first (GLU, MoE) cycle), served through
+    ServeEngine at the published capacity factor 1.25: 4 requests on 2
+    slots (prompts 4096 / 1024 / 3072 / 2048, 16 new tokens, 0 and 1
+    greedy, 2 and 3 sampled), prefill budget 2048, overlap on. Gates: B1
+    once a layer a prefill block (inside each 2048-token chunk, one model
+    call: capacity couples the tokens of a call) and nothing else, no plain
+    version; outputs in range and finite; a second run (the drop shares of
+    the first MoE layer recorded) gives the same tokens and
+    log-probabilities bit for bit; a profile (profile_moe). Then the
+    served logic in f32 at 2 layers and capacity factor 8.0 (nothing
+    drops, which the run checks; at 1.25 the served chunks and a
+    train-mode forward route differently by design) against a train-mode
+    forward of the same tokens: the engine's log-probabilities within
+    REC_LP_TOL, and request 0's whole logit rows through DecodeState
+    (rec_rows) within F32_TOL of max|logit| and REC_LP_TOL. Returns a
+    row."""
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    depth = moe_depth(full, 4, MOE_SERVE_RESERVE_GIB)
+    cfg = full.replace(n_layers=depth)
+    cycle, g, rest = cycle_split(full)
+    torch.cuda.reset_peak_memory_stats()
+    model, t_build = timed(lambda: rec_model(cfg))
+    weights = sum(p.numel() for p in model.lm.parameters())
+    log(f"phase 11: {arch} serving, bf16, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim} ({cfg.n_kv_heads} kv), {cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff}, top-{cfg.moe_top_k}, MoE every {cfg.moe_period} layer(s), capacity "
+        f"factor {cfg.capacity_factor}, vocab {cfg.vocab_size}; {depth} of {full.n_layers} "
+        f"layers (whole cycles of {g}: {4 * cycle / 2**30:.2f} GiB f32 a cycle, "
+        f"{4 * rest / 2**30:.2f} GiB embedding, {MOE_SERVE_RESERVE_GIB} GiB reserve, in "
+        f"{DENSE_SHARE:.0%} of {card_gib():.1f} GiB, one cycle at least); {weights / 1e9:.3f}B "
+        f"parameters, {4 * weights / 2**30:.1f} GiB f32 weights drawn on the card (seed 0) in "
+        f"{t_build:.1f} s; {card}")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in DENSE_LENS]
+    samp = rec_samp()
+    max_len = max(DENSE_LENS) + DENSE_GEN
+    warm = rec_engine(model, max_len)             # allocator, cuBLAS
+    warm.submit(prompts[1][:512], 2)
+    warm.run()
+    del warm
+    gc.collect()
+    eng = rec_engine(model, max_len)
+    outs, wall, launched, plain = rec_serve_run(eng, prompts, samp)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats()
+    del eng
+    ttft = np.array([o.ttft_s for o in outs.values()]) * 1e3
+    gen = sum(len(o.tokens) for o in outs.values())
+    tick_ms = st["decode_s"] * 1e3 / st["decode_steps"]
+    blocks = sum(-(-len(p) // cfg.lt_block_size) for p in prompts)
+    expected = {k: depth * blocks if k == "polysketch_causal" else 0 for k in KERNELS}
+    log(f"  run: {wall * 1e3:.1f} ms for {gen} generated tokens = {gen / wall:.1f} generated "
+        f"tok/s (prompts {sum(map(len, prompts))} tokens); TTFT p50 "
+        f"{np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{st['decode_steps']} decode ticks, {tick_ms:.2f} ms a tick; "
+        f"{st['scheduler']['chunks']} prefill chunks; peak device memory {peak:.2f} GiB")
+    log(f"  launches in the run: {launched} (expected {expected}: one B1 a layer per "
+        f"{cfg.lt_block_size}-token block of each prompt); plain-version calls: {plain}")
+    if launched != expected or plain:
+        raise AssertionError(f"{arch}: the engine did not launch B1 once a layer per prefill "
+                             "block and nothing else, or called a plain version")
+    for i, o in outs.items():
+        if len(o.tokens) != DENSE_GEN or o.tokens.min() < 0 \
+                or o.tokens.max() >= cfg.vocab_size or not np.isfinite(o.logprobs).all():
+            raise AssertionError(f"{arch} request {i}: bad output {o.tokens}, {o.logprobs}")
+    calls = []
+    hook = record_drops(model.lm, calls)
+    try:
+        again, _, launched2, plain2 = rec_serve_run(rec_engine(model, max_len), prompts, samp)
+    finally:
+        hook.remove()
+    shares = drop_shares(calls)
+    same = all(np.array_equal(outs[i].tokens, again[i].tokens)
+               and np.array_equal(outs[i].logprobs, again[i].logprobs) for i in outs)
+    log(f"  a second run: tokens and log-probabilities equal the first's bit for bit: {same}; "
+        f"launches {launched2 == expected}, plain calls {plain2}")
+    log(f"  the first MoE layer's prefill calls (tokens, share of routed assignments dropped "
+        f"at capacity factor {cfg.capacity_factor}): "
+        + ", ".join(f"({n}, {sh:.4f})" for n, sh in shares))
+    if not same or launched2 != expected or plain2:
+        raise AssertionError(f"{arch}: the served run does not repeat bit for bit")
+    for i in (0, 2):
+        log(f"  req{i}: {' '.join(map(str, outs[i].tokens.tolist()))}")
+    prof = profile_moe(model)
+    log_profile("profile of 4 decode ticks (2 slots decoding, one sampled), a tick",
+                prof["tick"])
+    log_profile(f"profile of one {DENSE_BUDGET}-token prefill call", prof["prefill"])
+    del model, outs, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the served logic in f32 at capacity factor 8.0 (nothing drops): at the
+    # published 1.25 a train-mode forward and the served chunks route their
+    # tokens differently by design (capacity couples the tokens of a call)
+    c32 = full.replace(n_layers=2, compute_dtype="float32", capacity_factor=MOE_NO_DROP)
+    m32 = rec_model(c32)
+    calls = []
+    hook = record_drops(m32.lm, calls)
+    try:
+        outs32, _, launched32, plain32 = rec_serve_run(rec_engine(m32, max_len), prompts, samp)
+        worst32 = max(float(np.abs(o.logprobs - train_logprobs(m32, prompts[i], o.tokens)).max())
+                      for i, o in outs32.items())
+        # request 0's whole logit rows through DecodeState (the prefill's
+        # every row, then teacher-forced decode steps): the emitted tokens'
+        # log-probabilities lie near 0 with random weights, a prompt
+        # token's do not
+        seq = torch.from_numpy(np.concatenate([prompts[0], outs32[0].tokens])
+                               .astype(np.int64)).cuda()
+        want = train_rows(m32, seq)
+        rows32 = rec_rows(m32, seq, len(prompts[0]), want)
+    finally:
+        hook.remove()
+    shares32 = drop_shares(calls)
+    log(f"  f32, 2 layers, capacity factor {MOE_NO_DROP}: calls of the first MoE layer (tokens, "
+        f"share dropped): " + ", ".join(f"({n}, {sh:.4f})" for n, sh in shares32)
+        + f"; launches {launched32}, plain calls {plain32}")
+    if any(sh for _, sh in shares32):
+        raise AssertionError(f"{arch}: tokens dropped at capacity factor {MOE_NO_DROP}")
+    check(f"{arch}: engine logprobs vs train-mode forward, f32, 2 layers, cf {MOE_NO_DROP} "
+          f"(nats)", worst32, REC_LP_TOL)
+    check(f"{arch}: served logit rows vs train-mode, f32, cf {MOE_NO_DROP} (rel. to max)",
+          rows32[0], F32_TOL)
+    check(f"{arch}: served rows' next-token logprobs vs train-mode, f32, cf {MOE_NO_DROP} "
+          f"(nats)", rows32[1], REC_LP_TOL)
+    del m32, outs32, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 11 {arch} serving: {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": arch, "layers": depth, "published_layers": full.n_layers,
+            "params_b": weights / 1e9, "tick_ms": tick_ms,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)), "gen_tok_s": gen / wall,
+            "peak_gib": peak, "b1_launches": launched["polysketch_causal"],
+            "prefill_chunks": st["scheduler"]["chunks"], "drop_shares": shares,
+            "logprob_err_f32_cf8": worst32, "rows_f32_cf8": rows32, "profile": prof,
+            "card": card}
+
+
+def phase_moe_train(card, arch="dbrx-132b"):
+    """dbrx trained at its published width, bf16, remat "full" as
+    published, at the depth that fits at 16 B a parameter (moe_depth: 1 of
+    40 layers), 1 x 4096 Markov tokens a step (1 x 2048 if 4096 does not
+    fit, logged), seeded weights drawn on the card: a warm-up and
+    MOE_TRAIN_STEPS timed steps (step ms, tokens/s, peak GiB), the loss and
+    both aux metrics finite, B1 twice a layer a step (the recomputed
+    forward) and its backward once, no plain version. Returns a row."""
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    depth = moe_depth(full, 16, MOE_TRAIN_RESERVE_GIB)
+    cfg = full.replace(n_layers=depth)
+    cycle, g, rest = cycle_split(full)
+    log(f"phase 11: {arch} training, bf16, remat {cfg.remat!r}, {depth} of {full.n_layers} "
+        f"layers (reckoned at 16 B a parameter: {16 * cycle / 2**30:.2f} GiB a layer, "
+        f"{16 * rest / 2**30:.2f} GiB embedding, {MOE_TRAIN_RESERVE_GIB} GiB reserve, in "
+        f"{DENSE_SHARE:.0%} of {card_gib():.1f} GiB); {card}")
+    tcfg = TrainConfig(seq_len=MOE_TRAIN_SEQ, global_batch=1, steps=100, peak_lr=3e-3)
+    for seq in (MOE_TRAIN_SEQ, MOE_TRAIN_SEQ // 2):
+        it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), 1, seq, seed=0,
+                          device="cuda")
+        batches = [next(it) for _ in range(MOE_TRAIN_STEPS + 1)]
+        lm = rec_model(cfg, trainable=True).lm
+        torch.cuda.reset_peak_memory_stats()
+        state, step = init_train_state(lm), make_train_step(cfg, tcfg)
+        try:
+            state, _ = step(state, batches[0])            # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if seq < MOE_TRAIN_SEQ:
+                raise
+            log(f"  1 x {seq} tokens a step does not fit (out of memory in the warm-up step): "
+                f"training at 1 x {seq // 2}")
+            del state, step, lm
+            gc.collect()
+            torch.cuda.empty_cache()
+    zero_counts()
+    times, losses, auxes = [], [], []
+    with PlainCalls() as plain:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            auxes.append((float(metrics["aux_load_balance"]), float(metrics["aux_router_z"])))
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(times)
+    expected = {k: 0 for k in KERNELS}
+    expected["polysketch_causal"] = (1 if cfg.remat == "none" else 2) * depth * n
+    expected["polysketch_causal_backward"] = depth * n
+    step_ms = float(np.median(times)) * 1e3
+    log(f"  1 x {seq} tokens a step: losses {[round(x, 4) for x in losses]}; aux (load "
+        f"balance, router z) {[(round(a, 4), round(b, 3)) for a, b in auxes]}; step time "
+        f"median {step_ms:.1f} ms {[round(t * 1e3, 1) for t in times]}; "
+        f"{seq / np.median(times):.0f} tokens/s; peak device memory {peak:.2f} GiB")
+    log(f"  launches over the {n} steps: {launched} (expected {expected}); plain-version "
+        f"calls: {plain.calls}")
+    if not (all(np.isfinite(losses)) and np.isfinite(auxes).all()):
+        raise AssertionError(f"{arch} training: a non-finite loss or aux metric")
+    if launched != expected or plain.calls:
+        raise AssertionError(f"{arch} training: not B1 twice and its backward once a layer a "
+                             "step, or a plain version called")
+    del state, step, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 11 training: {time.perf_counter() - t_phase:.1f} s")
+    return {"arch": arch, "layers": depth, "published_layers": full.n_layers, "seq": seq,
+            "step_ms": step_ms, "tokens_s": seq / float(np.median(times)), "peak_gib": peak,
+            "losses": losses, "aux": auxes,
+            "launches": {k: launched[k] for k in ("polysketch_causal",
+                                                  "polysketch_causal_backward")},
+            "card": card}
+
+
+def phase_moe_b1_timing():
+    """B1's forward at dbrx's attention shape in bf16 (bh 48, n 2048, r 32,
+    h 128, b 256): the kernel against its plain version (5e-2 of max|out|),
+    its time beside the plain version's and its bound. Returns (ms, plain
+    ms, bound, max|err|)."""
+    before = counts()
+    rnd = seeded(65)
+    bh, n, r, h, b = 48, 2048, 32, 128, 256
+    dt = torch.bfloat16
+    flat = [rnd(bh, n, r, scale=0.5, dtype=dt), rnd(bh, n, r, scale=0.5, dtype=dt)]
+    flat += [rnd(bh, n, h, dtype=dt) for _ in range(3)]
+    kw = dict(degree=4, scale=1.0 / h, block_size=b)
+    got = pc.polysketch_causal_cuda(*flat, **kw)
+    want = pc.polysketch_causal_torch(*flat, **kw)
+    e = err(got, want)
+    check("B1 bf16 at dbrx's shape (bh 48, n 2048, h 128, b 256) vs plain (rel.)",
+          e / want.float().abs().max().item(), BF16_TOL)
+    run = lambda: pc.polysketch_causal_cuda(*flat, **kw)  # noqa: E731
+    ms = min(event_ms(run), event_ms(run))
+    plain_ms = event_ms(lambda: pc.polysketch_causal_torch(*flat, **kw), iters=5, warmup=1)
+    bd = b1_bound(bh, n, r, h, b, 4, itemsize=2)
+    log(f"  B1 forward bf16 at dbrx's shape: kernel {ms:.3f} ms, plain PyTorch {plain_ms:.3f} "
+        f"ms; bound {bd.tc_ms:.3f} ms by {bd.tc_by}, {bd.tc_ms / ms:.1%} of it; library call: "
+        f"{NO_LIBRARY}")
+    for name, fn in KERNELS.items():   # timing launches do not count
+        fn.launches = before[name]
+    del flat, got, want
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bd, e
+
+
+def phase_moe(card):
+    """Phase 11: the dispatch gate, both models served, SMOKE on the card
+    against the CPU, dbrx trained, B1 timed at dbrx's shape. Returns its
+    rows."""
+    t0 = time.perf_counter()
+    rows = {"dispatch": {f"{k[0]} g{k[1]}": v for k, v in phase_moe_dispatch().items()}}
+    rows["serve"] = [phase_moe_serve(arch, card) for arch in MOE_ARCHS]
+    log("phase 11: SMOKE greedy tokens on the card against the CPU")
+    phase_rec_cross_device(MOE_ARCHS)
+    rows["train"] = phase_moe_train(card)
+    rows["b1"] = phase_moe_b1_timing()
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"moe": {k: v for k, v in rows.items() if k != "b1"}}, default=float))
     return rows
 
 
@@ -3531,6 +4036,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     phase_recurrent(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rows = phase_moe(card)
     dense_launches = {
         "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
                               "train": dense_train["launches"]["polysketch_causal"]},
@@ -3559,6 +4067,16 @@ def main(argv=None):
                                 "launches": dense_launches[name],
                                 "max_abs_err_bf16": h128_errs["bfloat16"][
                                     0 if name == "polysketch_causal" else 1]}
+        if name == "polysketch_causal":   # phase 11: the MoE models, h 128, bf16
+            m_ms, m_plain, m_bd, m_err = moe_rows["b1"]
+            out["moe_bf16"] = {"shape": "bh 48, n 2048, r 32, h 128, b 256", "ms": m_ms,
+                               "plain_ms": m_plain, "bound_ms": m_bd.tc_ms,
+                               "bound_by": m_bd.tc_by, "max_abs_err_bf16": m_err,
+                               "launches": {"serve": [r["b1_launches"]
+                                                      for r in moe_rows["serve"]],
+                                            "train": moe_rows["train"]["launches"]}}
+        if name == "polysketch_causal_backward":
+            out["moe_train_launches"] = moe_rows["train"]["launches"][name]
         if name in long_times:
             l_ms, l_plain, l_bd = long_times[name]
             out["long_context"] = {"shape": f"bh 12, n {LONG_TOKENS}", "ms": l_ms,

@@ -1,8 +1,9 @@
 """Parameter bridge between the JAX package's tree and the port's modules.
 
-The JAX LM stacks its layers in pattern groups: a config's block pattern
-(e.g. recurrentgemma's (rglru, rglru, local_attn), of length g) repeats
-n_layers // g times, and the leaf at ``groups/block{b}/<path>`` holds
+The JAX LM stacks its layers in pattern groups: a config's effective
+pattern of (mixer, FFN) pairs (e.g. recurrentgemma's (rglru, rglru,
+local_attn), or llama4-maverick's GLU layer then MoE layer; of length g)
+repeats n_layers // g times, and the leaf at ``groups/block{b}/<path>`` holds
 block b of every group, stacked on a leading group axis; the n_layers % g
 layers left over form an unstacked tail, ``tail/block{b}/<path>``. The
 port keeps one module per layer, so its layer i is group i // g, block
@@ -15,9 +16,10 @@ i % g, and the tail follows the groups. Flattened by tree path (the
     tail/block{b}/<path>          -> layers.<n_groups * g + b>.<path>
 
 A dense model (pattern ("attn",)) has g = 1 and no tail: every layer is
-``groups/block0`` stacked over n_layers. Every mapping takes the config,
-which fixes g and the tail. Arrays move as they are: the port keeps the
-JAX layouts.
+``groups/block0`` stacked over n_layers. An MoE layer's FFN leaves are
+``ffn/{router,wi,wg,wo}``, stacked over the groups like any other. Every
+mapping takes the config, which fixes g and the tail. Arrays move as they
+are: the port keeps the JAX layouts.
 
 A training state moves as the flat arrays of the reference's checkpoint
 (``checkpoint/manager.py``'s keys): ``.params/<path>``, ``.opt/.m/<path>``,
@@ -29,12 +31,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import effective_pattern
+
 GROUPS, TAIL = "groups/", "tail/"
 
 
 def group_shape(cfg) -> tuple[int, int, int]:
-    """(pattern length g, stacked groups, tail layers) of a config."""
-    g = len(cfg.block_pattern)
+    """(pattern length g, stacked groups, tail layers) of a config: g is
+    the effective pattern's, lcm(len(block_pattern), moe_period)."""
+    g = len(effective_pattern(cfg))
     n_groups, rem = divmod(cfg.n_layers, g)
     return g, n_groups, rem
 

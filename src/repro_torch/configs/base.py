@@ -6,20 +6,23 @@ the port reads, with the
 reference's names and defaults: one value means the same model in both
 packages. A field the port does not serve is not here, so setting it
 raises (``replace`` takes no unknown field); family, block pattern, FFN
-and attention kinds other than the dense polysketch ones are rejected by
-``models.transformer.check_supported``. The port imports nothing from
-the JAX package.
+and attention kinds the port lacks are rejected by
+``models.transformer.check_supported``. ``effective_pattern`` is the
+reference's per-layer (mixer, FFN) cycle (``models/transformer.py``),
+kept beside the config so that the bridge and the snapshot layout read
+it too. The port imports nothing from the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # the port serves dense|ssm|hybrid
+    family: str                    # the port serves dense|moe|ssm|hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,7 +46,13 @@ class ArchConfig:
     use_rope: bool = True
     rope_theta: float = 10000.0
 
-    ffn: str = "glu"
+    # ffn
+    ffn: str = "glu"               # glu|moe
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_period: int = 1            # MoE every k-th layer (llama4: 2)
+    capacity_factor: float = 1.25
+    moe_dispatch_groups: int = 1   # DP-shard-aligned dispatch groups (EP)
 
     # ssm (mamba2)
     ssm_state: int = 128
@@ -61,6 +70,10 @@ class ArchConfig:
     tie_embeddings: bool = True
     norm: str = "rmsnorm"          # rmsnorm|layernorm
 
+    # router aux loss weights (MoE)
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 0.001
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -72,6 +85,18 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+def effective_pattern(cfg) -> tuple[tuple[str, str], ...]:
+    """Per-layer (mixer, ffn) cycle of length lcm(|pattern|, moe_period):
+    with an MoE FFN, every moe_period-th layer's FFN is "moe" (llama4: the
+    odd layers), the others' "glu"."""
+    mixers = cfg.block_pattern
+    period = cfg.moe_period if cfg.ffn == "moe" else 1
+    g = math.lcm(len(mixers), period)
+    return tuple((mixers[i % len(mixers)],
+                  "moe" if cfg.ffn == "moe" and i % period == period - 1 else "glu")
+                 for i in range(g))
 
 
 @dataclass

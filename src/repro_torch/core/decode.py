@@ -170,8 +170,9 @@ def polysketch_prefill(cache: PolysketchCache, qm, km, q, k, v, *,
 
     The segment starts on the block grid (cache.pos % blk == 0, empty
     buffers) and is at most one block long; core.state.DecodeState cuts a
-    prompt so. It attends through cache.z as if the folded tokens were
-    part of this call, in one kernel launch (ops.polysketch_attention):
+    prompt so (inside an MoE model's one call, polysketch_prefill_blocks
+    does). It attends through cache.z as if the folded tokens were part of
+    this call, in one kernel launch (ops.polysketch_attention):
     - a full block (S == blk) is folded: the kernel returns the new state,
       added to z0 in order, so a prefill resumed at a block boundary is
       bit-identical to a cold prefill of the whole prompt;
@@ -203,6 +204,23 @@ def polysketch_prefill(cache: PolysketchCache, qm, km, q, k, v, *,
     mbuf[:, :, :s] = km.to(f32)
     return out, cache._replace(kbuf=kbuf, vbuf=vbuf, mbuf=mbuf,
                                pos=cache.pos + s)
+
+
+def polysketch_prefill_blocks(cache: PolysketchCache, qm, km, q, k, v, **kw):
+    """A segment of any length that starts on the block grid, through
+    polysketch_prefill one block at a time (one kernel launch each), the
+    outputs joined: the block-grid calls' attention inside one model call
+    (an MoE model's, whose capacity couples the tokens of a call)."""
+    blk, s = cache.kbuf.shape[2], q.shape[2]
+    if s <= blk:
+        return polysketch_prefill(cache, qm, km, q, k, v, **kw)
+    outs = []
+    for a in range(0, s, blk):
+        y, cache = polysketch_prefill(cache, qm[:, :, a:a + blk], km[:, :, a:a + blk],
+                                      q[:, :, a:a + blk], k[:, :, a:a + blk],
+                                      v[:, :, a:a + blk], **kw)
+        outs.append(y)
+    return torch.cat(outs, dim=2), cache
 
 
 class KVCache(NamedTuple):

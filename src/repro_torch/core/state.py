@@ -60,6 +60,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import effective_pattern
 from repro_torch.core import decode as dec
 
 
@@ -267,8 +268,10 @@ def snapshot_layout(cfg) -> list[tuple[str, list[int], bool]]:
     the port's layer indices it holds, stacked over groups or not). The
     JAX LM stacks each block of its pattern over the groups
     (``groups/block{b}``) and keeps the n_layers % g tail unstacked
-    (``tail/block{b}``); dict keys flatten in sorted order."""
-    g = len(cfg.block_pattern)
+    (``tail/block{b}``); dict keys flatten in sorted order. g is the
+    effective pattern's length (llama4-maverick's 2: a GLU and an MoE
+    layer)."""
+    g = len(effective_pattern(cfg))
     n_groups, rem = divmod(cfg.n_layers, g)
     out = []
     for b in sorted(range(g), key=lambda b: f"block{b}") if n_groups else ():
@@ -475,7 +478,10 @@ class DecodeState:
         """Continue a prefill: `state` already covers the first pos0 tokens
         (block-aligned); this segment attends through it and positions run
         at the true absolute offsets. A kind that is not resumable takes
-        pos0 == 0 only."""
+        pos0 == 0 only. An MoE model makes the reference's one call over
+        the segment (its attention still runs block by block inside it):
+        capacity couples the tokens of a call, so calls on the block grid
+        would drop other tokens than the reference's call."""
         s = tokens.shape[1]
         if s == 0:
             raise ValueError("prefill needs at least one token")
@@ -485,7 +491,7 @@ class DecodeState:
                              f"pos0={pos0}")
         start, logits = 0, None
         while start < s:
-            if self.resumable:
+            if self.resumable and self.cfg.ffn != "moe":
                 blk = self.block_size
                 end = min(s, ((pos0 + start) // blk + 1) * blk - pos0)
             else:

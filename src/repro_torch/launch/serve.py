@@ -61,6 +61,17 @@ sliding-window attention, bf16), with or without the prefix cache:
         --device cpu --shared-prefix 24 --prefix-cache-mb 8 --block-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --draw-on-device --prompt-len 4096 --gen 16 --slots 2 --requests 4
+
+The mixture-of-experts models (bf16, f32 weights cast on use), dbrx cut
+to the 5 of its 40 layers and llama4-maverick to the one (GLU, MoE)
+cycle of its 48 that an 80 GB card holds:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --smoke \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
+        --draw-on-device --layers 5 --prompt-len 4096 --gen 16 --slots 2 --requests 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-maverick-400b-a17b --draw-on-device --layers 2
 """
 from __future__ import annotations
 
@@ -139,7 +150,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
                          "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
-                         "recurrentgemma-9b")
+                         "recurrentgemma-9b, dbrx-132b, "
+                         "llama4-maverick-400b-a17b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (for the CPU)")
     ap.add_argument("--layers", type=int, default=0,

@@ -32,6 +32,15 @@ pattern, e.g. --set n_layers=9):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-9b \
         --smoke --device cpu --steps 4 --batch 2 --seq 64
+
+The mixture-of-experts models add their router aux losses to the loss and
+log them (aux_load_balance, aux_router_z); dbrx trains one of its 40
+layers on one card (16 bytes a parameter: 57.8 GiB):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
+        --smoke --device cpu --steps 4 --batch 2 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
+        --draw-on-device --set n_layers=1 --batch 1 --seq 4096 --steps 3
 """
 from __future__ import annotations
 
@@ -56,7 +65,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
                          "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
-                         "recurrentgemma-9b")
+                         "recurrentgemma-9b, dbrx-132b, "
+                         "llama4-maverick-400b-a17b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--draw-on-device", action="store_true",
                     help="draw the seeded weights on the device (seconds for "
@@ -115,8 +125,11 @@ def main(argv=None):
             loss = float(metrics["loss"])          # waits for the device
             straggler.stop()
             if (i + 1) % args.log_every == 0 or i == start_step:
-                log.info("step %d loss %.4f lr %.2e grad_norm %.3f", i + 1,
-                         loss, float(metrics["lr"]), float(metrics["grad_norm"]))
+                aux = "".join(f" {k} {float(v):.4f}" for k, v in metrics.items()
+                              if k.startswith("aux_"))
+                log.info("step %d loss %.4f lr %.2e grad_norm %.3f%s", i + 1,
+                         loss, float(metrics["lr"]), float(metrics["grad_norm"]),
+                         aux)
             save_now = ckpt and args.ckpt_every and (i + 1) % args.ckpt_every == 0
             if save_now or (ckpt and guard.preempted):
                 ckpt.save(i + 1, state, extras={"data": it.state()})

@@ -181,7 +181,7 @@ class Attention(nn.Module):
         q, k = self._poly_ln(q, k)
         qm, km = self._sketch(q), self._sketch(k)
         if mode == "prefill":
-            y, cache = dec.polysketch_prefill(cache, qm, km, q, k, v, **kw)
+            y, cache = dec.polysketch_prefill_blocks(cache, qm, km, q, k, v, **kw)
         else:
             y = ops.polysketch_attention(
                 qm, km, q, k, v, block_size=min(cfg.lt_block_size, q.shape[-2]),

@@ -1,7 +1,7 @@
 """Model facade of the port: ``build_model(cfg, device=)``.
 
-Port of the JAX package's ``models/model_zoo.py`` for the dense
-polysketch family: the LM module (which holds the parameters) and its
+Port of the JAX package's ``models/model_zoo.py`` for the decoder-only
+LMs (dense, recurrent and mixture-of-experts): the LM module (which holds the parameters) and its
 ``DecodeState``. A served model is frozen and in eval mode; with
 ``trainable=True`` every parameter takes a gradient except a random
 sketch's projection ``g``, which the reference keeps frozen with

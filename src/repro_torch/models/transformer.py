@@ -1,21 +1,27 @@
 """Decoder-only LM: the dense family (polysketch, exact polynomial or
-softmax attention) and the recurrent families (mamba2's SSD blocks,
-recurrentgemma's (rglru, rglru, local_attn) pattern).
+softmax attention), the recurrent families (mamba2's SSD blocks,
+recurrentgemma's (rglru, rglru, local_attn) pattern) and the
+mixture-of-experts family (dbrx, llama4-maverick).
 
 Port of the JAX package's ``models/transformer.py`` (``effective_pattern``
 as ``layer_kinds``, ``lm_init``, ``lm_apply`` in train / prefill / decode
-modes, ``lm_init_cache``, ``lm_init_slot_cache``). Layers cycle through the
-config's block pattern; the reference stacks each pattern position over
-the groups and runs the groups under ``lax.scan``, then an unscanned tail
-of n_layers % len(pattern) blocks. Here every layer is its own module in
-an ``nn.ModuleList``, looped over in order: layer i is group i // g,
-block i % g, and the tail follows (``bridge`` maps the two layouts). MoE,
-VLM and encoder-decoder models are not ported (ROADMAP A.8).
+modes with its summed aux losses, ``lm_init_cache``,
+``lm_init_slot_cache``). Layers cycle through the config's effective
+pattern of (mixer, FFN) pairs, of length lcm(len(block_pattern),
+moe_period); the reference stacks each pattern position over the groups
+and runs the groups under ``lax.scan``, then an unscanned tail of
+n_layers % len(pattern) blocks. Here every layer is its own module in an
+``nn.ModuleList``, looped over in order: layer i is group i // g, block
+i % g, and the tail follows (``bridge`` maps the two layouts). VLM and
+encoder-decoder models are not ported (ROADMAP A.8).
 
-Each block: pre-norm -> mixer -> residual; pre-norm -> GLU FFN ->
-residual. The mixer is attn (the paper's knob), local_attn (a sliding
-window), rglru or ssd. A mixer-only block (d_ff == 0: mamba2) has no
-second norm and no FFN.
+Each block: pre-norm -> mixer -> residual; pre-norm -> FFN -> residual.
+The mixer is attn (the paper's knob), local_attn (a sliding window),
+rglru or ssd; the FFN a GLU or an MoE (``models/moe.py``, every
+moe_period-th layer). A mixer-only block (d_ff == 0: mamba2) has no
+second norm and no FFN. In train mode each MoE block returns its router
+aux losses, which the LM sums over the layers (``_zero_aux`` /
+``_add_aux``) for the train step; prefill and decode do not compute them.
 
 Rematerialisation (``cfg.remat``), as ``lm_apply`` checkpoints its group
 body: in train mode with grad on, each group (here one block) runs under
@@ -24,7 +30,9 @@ recomputes the rest in the backward (``jax.checkpoint``); ``"dots"`` also
 keeps the outputs of the matrix products (``checkpoint_dots``). The
 hand-written kernels are no products to the dispatcher (they write into
 buffers through ctypes), so both policies run them again in the
-backward, as ``checkpoint_dots`` recomputes a ``pallas_call``.
+backward, as ``checkpoint_dots`` recomputes a ``pallas_call``. The aux
+losses are outputs of the checkpointed function, so their gradient
+reaches the router through the recomputation.
 """
 from __future__ import annotations
 
@@ -36,26 +44,29 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.configs.base import effective_pattern
 from repro_torch.core.state import get_spec, mixer_state_kind
 from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.ssm import SSM
 
 
 REMAT = ("none", "dots", "full")
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FFNS = ("glu", "moe")
 MIXERS = ("attn", "local_attn", "rglru", "ssd")
 
 
 def check_supported(cfg):
-    """Raise for a config outside the port's slices: MoE, VLM and
+    """Raise for a config outside the port's slices: VLM and
     encoder-decoder models, and untied embeddings, are ROADMAP A.8's."""
-    if cfg.family not in FAMILIES or cfg.ffn != "glu":
+    if cfg.family not in FAMILIES or cfg.ffn not in FFNS:
         raise NotImplementedError(
             f"{cfg.name!r}: family {cfg.family!r} with a {cfg.ffn!r} FFN is "
             f"not ported (ROADMAP A.8); the port covers the "
-            f"{', '.join(FAMILIES)} families with GLU FFNs")
+            f"{', '.join(FAMILIES)} families with {' or '.join(FFNS)} FFNs")
     unknown = [m for m in cfg.block_pattern if m not in MIXERS]
     if unknown or not cfg.block_pattern:
         raise NotImplementedError(
@@ -72,11 +83,11 @@ def check_supported(cfg):
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
 
 
-def layer_kinds(cfg) -> list[str]:
-    """The mixer kind of every layer, groups then tail (the reference's
-    effective pattern: its FFN half is always a GLU until MoE is ported)."""
-    return [cfg.block_pattern[i % len(cfg.block_pattern)]
-            for i in range(cfg.n_layers)]
+def layer_kinds(cfg) -> list[tuple[str, str]]:
+    """The (mixer, ffn) kinds of every layer, groups then tail: the
+    reference's effective pattern, repeated."""
+    pattern = effective_pattern(cfg)
+    return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
 
 
 _aten = torch.ops.aten
@@ -108,11 +119,11 @@ def _run_block(remat, block, h, **kw):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, mixer: str = "attn", *, generator=None,
-                 device="cpu"):
+    def __init__(self, cfg, mixer: str = "attn", ffn: str = "glu", *,
+                 generator=None, device="cpu"):
         super().__init__()
         kw = dict(generator=generator, device=device)
-        self.kind = mixer
+        self.kind, self.ffn_kind = mixer, ffn
         self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
         if mixer in ("attn", "local_attn"):
             self.mixer = Attention(cfg, mixer, **kw)
@@ -120,19 +131,41 @@ class Block(nn.Module):
             self.mixer = RGLRU(cfg, **kw)
         else:
             self.mixer = SSM(cfg, **kw)
-        if cfg.d_ff > 0:
+        if ffn == "moe":
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
+            self.ffn = MoE(cfg, **kw)
+        elif cfg.d_ff > 0:
             self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
             self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
         else:                                # mixer-only block (mamba2)
             self.norm2 = self.ffn = None
 
     def forward(self, h, *, positions, mode, cache=None, inplace=False):
+        """Returns (h, the mixer's new cache, the MoE's aux losses: {}
+        for a GLU or no FFN, and outside train mode)."""
         y, new_cache = self.mixer(self.norm1(h), positions=positions,
                                   mode=mode, cache=cache, inplace=inplace)
         h = h + y
-        if self.ffn is not None:
+        aux = {}
+        if self.ffn_kind == "moe":
+            y, aux = self.ffn(self.norm2(h), with_aux=mode == "train")
+            h = h + y
+        elif self.ffn is not None:
             h = h + self.ffn(self.norm2(h))
-        return h, new_cache
+        return h, new_cache, aux
+
+
+def _zero_aux(cfg, device) -> dict[str, torch.Tensor]:
+    if cfg.ffn == "moe":
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("load_balance", "router_z")}
+    return {}
+
+
+def _add_aux(acc, aux):
+    for k, v in aux.items():
+        acc[k] = acc[k] + v
+    return acc
 
 
 class LM(nn.Module):
@@ -146,18 +179,22 @@ class LM(nn.Module):
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
-                                    for kind in layer_kinds(cfg))
+        self.layers = nn.ModuleList(Block(cfg, mixer, ffn, **kw)
+                                    for mixer, ffn in layer_kinds(cfg))
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
 
     def forward(self, tokens, *, mode: str = "train", cache=None,
-                positions=None, inplace: bool = False):
+                positions=None, inplace: bool = False,
+                return_aux: bool = False):
         """tokens: (B, S) int (S == 1 for decode). positions: (S,) shared
         by the batch, or (B, S) one row each (decode at per-slot depths).
 
         Returns (logits (B, S, V), new_cache): the cache is None in train
         mode, else a list with one cache per layer. `inplace` lets a decode
-        step write into `cache`'s buffers (the engine's own state).
+        step write into `cache`'s buffers (the engine's own state). With
+        return_aux, (logits, new_cache, aux): the MoE layers' router aux
+        losses summed over the layers ({} without MoE; zeros outside train
+        mode), the reference's third output.
         """
         cfg = self.cfg
         dt = getattr(torch, cfg.compute_dtype)
@@ -168,15 +205,19 @@ class LM(nn.Module):
         new_cache = None if mode == "train" else []
         remat = (cfg.remat if mode == "train" and torch.is_grad_enabled()
                  else "none")
+        aux_total = _zero_aux(cfg, h.device)
         for i, block in enumerate(self.layers):
-            h, nc = _run_block(remat, block, h, positions=positions,
-                               mode=mode,
-                               cache=None if cache is None else cache[i],
-                               inplace=inplace)
+            h, nc, aux = _run_block(remat, block, h, positions=positions,
+                                    mode=mode,
+                                    cache=None if cache is None else cache[i],
+                                    inplace=inplace)
+            aux_total = _add_aux(aux_total, aux)
             if new_cache is not None:
                 new_cache.append(nc)
         h = self.final_norm(h)
         logits = h @ table.t()
+        if return_aux:
+            return logits, new_cache, aux_total
         return logits, new_cache
 
     def init_cache(self, batch: int, max_len: int | None = None):

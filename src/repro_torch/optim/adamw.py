@@ -11,7 +11,10 @@ the new values into the parameters in place (they are the module's own
 tensors), and the new m and v into the state's own moment tensors: a
 step never holds a second copy of the moments (8 bytes a parameter, 8.4
 GB for recurrentgemma-9b's embedding alone). The state passed in is
-therefore the state returned, less its count.
+therefore the state returned, less its count. A large parameter is
+updated a slab of leading rows at a time (at most ``SLAB`` elements), so
+that the update's temporaries stay small beside a 4 GiB expert tensor;
+the arithmetic is elementwise, so the bits are those of one whole pass.
 
 The weight-decay mask is the reference's ``_wd_mask``, taken on the
 reference's tree: there the pattern groups are stacked, so every leaf
@@ -29,6 +32,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.bridge import GROUPS, jax_path
+
+
+SLAB = 1 << 26     # elements of a parameter updated at once (256 MiB in f32)
 
 
 class AdamWState(NamedTuple):
@@ -71,17 +77,27 @@ def adamw_update(grads, state: AdamWState, params, *, lr, cfg, b1=0.95,
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=c.device)
     mask = decay_mask(params, cfg)
-    new_m, new_v = {}, {}
     for name, p in params.items():
-        g32 = grads[name].to(torch.float32)
-        # in place, rounding as b1 * m + (1 - b1) * g32 does
-        m = state.m[name].mul_(b1).add_((1 - b1) * g32)
-        v = state.v[name].mul_(b2).add_((1 - b2) * g32 * g32)
-        step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        step = step + weight_decay * mask[name] * p.to(torch.float32)
-        p.copy_((p - lr * step.to(p.dtype)).to(p.dtype))
-        new_m[name], new_v[name] = m, v
-    return AdamWState(m=new_m, v=new_v, count=count)
+        wd = weight_decay * mask[name]
+        for rows in _slabs(p):
+            g32 = grads[name][rows].to(torch.float32)
+            # in place, rounding as b1 * m + (1 - b1) * g32 does
+            m = state.m[name][rows].mul_(b1).add_((1 - b1) * g32)
+            v = state.v[name][rows].mul_(b2).add_((1 - b2) * g32 * g32)
+            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            pr = p[rows]
+            step = step + wd * pr.to(torch.float32)
+            pr.copy_((pr - lr * step.to(p.dtype)).to(p.dtype))
+    return AdamWState(m=state.m, v=state.v, count=count)
+
+
+def _slabs(p):
+    """Index slices of p's leading axis, each at most SLAB elements (one
+    row at least); a 0-d or small tensor is one slab (`...`)."""
+    if p.dim() == 0 or p.numel() <= SLAB:
+        return [...]
+    per = max(1, SLAB // (p.numel() // p.shape[0]))
+    return [slice(s, s + per) for s in range(0, p.shape[0], per)]
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -90,9 +106,9 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm):
-    """(grads scaled so that their global norm is at most max_norm, the
+    """Scale grads in place so that their global norm is at most max_norm
+    (the bits of (g.float() * scale).to(g.dtype)); returns (grads, the
     norm before scaling)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {n: (g.to(torch.float32) * scale).to(g.dtype)
-            for n, g in grads.items()}, norm
+    return {n: g.mul_(scale) for n, g in grads.items()}, norm

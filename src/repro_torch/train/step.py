@@ -10,7 +10,13 @@ manual data-parallel step waits for the port's sharding.
 
 Gradients come from autograd; in train mode the attention runs
 ``ops.polysketch_attention``, whose gradient on the card is B1's backward
-kernel.
+kernel. An MoE model's loss adds its router aux losses, weighted by the
+config (``router_aux_weight``, ``router_z_weight``), and reports them as
+``aux_load_balance`` and ``aux_router_z``.
+
+The clipping and the AdamW update work in place: a dbrx layer's expert
+tensors are 4 GiB each, and a copy of every gradient beside 16 bytes a
+parameter would not fit on the card.
 """
 from __future__ import annotations
 
@@ -39,11 +45,12 @@ def init_train_state(lm) -> TrainState:
 
 def make_loss_fn(cfg):
     """loss_fn(lm, batch) -> (loss, metrics): the mean next-token NLL, or
-    the masked mean when the batch has a loss_mask (B, S)."""
+    the masked mean when the batch has a loss_mask (B, S); with MoE layers
+    plus router_aux_weight * load_balance + router_z_weight * router_z."""
     def loss_fn(lm, batch):
         tokens = batch["tokens"]                      # (B, S+1)
         targets = tokens[:, 1:]
-        logits, _ = lm(tokens[:, :-1], mode="train")
+        logits, _, aux = lm(tokens[:, :-1], mode="train", return_aux=True)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         mask = batch.get("loss_mask")
@@ -51,7 +58,13 @@ def make_loss_fn(cfg):
             loss = nll.mean()
         else:
             loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        return loss, {"ce_loss": loss.detach(), "loss": loss.detach()}
+        metrics = {"ce_loss": loss.detach()}
+        if aux:
+            loss = (loss + cfg.router_aux_weight * aux["load_balance"]
+                    + cfg.router_z_weight * aux["router_z"])
+            metrics.update({f"aux_{k}": v.detach() for k, v in aux.items()})
+        metrics["loss"] = loss.detach()
+        return loss, metrics
 
     return loss_fn
 
@@ -83,13 +96,14 @@ def make_train_step(cfg, tcfg):
         grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
                  for n, p in params.items()}
         if mb > 1:
-            grads = {n: g / mb for n, g in grads.items()}
+            grads = {n: g.div_(mb) for n, g in grads.items()}
         for p in params.values():
             p.grad = None
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = schedule(state.step)
         opt = adamw_update(grads, state.opt, params, lr=lr, b1=tcfg.b1,
                            b2=tcfg.b2, weight_decay=tcfg.weight_decay, cfg=cfg)
+        del grads
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(lm, opt, state.step + 1), metrics
 

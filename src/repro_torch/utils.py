@@ -83,13 +83,15 @@ def _draw_device(generator):
 def normal_param(shape, std, *, generator=None, device="cpu") -> nn.Parameter:
     """N(0, 1) * std, drawn from `generator` on the generator's device and
     moved to `device`: a CPU generator gives the same weights on every
-    device. Nothing is drawn on the meta device."""
+    device. Nothing is drawn on the meta device. Scaled in place (the
+    bits of w * std): an expert tensor is up to 20 GiB, and a second copy
+    of it would not fit beside the rest of a layer on the card."""
     device = torch.device(device)
     if device.type == "meta":
         return nn.Parameter(torch.empty(shape, device=device))
     w = torch.empty(shape, dtype=torch.float32, device=_draw_device(generator))
     w.normal_(generator=generator)
-    return nn.Parameter((w * std).to(device))
+    return nn.Parameter(w.mul_(std).to(device))
 
 
 def uniform_param(shape, bound, *, generator=None, device="cpu") -> nn.Parameter:

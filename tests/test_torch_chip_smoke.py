@@ -222,3 +222,35 @@ def test_recurrent_served_rows(chip_smoke, arch):
     assert rel <= chip_smoke.F32_TOL and lp <= chip_smoke.REC_LP_TOL
     c_rel, c_lp = chip_smoke.rec_rows(model, seq, 70, want, torch.float8_e5m2)
     assert c_rel > 100 * rel and c_lp > 100 * lp
+
+
+@pytest.mark.parametrize("arch,per,reserve,gib,layers", [
+    ("dbrx-132b", 4, "MOE_SERVE_RESERVE_GIB", 79.19, 5),
+    ("dbrx-132b", 16, "MOE_TRAIN_RESERVE_GIB", 79.19, 1),
+    ("llama4-maverick-400b-a17b", 4, "MOE_SERVE_RESERVE_GIB", 79.19, 2),
+    ("llama4-maverick-400b-a17b", 4, "MOE_SERVE_RESERVE_GIB", 300.0, 8)])
+def test_moe_depth(chip_smoke, monkeypatch, arch, per, reserve, gib, layers):
+    """Phase 11 reckons depth in whole cycles of the effective pattern and
+    never below the first MoE layer: on an 80 GB H100 (79.19 GiB) dbrx
+    serves 5 of its 40 layers (3.259B parameters a layer) and trains 1,
+    and maverick serves its first (GLU, MoE) cycle (16.36B parameters),
+    which the reckoning alone would not place beside its reserve."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(chip_smoke, "card_gib", lambda: gib)
+    cfg = get_config(arch)
+    assert chip_smoke.moe_depth(cfg, per, getattr(chip_smoke, reserve)) == layers
+    cycle, g, rest = chip_smoke.cycle_split(cfg)
+    assert (cycle, g, rest) == {"dbrx-132b": (3_259_201_792, 1, 616_568_832),
+                                "llama4-maverick-400b-a17b": (16_358_695_424, 2,
+                                                              1_034_490_880)}[arch]
+
+
+@pytest.mark.parametrize("arch,gib,layers", [
+    ("deepseek-7b", 79.19, 12), ("yi-34b", 79.19, 12), ("yi-34b", 30.0, 6),
+    ("starcoder2-3b", 79.19, 12)])
+def test_dense_serve_depth(chip_smoke, monkeypatch, arch, gib, layers):
+    """Phase 7 serves each dense model at the most layers whose f32 weights
+    fit beside its reserve, at most DENSE_SERVE_LAYERS (12)."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(chip_smoke, "card_gib", lambda: gib)
+    assert chip_smoke.serve_depth(get_config(arch)) == layers

@@ -960,3 +960,70 @@ def test_recurrent_prefix_cache_hits_equal_cold_on_card(card, arch):
     for rid, o in runs["cold"].items():
         assert np.array_equal(o.tokens, runs["cached"][rid].tokens)
         assert np.array_equal(o.logprobs, runs["cached"][rid].logprobs)
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts FFN (plain batched products, no port kernel)
+# ---------------------------------------------------------------------------
+
+MOE = ["dbrx-132b", "llama4-maverick-400b-a17b"]
+
+
+def _moe_layer(arch, card, dtype, **over):
+    from repro_torch.models import moe
+    cfg = get_config(arch, smoke=True, **over)
+    layer = moe.MoE(cfg, generator=torch.Generator().manual_seed(9), device=card)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 64, cfg.d_model)).astype(np.float32)).to(card, getattr(torch, dtype))
+    return moe, cfg, layer.requires_grad_(False), x
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_moe_dispatch_matches_dense_oracle_on_card(card, arch, dtype, groups):
+    """Capacity factor 8.0 (nothing drops): the sort-based dispatch against
+    the dense oracle on the card, relative to max|y|."""
+    moe, cfg, layer, x = _moe_layer(arch, card, dtype, capacity_factor=8.0,
+                                    moe_dispatch_groups=groups)
+    with torch.inference_mode():
+        got, _ = moe.moe_apply(layer, cfg, x)
+        want = moe.moe_apply_dense_oracle(layer, cfg, x)
+    assert (got.float() - want.float()).abs().max().item() \
+        <= TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_is_bit_stable_and_matches_cpu_on_card(card, arch, dtype):
+    """At the published capacity factor (drops): two calls give the same
+    bits, the kept assignments and the stable top-k (ties by index) are
+    the CPU's, and the outputs agree with the CPU's."""
+    moe, cfg, layer, x = _moe_layer(arch, card, dtype)
+    with torch.inference_mode():
+        a, aux_a = moe.moe_apply(layer, cfg, x)
+        b, aux_b = moe.moe_apply(layer, cfg, x)
+        on_cpu, _ = moe.moe_apply(layer.cpu(), cfg, x.cpu())
+        x32 = x.float()
+        _, _, _, ids = moe.route(layer.to(card), cfg, x32.reshape(-1, cfg.d_model))
+        _, _, _, ids_cpu = moe.route(layer.cpu(), cfg, x32.cpu().reshape(-1, cfg.d_model))
+    assert torch.equal(a, b) and all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+    if dtype == "float32":
+        assert torch.equal(ids.cpu(), ids_cpu)
+        assert torch.equal(moe.dispatch_plan(cfg, ids).keep.cpu(),
+                           moe.dispatch_plan(cfg, ids_cpu).keep)
+        assert (a.cpu() - on_cpu).abs().max().item() <= 1e-4
+    vals, idx = moe.top_k(torch.tensor([[0.5, 0.5, 0.1, 0.5]], device=card), 3)
+    assert idx.tolist() == [[0, 1, 3]]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_smoke_on_card_matches_cpu(card, arch):
+    """SMOKE (f32, weights from one CPU seed): greedy tokens equal the
+    CPU's, logits within 1e-4."""
+    cfg = get_config(arch, smoke=True)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(2, 45))
+    on_card = generate(build_model(cfg, device=card, seed=4), prompt, 10)
+    on_cpu = generate(build_model(cfg, device="cpu", seed=4), prompt, 10)
+    assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+    assert (on_card.logits_last.cpu() - on_cpu.logits_last).abs().max().item() <= 1e-4

@@ -138,7 +138,7 @@ def test_registry_resolves_the_reference_configs(arch):
 
 def test_unported_families_still_raise():
     cfg = get_config("mamba2-780m", smoke=True)
-    for over, match in ((dict(family="moe", ffn="moe"), "A.8"),
+    for over, match in ((dict(family="audio"), "A.8"),
                         (dict(family="vlm"), "A.8"),
                         (dict(tie_embeddings=False), "A.8"),
                         (dict(block_pattern=("cross_attn",)), "not ported")):

@@ -17,9 +17,21 @@ i % g, and the tail follows the groups. Flattened by tree path (the
 
 A dense model (pattern ("attn",)) has g = 1 and no tail: every layer is
 ``groups/block0`` stacked over n_layers. An MoE layer's FFN leaves are
-``ffn/{router,wi,wg,wo}``, stacked over the groups like any other. Every
-mapping takes the config, which fixes g and the tail. Arrays move as they
-are: the port keeps the JAX layouts.
+``ffn/{router,wi,wg,wo}``, stacked over the groups like any other.
+Untied embeddings (and only they) add the top-level ``lm_head`` ->
+``lm_head``.
+
+The encoder-decoder (``cfg.family == "audio"``, ``models/whisper.py``)
+stacks its encoder and decoder layers each on one leading axis:
+
+    embed/table                   -> embed.table
+    enc/<path>[j]                 -> enc.<j>.<path with . for />
+    dec/<path>[j]                 -> dec.<j>.<path>
+    enc_norm/<p>, dec_norm/<p>    -> enc_norm.<p>, dec_norm.<p>
+
+(``enc_norm/`` is not under ``enc/``.) Every mapping takes the config,
+which fixes g and the tail, or the family. Arrays move as they are: the
+port keeps the JAX layouts.
 
 A training state moves as the flat arrays of the reference's checkpoint
 (``checkpoint/manager.py``'s keys): ``.params/<path>``, ``.opt/.m/<path>``,
@@ -34,6 +46,7 @@ import torch
 from repro_torch.configs.base import effective_pattern
 
 GROUPS, TAIL = "groups/", "tail/"
+ENC, DEC = "enc/", "dec/"          # the encoder-decoder's two stacks
 
 
 def group_shape(cfg) -> tuple[int, int, int]:
@@ -53,9 +66,25 @@ def layer_prefix(i: int, cfg) -> str:
     return f"{TAIL}block{i - n_groups * g}/"
 
 
+def stacks(cfg) -> dict[str, int]:
+    """The config's stacked path prefixes and their layer counts: the
+    LM's groups, or the encoder-decoder's encoder and decoder."""
+    if cfg.family == "audio":
+        return {ENC: cfg.encoder_layers, DEC: cfg.n_layers}
+    return {GROUPS: group_shape(cfg)[1]}
+
+
+def is_stacked(path: str, cfg) -> bool:
+    """Whether the reference stacks the leaf at `path` over layers."""
+    return path.startswith(tuple(stacks(cfg)))
+
+
 def params_from_jax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]:
-    """A state dict for the port's LM from flattened JAX params. Raises on
-    a leaf it cannot place or a group count that does not match cfg."""
+    """A state dict for the port's LM (or Whisper) from flattened JAX
+    params. Raises on a leaf it cannot place or a layer count that does
+    not match cfg."""
+    if cfg.family == "audio":
+        return _whisper_params_from_jax(flat, cfg)
     g, n_groups, rem = group_shape(cfg)
     sd = {}
     for path, arr in flat.items():
@@ -76,7 +105,28 @@ def params_from_jax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]
                 if b >= rem:
                     raise KeyError(f"no tail block {b} in the port for {path!r}")
                 sd[f"layers.{n_groups * g + b}.{sub}"] = torch.from_numpy(arr.copy())
-        elif path.startswith(("embed/", "final_norm/")):
+        elif (path.startswith(("embed/", "final_norm/"))
+              or path == "lm_head" and not cfg.tie_embeddings):
+            sd[path.replace("/", ".")] = torch.from_numpy(arr.copy())
+        else:
+            raise KeyError(f"no place in the port for JAX leaf {path!r}")
+    return sd
+
+
+def _whisper_params_from_jax(flat, cfg):
+    counts, sd = stacks(cfg), {}
+    for path, arr in flat.items():
+        # jaxlint: disable=host-sync-in-jit-path -- no jit in the port
+        arr = np.asarray(arr)
+        top = path.split("/", 1)[0] + "/"
+        if top in counts:
+            if arr.shape[0] != counts[top]:
+                raise ValueError(f"{path}: {arr.shape[0]} stacked layers, config "
+                                 f"has {counts[top]}")
+            sub = path[len(top):].replace("/", ".")
+            for j in range(counts[top]):
+                sd[f"{top[:-1]}.{j}.{sub}"] = torch.from_numpy(arr[j].copy())
+        elif top in ("embed/", "enc_norm/", "dec_norm/"):
             sd[path.replace("/", ".")] = torch.from_numpy(arr.copy())
         else:
             raise KeyError(f"no place in the port for JAX leaf {path!r}")
@@ -85,7 +135,11 @@ def params_from_jax(flat: dict[str, np.ndarray], cfg) -> dict[str, torch.Tensor]
 
 def jax_path(name: str, cfg) -> str:
     """The JAX tree path of the port's parameter `name` (the layer index
-    dropped: the reference stacks the groups)."""
+    dropped: the reference stacks the groups, or the encoder's and the
+    decoder's layers)."""
+    if cfg.family == "audio" and name.startswith(("enc.", "dec.")):
+        top, _, sub = name.split(".", 2)
+        return f"{top}/" + sub.replace(".", "/")
     if name.startswith("layers."):
         _, i, sub = name.split(".", 2)
         return layer_prefix(int(i), cfg) + sub.replace(".", "/")
@@ -101,7 +155,7 @@ def params_to_jax(lm) -> dict[str, np.ndarray]:
 
 def named_to_jax(named: dict[str, torch.Tensor], cfg) -> dict[str, np.ndarray]:
     """Tensors keyed by the port's parameter names (parameters, or
-    optimizer moments) as group-stacked JAX leaves."""
+    optimizer moments) as stacked JAX leaves."""
     stacked: dict[str, list] = {}
     flat = {}
 
@@ -112,7 +166,7 @@ def named_to_jax(named: dict[str, torch.Tensor], cfg) -> dict[str, np.ndarray]:
 
     for name, p in named.items():   # layers in order, as named_parameters gives them
         path = jax_path(name, cfg)
-        if path.startswith(GROUPS):
+        if is_stacked(path, cfg):
             stacked.setdefault(path, []).append(host(p))
         else:
             flat[path] = host(p)

@@ -1,11 +1,13 @@
 """Config registry of the port: --arch <id> resolves here.
 
-Only the configurations the port serves are registered: the paper's
-model, the registry's dense polysketch models (GLU FFN, head width 128,
-bf16 at full width), its two recurrent families (mamba2's SSD, and
-recurrentgemma's RG-LRU with sliding-window attention) and its two
-mixture-of-experts models (dbrx's 16 experts top-4 in every layer,
-llama4-maverick's 128 experts top-1 in every second layer).
+Every configuration of the JAX package's registry: the paper's model,
+the dense polysketch models (GLU FFN, head width 128, bf16 at full
+width), the two recurrent families (mamba2's SSD, and recurrentgemma's
+RG-LRU with sliding-window attention), the two mixture-of-experts models
+(dbrx's 16 experts top-4 in every layer, llama4-maverick's 128 experts
+top-1 in every second layer), the VLM (llava-next-mistral-7b, image
+embeddings over the first tokens) and the encoder-decoder
+(whisper-large-v3, ``models/whisper.py``).
 """
 from repro_torch.configs.base import ArchConfig, TrainConfig, effective_pattern
 
@@ -18,6 +20,8 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "dbrx-132b": "dbrx_132b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "whisper-large-v3": "whisper_large_v3",
     "gpt2s-polysketch": "gpt2_paper",
 }
 

@@ -1,12 +1,12 @@
 """Architecture and training configuration for the PyTorch port.
 
 The port's own copies of ``ArchConfig`` and ``TrainConfig`` (the JAX
-package's ``repro/configs/base.py``). ``ArchConfig`` is cut to the fields
-the port reads, with the
-reference's names and defaults: one value means the same model in both
-packages. A field the port does not serve is not here, so setting it
-raises (``replace`` takes no unknown field); family, block pattern, FFN
-and attention kinds the port lacks are rejected by
+package's ``repro/configs/base.py``). ``ArchConfig`` has the
+reference's fields, names and defaults (but ``param_dtype``, which no
+reference code reads: the port keeps every parameter in float32): one
+value means the same model in both packages. A field the port does not
+have raises (``replace`` takes no unknown field); block pattern, FFN and
+attention kinds the port lacks are rejected by
 ``models.transformer.check_supported``. ``effective_pattern`` is the
 reference's per-layer (mixer, FFN) cycle (``models/transformer.py``),
 kept beside the config so that the bridge and the snapshot layout read
@@ -22,7 +22,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                    # the port serves dense|moe|ssm|hybrid
+    family: str                    # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,9 +64,20 @@ class ArchConfig:
     rglru_width: int = 0           # 0 -> d_model
     rglru_c: float = 8.0
 
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_len: int = 1500
+    cross_attention: bool = False
+
+    # vlm
+    n_image_tokens: int = 0
+
     # numerics
     compute_dtype: str = "float32"
     remat: str = "none"            # none|dots|full
+    # the reference's lax.scan / Python-loop switch; the port's layers are
+    # always a Python loop, so it changes nothing here
+    unroll_layers: bool = False
     tie_embeddings: bool = True
     norm: str = "rmsnorm"          # rmsnorm|layernorm
 

@@ -468,20 +468,27 @@ class DecodeState:
         """Batch-1 cache for one serve slot."""
         return self.lm.init_slot_cache(max_len)
 
-    def prefill(self, tokens, state=None, *, max_len=None):
-        """tokens (B, S) -> (last-position logits (B, V), state)."""
+    def prefill(self, tokens, state=None, *, max_len=None, image_embeds=None):
+        """tokens (B, S) -> (last-position logits (B, V), state).
+        image_embeds (B, n_img, D): a VLM's, over the first n_img tokens."""
         if state is None:
             state = self.init(tokens.shape[0], max_len)
-        return self.resume(tokens, state, 0)
+        return self.resume(tokens, state, 0, image_embeds=image_embeds)
 
-    def resume(self, tokens, state, pos0: int):
+    def resume(self, tokens, state, pos0: int, *, image_embeds=None):
         """Continue a prefill: `state` already covers the first pos0 tokens
         (block-aligned); this segment attends through it and positions run
         at the true absolute offsets. A kind that is not resumable takes
         pos0 == 0 only. An MoE model makes the reference's one call over
         the segment (its attention still runs block by block inside it):
         capacity couples the tokens of a call, so calls on the block grid
-        would drop other tokens than the reference's call."""
+        would drop other tokens than the reference's call.
+
+        image_embeds (B, n_img, D) belong to the absolute positions
+        0..n_img-1 (a VLM's, with cfg.n_image_tokens set): each call gets
+        the rows of its own positions, so the logits are the reference's
+        one-call splice however the segment is cut. The prompt must reach
+        n_img."""
         s = tokens.shape[1]
         if s == 0:
             raise ValueError("prefill needs at least one token")
@@ -489,6 +496,12 @@ class DecodeState:
             raise ValueError(f"a {'/'.join(self.kinds)!r} state is not "
                              f"resumable: its prefill starts at 0, got "
                              f"pos0={pos0}")
+        n_img = 0
+        if image_embeds is not None and self.cfg.n_image_tokens:
+            n_img = image_embeds.shape[1]
+            if pos0 + s < n_img:
+                raise ValueError(f"{n_img} image embeddings do not fit a "
+                                 f"prompt of {pos0 + s} tokens")
         start, logits = 0, None
         while start < s:
             if self.resumable and self.cfg.ffn != "moe":
@@ -498,8 +511,12 @@ class DecodeState:
                 end = s
             positions = pos0 + start + torch.arange(end - start,
                                                     device=tokens.device)
+            a = pos0 + start
+            img = (image_embeds[:, a:min(pos0 + end, n_img)] if a < n_img
+                   else None)
             logits, state = self.lm(tokens[:, start:end], mode="prefill",
-                                    cache=state, positions=positions)
+                                    cache=state, positions=positions,
+                                    image_embeds=img)
             start = end
         return logits[:, -1], state
 

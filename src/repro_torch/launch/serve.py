@@ -151,7 +151,10 @@ def main(argv=None):
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
                          "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
                          "recurrentgemma-9b, dbrx-132b, "
-                         "llama4-maverick-400b-a17b")
+                         "llama4-maverick-400b-a17b, llava-next-mistral-7b "
+                         "(token-only prompts); the engine refuses "
+                         "whisper-large-v3 (no decode state, as in the "
+                         "reference)")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced config (for the CPU)")
     ap.add_argument("--layers", type=int, default=0,

@@ -41,6 +41,11 @@ layers on one card (16 bytes a parameter: 57.8 GiB):
         --smoke --device cpu --steps 4 --batch 2 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
         --draw-on-device --set n_layers=1 --batch 1 --seq 4096 --steps 3
+
+llava-next-mistral-7b trains on tokens only, as the reference's CLI does
+(the image splice trains through ``make_train_step`` with batches that
+carry ``image_embeds``); whisper-large-v3 exits non-zero, since this
+CLI's data pipeline feeds no encoder frames (the reference's neither).
 """
 from __future__ import annotations
 
@@ -66,7 +71,8 @@ def main(argv=None):
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
                          "starcoder2-3b, qwen3-14b, yi-34b, mamba2-780m, "
                          "recurrentgemma-9b, dbrx-132b, "
-                         "llama4-maverick-400b-a17b")
+                         "llama4-maverick-400b-a17b, llava-next-mistral-7b "
+                         "(tokens only)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--draw-on-device", action="store_true",
                     help="draw the seeded weights on the device (seconds for "
@@ -93,6 +99,11 @@ def main(argv=None):
         k, _, v = kv.partition("=")
         overrides[k] = type(getattr(base, k))(v) if hasattr(base, k) else v
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    if cfg.family == "audio":
+        raise SystemExit(f"{cfg.name}: this CLI's Markov token stream feeds no "
+                         "encoder frames, which an encoder-decoder trains on; "
+                         "train it through train.make_train_step with batches "
+                         "of tokens and frames")
     model = build_model(cfg, device=args.device, seed=args.seed,
                         trainable=True, draw_on_device=args.draw_on_device)
     dev = model.device

@@ -1,16 +1,21 @@
 """Attention mixers in train, prefill and decode modes: the global
 ``kind="attn"`` for the paper's knob ``cfg.attention`` ("polysketch",
-"polynomial" (exact, quadratic) or "softmax", the baseline), and the
+"polynomial" (exact, quadratic) or "softmax", the baseline), the
 sliding-window ``kind="local_attn"`` (softmax over the last
-cfg.sliding_window tokens, whatever cfg.attention says; recurrentgemma).
+cfg.sliding_window tokens, whatever cfg.attention says; recurrentgemma),
+and Whisper's two softmax kinds: ``"encoder_attn"`` (bidirectional, over
+the encoder's frames) and ``"cross_attn"`` (the decoder's queries over
+the encoder's memory, its projected k and v kept in a ``KVCache``).
 
-Port of those branches of the JAX package's ``models/attention.py``
-(``attention_init``, ``_project``, ``_poly_ln``, ``_out``,
-``attention_apply``, ``_fill_kv``). Parameter names and layouts are the
-reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h, d), with
-``cfg.qk_norm`` the per-head q/k RMS norms' q_norm and k_norm (h,), for
-the two polynomial mechanisms of "attn" the q/k LayerNorm's pln_*, and
-for polysketch only the learned sketch.
+Port of the JAX package's ``models/attention.py`` (``attention_init``,
+``_project``, ``_poly_ln``, ``_out``, ``attention_apply``, ``_fill_kv``,
+``_cross_attention``, ``cross_attention_cache``). Parameter names and
+layouts are the reference's: wq (d, Hq, h), wk/wv (d, Hkv, h), wo (Hq, h,
+d), with ``cfg.qk_norm`` the per-head q/k RMS norms' q_norm and k_norm
+(h,), for the two polynomial mechanisms of "attn" the q/k LayerNorm's
+pln_*, and for polysketch only the learned sketch. The encoder and cross
+kinds are multi-head (Hkv = Hq, as published) and apply no RoPE;
+``noncausal_polysketch``, which no model calls, is not ported.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from repro_torch.utils import const_param, normal_param
 
 
 MECHANISMS = ("polysketch", "polynomial", "softmax")
-KINDS = ("attn", "local_attn")
+KINDS = ("attn", "local_attn", "encoder_attn", "cross_attn")
 
 
 class Attention(nn.Module):
@@ -46,9 +51,11 @@ class Attention(nn.Module):
                 f"got {cfg.attention!r}")
         self.cfg = cfg
         self.kind = kind
-        # local attention is softmax whatever the knob says
+        # the other kinds are softmax whatever the knob says
         self.mech = cfg.attention if kind == "attn" else "softmax"
         d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        if kind in ("encoder_attn", "cross_attn"):
+            hkv = hq          # MHA for encoder/cross per the published whisper arch
         hd = cfg.resolved_head_dim
         kw = dict(generator=generator, device=device)
         self.wq = dense_init(d, (hq, hd), **kw)
@@ -68,20 +75,20 @@ class Attention(nn.Module):
             self.sketch = init_sketch(hd, cfg.sketch_size, cfg.poly_degree,
                                       cfg.learned_sketch, **kw)
 
+    @staticmethod
+    def _proj(x, w):
+        """x (B, S, D) @ w (D, H, h) -> (B, H, S, h) in x's dtype."""
+        bsz, s, d = x.shape
+        y = x @ w.to(x.dtype).reshape(d, -1)
+        return y.reshape(bsz, s, w.shape[1], w.shape[2]).transpose(1, 2)
+
     def _project(self, x, positions):
         """x: (B, S, D) -> q (B,Hq,S,h), k,v (B,Hkv,S,h): q/k RMS-normed per
-        head when cfg.qk_norm, then RoPE applied."""
-        dt = x.dtype
-        bsz, s, d = x.shape
-
-        def proj(w):
-            y = x @ w.to(dt).reshape(d, -1)
-            return y.reshape(bsz, s, w.shape[1], w.shape[2]).transpose(1, 2)
-
-        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
+        head when cfg.qk_norm, then RoPE applied (attn and local_attn)."""
+        q, k, v = (self._proj(x, w) for w in (self.wq, self.wk, self.wv))
         if self.cfg.qk_norm:
             q, k = rms(q, self.q_norm), rms(k, self.k_norm)
-        if self.cfg.use_rope:
+        if self.cfg.use_rope and self.kind in ("attn", "local_attn"):
             q = rope(q, positions, self.cfg.rope_theta)
             k = rope(k, positions, self.cfg.rope_theta)
         return q, k, v
@@ -103,13 +110,20 @@ class Attention(nn.Module):
         return y @ self.wo.to(y.dtype).reshape(hq * hd, -1)
 
     def forward(self, x, *, positions, mode: str, cache=None,
-                inplace: bool = False):
+                inplace: bool = False, memory=None):
         """Returns (y (B,S,D), new_cache_or_None). positions: (S,), or
         (B, S) per row; `inplace` lets a decode step write into `cache`'s
-        buffers instead of copies."""
+        buffers instead of copies. `memory` (B, T, D): the encoder output a
+        cross_attn mixer attends to; without it, the KVCache `cache` of
+        its projected k and v (returned as it came)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if self.kind == "cross_attn":
+            return self._cross(x, cache, memory), cache
         q, k, v = self._project(x, positions)
+        if self.kind == "encoder_attn":
+            y = softmax_attention_full(q, k, v, causal=False)
+            return self._out(y), None
         if self.kind == "local_attn":
             return self._local(q, k, v, mode, cache, inplace)
         if self.mech == "polynomial":
@@ -117,6 +131,24 @@ class Attention(nn.Module):
         if self.mech == "softmax":
             return self._softmax(q, k, v, mode, cache, inplace)
         return self._polysketch(q, k, v, mode, cache, inplace)
+
+    def _cross(self, x, cache, memory):
+        """Softmax over the encoder memory (scale 1/sqrt(h), no mask), the
+        queries unnormed and unroped, as the reference's
+        ``_cross_attention``."""
+        q = self._proj(x, self.wq)
+        if memory is not None:
+            k, v = self._proj(memory, self.wk), self._proj(memory, self.wv)
+        else:
+            k, v = cache.k, cache.v
+        return self._out(softmax_attention_full(q, k, v, causal=False))
+
+    def cross_cache(self, memory, dtype) -> dec.KVCache:
+        """The KVCache of the memory's projected k and v (B, H, T, h), cast
+        to `dtype`, full (pos T): the reference's ``cross_attention_cache``,
+        which a prefill builds for the decode steps after it."""
+        k, v = self._proj(memory, self.wk), self._proj(memory, self.wv)
+        return dec.KVCache(k.to(dtype), v.to(dtype), k.shape[2])
 
     def _local(self, q, k, v, mode, cache, inplace):
         """Sliding-window softmax, scale 1/sqrt(h): the ring's decode step,

@@ -1,4 +1,5 @@
-"""Shared model layers: norms, dense/embedding init, RoPE, GLU feed-forward,
+"""Shared model layers: norms, dense/embedding init, RoPE, sinusoidal
+positions (Whisper's encoder), GLU feed-forward,
 the recurrent mixers' causal depthwise conv and the reference's softplus.
 
 Port of the JAX package's ``models/layers.py``. Weights keep the JAX
@@ -81,6 +82,25 @@ def rope(x, positions, theta=10000.0):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n, d, *, device="cpu"):
+    """The (n, d) float32 table of sinusoidal positions, as the reference
+    builds it: sin of pos / 10000^(2i/d) in the even columns, cos in the
+    odd ones, the cos half taken as ang[:, :d - d // 2]. An odd d above 1
+    raises, as it does in the reference: that slice is one column wider
+    than the odd columns (at d 1 it is one column against none, which
+    broadcasts)."""
+    if d % 2 and d > 1:
+        raise ValueError(f"sinusoidal positions need an even width, got {d}: "
+                         f"the cos half has {d - d // 2} columns for {d // 2} slots")
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(torch.full((), 10000.0, device=device), dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, : (d - d // 2)])
+    return pe
 
 
 class GLUFFN(nn.Module):

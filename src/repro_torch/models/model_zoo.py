@@ -1,11 +1,14 @@
-"""Model facade of the port: ``build_model(cfg, device=)``.
+"""Model facade of the port: ``build_model(cfg, device=)`` and
+``input_specs(cfg, shape)``.
 
-Port of the JAX package's ``models/model_zoo.py`` for the decoder-only
-LMs (dense, recurrent and mixture-of-experts): the LM module (which holds the parameters) and its
-``DecodeState``. A served model is frozen and in eval mode; with
-``trainable=True`` every parameter takes a gradient except a random
-sketch's projection ``g``, which the reference keeps frozen with
-``stop_gradient``.
+Port of the JAX package's ``models/model_zoo.py``: for the decoder-only
+LMs (dense, recurrent, mixture-of-experts and the VLM) the LM module
+(which holds the parameters) and its ``DecodeState``; for the audio
+family the encoder-decoder ``models.whisper.Whisper`` with no
+DecodeState (``state`` None), as the reference gives it none. A served
+model is frozen and in eval mode; with ``trainable=True`` every
+parameter takes a gradient except a random sketch's projection ``g``,
+which the reference keeps frozen with ``stop_gradient``.
 """
 from __future__ import annotations
 
@@ -15,14 +18,15 @@ import torch
 
 from repro_torch.core.state import DecodeState
 from repro_torch.models.transformer import LM
+from repro_torch.models.whisper import Whisper
 from repro_torch.utils import resolve_device
 
 
 @dataclass
 class Model:
     cfg: object
-    lm: LM
-    state: DecodeState
+    lm: LM | Whisper
+    state: DecodeState | None      # None: not servable through the engine
 
     @property
     def device(self) -> torch.device:
@@ -32,7 +36,8 @@ class Model:
 def build_model(cfg, *, device=None, seed: int = 0,
                 params: dict[str, torch.Tensor] | None = None,
                 trainable: bool = False, draw_on_device: bool = False) -> Model:
-    """Build the LM on `device` (default cuda; raises with no card).
+    """Build the LM (a Whisper for the audio family) on `device`
+    (default cuda; raises with no card).
 
     Weights are drawn from a CPU torch.Generator seeded with `seed`, with
     the reference's init distributions, so a seed gives the same weights
@@ -48,15 +53,37 @@ def build_model(cfg, *, device=None, seed: int = 0,
     dev = (torch.device("meta") if device == "meta"
            else resolve_device(device))
     gen = torch.Generator(device=dev if draw_on_device else "cpu").manual_seed(seed)
-    lm = LM(cfg, generator=gen, device=dev)
+    audio = cfg.family == "audio"
+    lm = (Whisper if audio else LM)(cfg, generator=gen, device=dev)
     if params is not None:
         lm.load_state_dict(params, strict=True)
     lm.train(trainable)
     for name, p in lm.named_parameters():
         p.requires_grad_(trainable and not _frozen(name))
-    return Model(cfg, lm, DecodeState(lm))
+    return Model(cfg, lm, None if audio else DecodeState(lm))
 
 
 def _frozen(name: str) -> bool:
     """A random sketch projection (RandomProjection.g): frozen in training."""
     return name.endswith(".g")
+
+
+def input_specs(cfg, shape, *, for_train: bool | None = None
+                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of every model input of a shape cell, as the
+    reference's ``input_specs``: train tokens (B, S+1) (the step shifts
+    them), prefill tokens (B, S), decode tokens (B, 1) (the cache is built
+    separately); outside decode a VLM's image_embeds (B, n_image_tokens,
+    D) and an audio model's frames (B, encoder_len, D), in the compute
+    dtype. `shape` has global_batch, seq_len and kind; for_train, when
+    given, overrides the kind (train, or the shape's own)."""
+    b, s = shape.global_batch, shape.seq_len
+    kind = shape.kind if for_train is None else ("train" if for_train else shape.kind)
+    seq = {"train": s + 1, "prefill": s, "decode": 1}[kind]
+    specs = {"tokens": ((b, seq), torch.int32)}
+    dt = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vlm" and kind != "decode":
+        specs["image_embeds"] = ((b, cfg.n_image_tokens, cfg.d_model), dt)
+    if cfg.family == "audio" and kind != "decode":
+        specs["frames"] = ((b, cfg.encoder_len, cfg.d_model), dt)
+    return specs

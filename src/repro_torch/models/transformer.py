@@ -1,7 +1,9 @@
 """Decoder-only LM: the dense family (polysketch, exact polynomial or
 softmax attention), the recurrent families (mamba2's SSD blocks,
-recurrentgemma's (rglru, rglru, local_attn) pattern) and the
-mixture-of-experts family (dbrx, llama4-maverick).
+recurrentgemma's (rglru, rglru, local_attn) pattern), the
+mixture-of-experts family (dbrx, llama4-maverick) and the VLM
+(llava-next-mistral-7b: precomputed image embeddings over the first
+tokens). The encoder-decoder family is ``models/whisper.py``'s.
 
 Port of the JAX package's ``models/transformer.py`` (``effective_pattern``
 as ``layer_kinds``, ``lm_init``, ``lm_apply`` in train / prefill / decode
@@ -12,8 +14,14 @@ moe_period); the reference stacks each pattern position over the groups
 and runs the groups under ``lax.scan``, then an unscanned tail of
 n_layers % len(pattern) blocks. Here every layer is its own module in an
 ``nn.ModuleList``, looped over in order: layer i is group i // g, block
-i % g, and the tail follows (``bridge`` maps the two layouts). VLM and
-encoder-decoder models are not ported (ROADMAP A.8).
+i % g, and the tail follows (``bridge`` maps the two layouts).
+
+The embedding: the table's rows times sqrt(d_model); with
+``image_embeds`` (B, n_img, D) and ``cfg.n_image_tokens`` set, the first
+n_img rows are the image embeddings instead, unscaled (the anyres
+frontend is a stub in the reference too). The logits: h against the
+table (tied), or h @ ``lm_head`` (d_model, vocab) with
+``tie_embeddings=False``.
 
 Each block: pre-norm -> mixer -> residual; pre-norm -> FFN -> residual.
 The mixer is attn (the paper's knob), local_attn (a sliding window),
@@ -51,34 +59,38 @@ from repro_torch.models.layers import GLUFFN, Embedding, Norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.ssm import SSM
+from repro_torch.utils import normal_param
 
 
 REMAT = ("none", "dots", "full")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 FFNS = ("glu", "moe")
 MIXERS = ("attn", "local_attn", "rglru", "ssd")
 
 
 def check_supported(cfg):
-    """Raise for a config outside the port's slices: VLM and
-    encoder-decoder models, and untied embeddings, are ROADMAP A.8's."""
+    """Raise for a config the LM does not build: an unknown family, FFN,
+    block-pattern mixer or attention mechanism, and the encoder-decoder
+    family, which ``models.whisper.Whisper`` builds."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name!r}: the audio family is an encoder-decoder, built by "
+            f"models/whisper.py (model_zoo.build_model), not by the LM")
     if cfg.family not in FAMILIES or cfg.ffn not in FFNS:
         raise NotImplementedError(
             f"{cfg.name!r}: family {cfg.family!r} with a {cfg.ffn!r} FFN is "
-            f"not ported (ROADMAP A.8); the port covers the "
-            f"{', '.join(FAMILIES)} families with {' or '.join(FFNS)} FFNs")
+            f"not ported; the LM covers the {', '.join(FAMILIES)} families "
+            f"with {' or '.join(FFNS)} FFNs")
     unknown = [m for m in cfg.block_pattern if m not in MIXERS]
     if unknown or not cfg.block_pattern:
         raise NotImplementedError(
-            f"{cfg.name!r}: mixers {unknown} are not ported (the port has "
-            f"{', '.join(MIXERS)})")
+            f"{cfg.name!r}: mixers {unknown} are no LM block mixers (the LM "
+            f"has {', '.join(MIXERS)}; encoder and cross attention are "
+            f"models/whisper.py's)")
     if "attn" in cfg.block_pattern and cfg.attention not in MECHANISMS:
         raise NotImplementedError(
             f"{cfg.name!r}: {cfg.attention!r} attention is not ported (the "
             f"port has {', '.join(MECHANISMS)})")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings are not ported "
-                                  "(ROADMAP A.8)")
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
 
@@ -182,12 +194,18 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, mixer, ffn, **kw)
                                     for mixer, ffn in layer_kinds(cfg))
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = normal_param((cfg.d_model, cfg.vocab_size), 0.02,
+                                        **kw)
 
     def forward(self, tokens, *, mode: str = "train", cache=None,
                 positions=None, inplace: bool = False,
-                return_aux: bool = False):
+                return_aux: bool = False, image_embeds=None):
         """tokens: (B, S) int (S == 1 for decode). positions: (S,) shared
         by the batch, or (B, S) one row each (decode at per-slot depths).
+        image_embeds: (B, n_img, D), n_img <= S, spliced over the first
+        n_img rows of the embedding when cfg.n_image_tokens is set (a
+        shorter prompt raises).
 
         Returns (logits (B, S, V), new_cache): the cache is None in train
         mode, else a list with one cache per layer. `inplace` lets a decode
@@ -200,6 +218,12 @@ class LM(nn.Module):
         dt = getattr(torch, cfg.compute_dtype)
         table = self.embed.table.to(dt)
         h = table[tokens] * math.sqrt(cfg.d_model)
+        if image_embeds is not None and cfg.n_image_tokens:
+            n_img = image_embeds.shape[1]
+            if n_img > h.shape[1]:
+                raise ValueError(f"{n_img} image embeddings do not fit a "
+                                 f"prompt of {h.shape[1]} tokens")
+            h = torch.cat([image_embeds.to(dt), h[:, n_img:]], dim=1)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         new_cache = None if mode == "train" else []
@@ -215,7 +239,10 @@ class LM(nn.Module):
             if new_cache is not None:
                 new_cache.append(nc)
         h = self.final_norm(h)
-        logits = h @ table.t()
+        if cfg.tie_embeddings:
+            logits = h @ table.t()
+        else:
+            logits = h @ self.lm_head.to(dt)
         if return_aux:
             return logits, new_cache, aux_total
         return logits, new_cache

@@ -22,8 +22,11 @@ under ``groups/`` (norm scales, biases and 1-D recurrent parameters
 included) has ndim >= 2 and is decayed. A leaf of the unstacked tail
 (``tail/``, e.g. recurrentgemma's last two layers) or at the top level
 (``final_norm/*``) is decayed by its own ndim, and a frozen random sketch
-projection (a path ending in ``/g``) never is. The layout comes from the
-config (``bridge.jax_path``).
+projection (a path ending in ``/g``) never is. The encoder-decoder
+stacks its encoder and decoder layers (``enc/``, ``dec/``): every leaf
+under them is decayed, while ``enc_norm`` and ``dec_norm`` (not under
+``enc/``) are not; an untied ``lm_head`` is (ndim 2). The layout comes
+from the config (``bridge.jax_path``, ``bridge.is_stacked``).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.bridge import GROUPS, jax_path
+from repro_torch.bridge import is_stacked, jax_path
 
 
 SLAB = 1 << 26     # elements of a parameter updated at once (256 MiB in f32)
@@ -49,7 +52,7 @@ def decay_mask(params: dict[str, torch.Tensor], cfg) -> dict[str, float]:
         path = jax_path(name, cfg)
         if path.endswith("/g"):    # frozen random sketch projection
             return 0.0
-        if path.startswith(GROUPS):   # stacked in the reference
+        if is_stacked(path, cfg):  # ndim >= 2 in the reference
             return 1.0
         return 1.0 if p.dim() >= 2 else 0.0
 

@@ -71,25 +71,64 @@ from repro_torch.serve.scheduler import PrefillScheduler, to_device
 from repro_torch.serve.telemetry import CallSignatures, Telemetry
 
 def make_serve_fns(model):
-    """Returns (prefill_fn, decode_fn), the single-shot serving functions.
+    """Returns (prefill_fn, decode_fn), the single-shot serving functions,
+    batch-dict based as the reference's, so that a VLM's image_embeds and
+    an encoder-decoder's frames prefill through the same path.
 
-    prefill_fn(tokens)                  -> (last_logits, cache)
+    prefill_fn(batch)                   -> (last_logits, cache)
     decode_fn(tokens, cache, positions) -> (logits, cache)   tokens (B, 1)
 
+    `batch` is {"tokens": (B, S), and "image_embeds" (B, n_img, D) or
+    "frames" (B, T, D) where the model takes them}, or the tokens alone.
     The cache is sized to the prompt (the reference's shape cells), and
-    `positions` is an int shared by the batch or a (B,) tensor.
+    `positions` is an int shared by the batch or a (B,) tensor. A model
+    with a DecodeState prefills through it (on the block grid, each call
+    spliced with its own image rows); one without (Whisper) runs its
+    prefill in one call, encoding the frames, and reads the memory's k
+    and v from the cache in each decode step.
     """
-    state = model.state
+    state, lm = model.state, model.lm
+
+    def batch_of(batch):
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        return {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                    ).to(model.device) for k, v in batch.items()}
 
     @torch.inference_mode()
-    def prefill(tokens):
-        return state.prefill(tokens, max_len=tokens.shape[1])
+    def prefill(batch):
+        batch = batch_of(batch)
+        tokens = batch["tokens"].long()
+        if state is not None:
+            return state.prefill(tokens, max_len=tokens.shape[1],
+                                 image_embeds=batch.get("image_embeds"))
+        cache = lm.init_cache(tokens.shape[0], tokens.shape[1])
+        logits, cache = lm(tokens, frames=batch.get("frames"), mode="prefill",
+                           cache=cache)
+        return logits[:, -1], cache
 
     @torch.inference_mode()
     def decode(tokens, cache, positions):
-        return state.decode_step(tokens, positions, cache)
+        if state is not None:
+            return state.decode_step(tokens, positions, cache)
+        positions = (positions.reshape(-1, 1) if torch.is_tensor(positions)
+                     else torch.full((1,), positions, dtype=torch.long,
+                                     device=tokens.device))
+        logits, cache = lm(tokens, mode="decode", cache=cache,
+                           positions=positions)
+        return logits[:, -1], cache
 
     return prefill, decode
+
+
+def _decode_state(model, what: str):
+    """The model's DecodeState; NotImplementedError for a model without
+    one (the encoder-decoder), as the reference's engine refuses it."""
+    if model.state is None:
+        raise NotImplementedError(
+            f"{model.cfg.name!r} exposes no DecodeState; {what} serves "
+            "decode-state models only (serve it through make_serve_fns)")
+    return model.state
 
 
 class GenerationResult(NamedTuple):
@@ -119,9 +158,9 @@ def generate(model, prompt, steps: int, *, temperature: float = 0.0,
     fed back through decode_step at position S0 + i, with the position
     shared by the batch.
     """
+    state = _decode_state(model, "generate()")
     sp = sampling or SamplingParams(temperature=temperature, top_k=top_k,
                                     top_p=top_p, seed=seed)
-    state = model.state
     dev = model.device
     if isinstance(prompt, np.ndarray):
         prompt = torch.from_numpy(prompt)
@@ -263,13 +302,14 @@ class ServeEngine:
         if plan is not None:
             raise NotImplementedError(
                 "a serving plan / mesh is not ported yet (ROADMAP A.9)")
+        state = _decode_state(model, "ServeEngine")
         if slots < 1:
             raise ValueError("need at least one decode slot")
         if min_snapshot_blocks < 1:
             raise ValueError("min_snapshot_blocks must be >= 1")
         self.model = model
         self.cfg = model.cfg
-        self.state = state = model.state
+        self.state = state
         self.device = dev = model.device
         self.slots = slots
         self.max_len = max_len

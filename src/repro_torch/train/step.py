@@ -46,11 +46,15 @@ def init_train_state(lm) -> TrainState:
 def make_loss_fn(cfg):
     """loss_fn(lm, batch) -> (loss, metrics): the mean next-token NLL, or
     the masked mean when the batch has a loss_mask (B, S); with MoE layers
-    plus router_aux_weight * load_balance + router_z_weight * router_z."""
+    plus router_aux_weight * load_balance + router_z_weight * router_z.
+    A batch's image_embeds (a VLM's) or frames (Whisper's) go to the
+    model with the tokens, as the reference passes them."""
     def loss_fn(lm, batch):
         tokens = batch["tokens"]                      # (B, S+1)
         targets = tokens[:, 1:]
-        logits, _, aux = lm(tokens[:, :-1], mode="train", return_aux=True)
+        extra = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+        logits, _, aux = lm(tokens[:, :-1], mode="train", return_aux=True,
+                            **extra)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         mask = batch.get("loss_mask")

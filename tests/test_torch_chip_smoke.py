@@ -37,6 +37,15 @@ CASES = [
     # B2's backward at the training shape: 201.4 M causal pairs, 5 x 2h
     # flops of products each (128.9 GFLOP) and 1.6 GFLOP of the rest
     ("b2_bwd_bound", (24, 4096, 64, 4), 0.8054, "operations", 1.9479, "operations"),
+    # phase 12's bf16 shapes: llava's 4 x 32 heads of 128 over 2048 tokens
+    # and one 256-token prefill block; Whisper's decoder in training (4 x
+    # 20 heads of 64, 448 tokens padded to 512), forward and backward
+    ("b1_bound", (128, 2048, 32, 128, 256, 4, 2), 0.8047, "operations", 2.3776,
+     "operations"),
+    ("b1_bound", (128, 256, 32, 128, 256, 4, 2), 0.1006, "operations", 0.2972, "operations"),
+    ("b1_bound", (80, 512, 32, 64, 256, 4, 2), 0.06347, "operations", 0.1872, "operations"),
+    ("b1_bwd_bound", (80, 512, 32, 64, 256, 4, 2), 0.1256, "operations", 0.3002,
+     "operations"),
 ]
 
 
@@ -247,10 +256,54 @@ def test_moe_depth(chip_smoke, monkeypatch, arch, per, reserve, gib, layers):
 
 @pytest.mark.parametrize("arch,gib,layers", [
     ("deepseek-7b", 79.19, 12), ("yi-34b", 79.19, 12), ("yi-34b", 30.0, 6),
-    ("starcoder2-3b", 79.19, 12)])
+    ("starcoder2-3b", 79.19, 12), ("llava-next-mistral-7b", 79.19, 12)])
 def test_dense_serve_depth(chip_smoke, monkeypatch, arch, gib, layers):
     """Phase 7 serves each dense model at the most layers whose f32 weights
     fit beside its reserve, at most DENSE_SERVE_LAYERS (12)."""
     from repro_torch.configs import get_config
     monkeypatch.setattr(chip_smoke, "card_gib", lambda: gib)
     assert chip_smoke.serve_depth(get_config(arch)) == layers
+
+
+def test_vlm_train_depth(chip_smoke, monkeypatch):
+    """Phase 12 trains llava at the most layers that fit at 16 B a
+    parameter on an 80 GB H100: 14 of 32 (218.2M parameters a layer beside
+    a 131.1M embedding)."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(chip_smoke, "card_gib", lambda: 79.19)
+    cfg = get_config("llava-next-mistral-7b")
+    assert chip_smoke.param_split(cfg) == (218_228_992, 131_076_096)
+    assert chip_smoke.train_depth(cfg) == 14
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-large-v3"])
+def test_xm_served_logprobs_match_train_mode(chip_smoke, monkeypatch, arch):
+    """Phase 12's serving check on a SMOKE model in f32 on the CPU: the
+    greedy tokens served through make_serve_fns (image rows or frames in
+    the prefill, then decode steps past a 16-token block) have the
+    log-probabilities of a train-mode forward over the prompt and those
+    tokens, within phase 12's f32 gate; fed those tokens again (the
+    teacher-forced path phase 12 serves through the plain B1), it gives
+    the same log-probabilities bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+    rng = np.random.default_rng(5)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dtype)
+    monkeypatch.setattr(chip_smoke, "seeded", lambda seed: rnd)
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu", seed=0)
+    batch = chip_smoke.xm_inputs(cfg, 2, 20, seed=3)
+    assert ("image_embeds" in batch) == (cfg.family == "vlm")
+    toks, lps, _, _ = chip_smoke.xm_serve(model, batch, 8)
+    assert toks.shape == lps.shape == (2, 8)
+    want, _ = chip_smoke.xm_train_logprobs(model, batch, toks)
+    err = float(np.abs(lps - want).max())
+    assert err <= 1e-4 < chip_smoke.ENGINE_LP_TOL
+    forced, forced_lps, _, _ = chip_smoke.xm_serve(model, batch, 8, force=toks)
+    assert np.array_equal(forced, toks) and np.array_equal(forced_lps, lps)

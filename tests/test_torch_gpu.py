@@ -1027,3 +1027,62 @@ def test_moe_smoke_on_card_matches_cpu(card, arch):
     on_cpu = generate(build_model(cfg, device="cpu", seed=4), prompt, 10)
     assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
     assert (on_card.logits_last.cpu() - on_cpu.logits_last).abs().max().item() <= 1e-4
+
+
+# the VLM's and the encoder-decoder's B1 shapes (chip_smoke phase 1 and 12):
+# Whisper's decoder (20 heads of 64, MHA) at a ragged 228-token prefill
+# block and at 448 training tokens padded to two blocks of 256; llava's
+# 32 query heads of 128 over 8 kv heads (GQA 4:1) over 2048 tokens
+XM_SHAPES = [((4, 20, 228), (4, 20, 228), 64, "bfloat16"),
+             ((4, 20, 448), (4, 20, 448), 64, "bfloat16"),
+             ((4, 20, 448), (4, 20, 448), 64, "float32"),
+             ((4, 32, 2048), (4, 8, 2048), 128, "bfloat16")]
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,h,dtype", XM_SHAPES)
+def test_b1_at_the_vlm_and_whisper_shapes_matches_plain_version(card, shape_q, shape_kv,
+                                                                h, dtype):
+    dt = getattr(torch, dtype)
+    xs = _inputs(21, shape_q, shape_kv, h, 32, dt, card)
+    dout = _normal(22, card)(*shape_q, h).to(dt)
+    kw = dict(degree=4, scale=1.0 / h, block_size=256)
+    before = pc.polysketch_causal_backward_cuda.launches
+    with torch.no_grad():
+        got = ops.polysketch_attention(*xs, **kw)
+        want = ops.polysketch_attention(*xs, impl="torch", **kw)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    g = _grads(lambda *a: ops.polysketch_attention(*a, **kw), xs, dout)
+    w = _grads(lambda *a: ops.polysketch_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pc.polysketch_causal_backward_cuda.launches == before + 1
+    _assert_grads_close(g, w, rel=tol)
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-large-v3"])
+def test_vlm_and_whisper_smoke_serving_on_card_matches_cpu(card, arch):
+    """SMOKE weights from one CPU seed, served greedily through the
+    batch-dict make_serve_fns with image embeddings or frames: the same
+    tokens on the card as on the CPU, the last logits within 1e-4."""
+    from repro_torch.serve.engine import make_serve_fns
+    cfg = get_config(arch, smoke=True)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal((2, cfg.n_image_tokens, cfg.d_model),
+                                                    ).astype(np.float32)
+    else:
+        batch["frames"] = rng.standard_normal((2, cfg.encoder_len, cfg.d_model)
+                                              ).astype(np.float32)
+    runs = []
+    for dev in (card, "cpu"):
+        prefill, decode = make_serve_fns(build_model(cfg, device=dev, seed=3))
+        last, cache = prefill(batch)
+        toks = []
+        for i in range(8):
+            tok = last.argmax(-1)
+            toks.append(tok.cpu())
+            last, cache = decode(tok[:, None], cache, 40 + i)
+        runs.append((torch.stack(toks, 1), last.float().cpu()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    torch.testing.assert_close(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)

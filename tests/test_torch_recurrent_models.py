@@ -136,14 +136,20 @@ def test_registry_resolves_the_reference_configs(arch):
     assert (lm.layers[0].ffn is None) == (cfg.d_ff == 0)
 
 
-def test_unported_families_still_raise():
+def test_the_lm_refuses_unknown_families_audio_and_whisper_mixers():
+    """The LM's real refusals: an unknown family, the audio family (an
+    encoder-decoder, models/whisper.py's), and Whisper's attention kinds in
+    a block pattern; the VLM family and untied embeddings build."""
     cfg = get_config("mamba2-780m", smoke=True)
-    for over, match in ((dict(family="audio"), "A.8"),
-                        (dict(family="vlm"), "A.8"),
-                        (dict(tie_embeddings=False), "A.8"),
-                        (dict(block_pattern=("cross_attn",)), "not ported")):
+    for over, match in ((dict(family="omni"), "not ported"),
+                        (dict(family="audio"), "models/whisper.py"),
+                        (dict(block_pattern=("cross_attn",)), "no LM block mixers"),
+                        (dict(block_pattern=("ssd", "encoder_attn")),
+                         "no LM block mixers")):
         with pytest.raises(NotImplementedError, match=match):
             check_supported(cfg.replace(**over))
+    for over in (dict(family="vlm"), dict(tie_embeddings=False)):
+        check_supported(cfg.replace(**over))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

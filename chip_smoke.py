@@ -8,8 +8,10 @@ prefix cache with tracing on, serve and train the two recurrent families
 (mamba2-780m, recurrentgemma-9b) and the two mixture-of-experts models
 (dbrx-132b, llama4-maverick-400b-a17b, depth cut to one card) in bf16,
 serve and train the VLM (llava-next-mistral-7b, with image embeddings)
-and the encoder-decoder (whisper-large-v3) in bf16, and check the port
-against itself.
+and the encoder-decoder (whisper-large-v3) in bf16, train exact
+polynomial attention in bf16 (gpt2s-poly4, and starcoder2-3b at h 128),
+run the data-parallel training steps at world 1 on NCCL, and check the
+port against itself.
 
     python3 chip_smoke.py
 
@@ -32,7 +34,13 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      den; B2's backward kernel likewise (the gradients of
      ops.poly_attention) over degree 1 (|q|, |k|)/2/4/8 x n 64/77/200/
      2040/4096, GQA 4:2, h 16 and the training shape, two calls bit for
-     bit, and B2's forward with and without den_out bit for bit; B1 and
+     bit, and B2's forward with and without den_out bit for bit; B2's
+     backward in bf16 at h 64 and 128 and in f32 at h 128 (5e-2 and 1e-4
+     of each gradient's max) over p 1/2/4/8 x n 77/200/2040, GQA 4:2 and
+     the training shape 2 x 12 x 4096, two calls bit for bit, f32 at h 128
+     also against float64, with each instantiation's registers, spills,
+     occupancy and time there beside its plain version's and its bound
+     (the JSON line's B2-backward row, `bf16_h128`); B1 and
      B2, forward and backward, at the 32k training shape (bh 12, n 32768,
      h 64; B1 at r 32, b 1024) against their plain versions, and the
      forwards and B2's gradients there against float64 plain versions
@@ -93,9 +101,9 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      requests in reverse order (bit for bit). Each kernel row of the
      JSON line also gives its `engine_launches`;
   6. long-context training: each of the three models at 32,768 tokens a
-     step and contexts 4096, 8192, 16384 and 32768 (batch 32768 /
-     context, one row a microbatch), remat "full", f32, 1 warm-up + 2
-     timed steps: step time, tokens/s, peak memory and launches a step
+     step and contexts 4096 and 32768 (LONG_CONTEXTS; batch 32768 /
+     context, one row a microbatch), remat "full", f32, 1 warm-up + 1
+     timed step (LONG_STEPS): step time, tokens/s, peak memory and launches a step
      (B1 2 x 13 + 13 a microbatch, B2 2 x 12 + 12, softmax none; no
      plain-version call). A pair whose peak, reckoned from the shapes
      before the run (reckon_full_remat_gib), passes 90 % of the card's
@@ -159,7 +167,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      MiB memory tier after a warm-up): bit for bit, hits, snapshots of
      76,455,936 / 26,230,784 B, a resume at 2048 equal to the cold
      prefill; SMOKE greedy tokens card = CPU (f32); training at 1 x 4096
-     Markov tokens, bf16 (mamba2 at 24 of 48 layers, remat "dots", 1 + 3
+     Markov tokens, bf16 (mamba2 at 12 of 48 layers, remat "dots", 1 + 3
      steps; recurrentgemma at the most whole groups that fit, remat
      "full", 1 + 2): step ms, tokens/s, peak GiB, no port kernel, two
      runs bit for bit, and at one group one step's gradients and two
@@ -196,22 +204,43 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      new, so the decode crosses position 255 and the decoder's state
      folds a block): TTFT of the prefill call, ms a decode step, tokens/s,
      peak GiB, Whisper's encoder alone, B1 once a layer per prefill block
-     and nothing else; served log-probabilities against a blocked plain
-     bf16 forward (1e-2 nats; Whisper misses it, ROADMAP.md §C, and the
-     phase logs its reading beside the same serving path through B1's
-     plain version) and train-mode logits through B1 against it (2e-2 of
+     and nothing else; llava's served log-probabilities against a blocked
+     plain bf16 forward (1e-2 nats); Whisper's, which no gate holds
+     (ROADMAP.md §C, known limits), logged against the f32 twin's
+     train-mode forward beside the bf16 train-mode forward's, a control's
+     with the decode state and cross-attention memory in float8, and the
+     same serving path through B1's plain version; the
+     train-mode logits through B1 against a blocked plain forward (2e-2 of
      max|logit|); in f32 (the same weights) served against a
      train-mode forward with the image rows or frames (1e-3 nats);
      llava's logits move with image_embeds + 1; ServeEngine and generate
      refuse Whisper. Training: llava 1 x 4096 tokens (576 image rows),
-     remat "full", at the depth that fits (train_depth); Whisper 4 x 448
-     tokens over 1500 frames at full depth, remat "dots" (a full
+     remat "full", at the depth that fits (train_depth), at most 7 layers
+     (VLM_TRAIN_LAYERS); Whisper 4 x 448 tokens over 1500 frames at full
+     depth, remat "dots" (a full
      rematerialisation, as the reference's plain jax.checkpoint): one
      step's f32 gradients through B1 and its backward against the plain
      path's (1e-4 of each leaf's max), 1 + 3 timed bf16 steps (step ms,
      tokens/s, peak GiB, B1 twice and its backward once a decoder layer a
      step), two runs bit for bit. The JSON line's B1 rows carry phase
-     12's times and launches under `vlm_audio`.
+     12's times and launches under `vlm_audio`;
+ 13. training what the JAX package trains (after phase 12): gpt2s-poly4 in
+     bf16 at full width and depth (2 x 4096) and starcoder2-3b with
+     attention "polynomial" in bf16 at its published width (h 128, GQA
+     12:1; POLY_STARCODER_LAYERS of 30 layers, 1 x 4096, remat "dots"),
+     through B2's forward and backward kernels: one step's gradients
+     against the plain path's (the polynomial bf16 gates, 0.084 / 0.043),
+     1 + 3 timed steps (step ms, tokens/s, peak GiB; B2's forward once a
+     layer a step, twice under remat, its backward once, no plain
+     version); then data parallelism at
+     world 1 on NCCL (deterministic algorithms on), gpt2s-polysketch at
+     full width, 2 x 4096: the manual-DP step with the mean all-reduce
+     gives make_train_step's parameters bit for bit after 2 steps, with
+     the int8 all-reduce each synced gradient element within the two
+     roundings' half levels of the unsynced one and two runs bit for bit,
+     and launch/train.py --mesh 1x1:data,model the losses of the run
+     without --mesh (3 steps). The JSON line's B2 rows carry these runs'
+     launches under `train_bf16_launches`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -264,6 +293,10 @@ LT_F32_TOL, LT_BF16_TOL = 2e-3, 2e-2  # lt_mult's: atol tol * n, rtol tol
 LT_BENCH_REL_TOL = 1e-5             # and max|err| / max|out| at kernel_bench's shapes
 H100_F32_FLOPS = 67e12              # f32 outside the tensor cores (data sheet)
 H100_TF32_FLOPS = 495e12            # TF32 on the tensor cores, dense (data sheet)
+H100_BF16_FLOPS = 989e12            # bf16 on the tensor cores, dense (data sheet)
+# a product of two bf16 operands runs on the bf16 tensor cores (f32
+# accumulator): counted as this share of a TF32 pass
+BF16_PASS = H100_TF32_FLOPS / H100_BF16_FLOPS
 H100_BYTES_PER_S = 3.35e12          # HBM3 (data sheet)
 KERNELS = {"polysketch_causal": pc.polysketch_causal_cuda,
            "polysketch_causal_backward": pc.polysketch_causal_backward_cuda,
@@ -601,6 +634,105 @@ def phase_b2_backward_grid():
     log(f"  backward grid: worst gradient error {worst_rel:.3e} of its max|.|, "
         f"{worst:.3e} absolute")
     return worst
+
+
+# B2's backward instantiations besides f32 at h 64 (phase_b2_backward_grid):
+# (dtype, h) as the kernel takes them
+B2_BWD_WIDE = ((torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 128))
+
+
+# the key-tile kernel's template arguments as ptxas -v names them, for
+# kernel_occupancy's spill column
+B2_BWD_INST = {("float32", 64): "Li64Ef", ("float32", 128): "Li128Ef",
+               ("bfloat16", 64): "Li64E13__nv_bfloat16",
+               ("bfloat16", 128): "Li128E13__nv_bfloat16"}
+
+
+def dtype_name(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def phase_b2_backward_wide(ptxas):
+    """B2's backward kernel in bf16 at h 64 and 128 and in f32 at h 128
+    against its plain version, through the gradients of ops.poly_attention:
+    p 1, 2, 4, 8 at n 77, 200 and 2040 (ragged), GQA 4:2, and the training
+    shape 2 x 12 x 4096 (bh 24), where two calls must give the same bits;
+    bf16 within BF16_TOL of each gradient's max, f32 within F32_TOL, and
+    f32 at h 128 also against float64 there. Then each instantiation's
+    registers, spills and occupancy, and its CUDA-event time at the training
+    shape beside its plain version's and its bound. Returns {(dtype name,
+    h): {"rel", "abs", "ms", "plain_ms", "bound"}}."""
+    log("phase 1: poly_flash backward kernel in bf16 (h 64, 128) and f32 at h 128 vs "
+        "plain PyTorch (gradients of ops.poly_attention)")
+    kernel = pf.poly_flash_backward_cuda
+    out = {}
+    for dt, h in B2_BWD_WIDE:
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        tag = f"{dtype_name(dt)} h={h}"
+        worst, worst_rel = 0.0, 0.0
+
+        def case(name, seed, shape, degree):
+            nonlocal worst, worst_rel
+            xs, dout = b2_grad_inputs(seed, *shape, h, degree)
+            xs, dout = tuple(x.to(dt) for x in xs), dout.to(dt)
+            rel, e, got, want = check_grads(f"{tag} {name}", ops.poly_attention, xs, dout,
+                                            kernel=kernel, tol=tol, degree=degree,
+                                            scale=1.0 / h)
+            worst, worst_rel = max(worst, e), max(worst_rel, rel)
+            return xs, dout, got
+        for degree in (1, 2, 4, 8):
+            for n in (77, 200, 2040):
+                case(f"p={degree} bh=2 n={n}", 300 + h + degree + n, (1, 2, 2, n), degree)
+        case("p=4 GQA 4:2 n=200", 17 + h, (2, 4, 2, 200), 4)
+        xs, dout, got = case(f"p=4 training shape B=2 H=12 n={TRAIN_SEQ}", 16 + h,
+                             (2, 12, 12, TRAIN_SEQ), 4)
+        kw = dict(degree=4, scale=1.0 / h)
+        again = grads_of(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"  {tag} training shape: two backward calls equal bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"B2 backward {tag}: two calls differ")
+        del again
+        flat = [x.reshape(24, TRAIN_SEQ, h).contiguous() for x in (*xs, dout)]
+        if dt == torch.float32:
+            f64 = [x.double() for x in flat]
+            with torch.no_grad():
+                out64, den64 = pf.poly_flash_torch(*f64[:3], return_den=True, **kw)
+                ref = pf.poly_flash_backward_torch(f64[3], *f64[:3], out64, den64, **kw)
+            ref = [r.reshape(g.shape) for r, g in zip(ref, got)]
+            e64 = grad_err(got, ref)
+            log(f"  {tag} training shape vs float64: kernels {e64:.3e} of each gradient's max")
+            check(f"{tag} training shape, kernels vs float64 (rel.)", e64, F32_TOL)
+            del f64, out64, den64, ref
+        del got
+        kernel_occupancy(f"B2 backward kernels on the card ({tag})",
+                         pf.backward_occupancy(h, dt), ptxas.get("poly_flash_bwd", {}),
+                         B2_BWD_HEAVY, inst=B2_BWD_INST[(dtype_name(dt), h)])
+        before = counts()
+        q, k, v, do = flat
+        o, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+        run = lambda: pf.poly_flash_backward_cuda(do, q, k, v, o, den, **kw)  # noqa: E731
+        ms = event_ms(run)
+        plain_ms = event_ms(lambda: pf.poly_flash_backward_torch(do, q, k, v, o, den, **kw),
+                            iters=3, warmup=1)
+        ms2 = event_ms(run)
+        for name, fn in KERNELS.items():   # timing launches do not count
+            fn.launches = before[name]
+        bd = b2_bwd_bound(24, TRAIN_SEQ, h, 4, itemsize=2 if dt == torch.bfloat16 else 4)
+        best = min(ms, ms2)
+        log(f"  B2 backward {tag} bh=24 n={TRAIN_SEQ} p=4: kernel {best:.3f} ms (runs "
+            f"{ms:.3f}, {ms2:.3f}), plain PyTorch {plain_ms:.3f} ms; bound {bd.tc_ms:.3f} ms "
+            f"by {bd.tc_by} on the tensor cores ({bd.flops / 1e9:.1f} GFLOP, "
+            f"{bd.nbytes / 1e6:.1f} MB), {bd.tc_ms / best:.1%} of it; library call: "
+            f"{NO_LIBRARY}")
+        log(f"  {tag}: worst gradient error {worst_rel:.3e} of its max|.|, {worst:.3e} "
+            f"absolute")
+        out[(dtype_name(dt), h)] = {"rel": worst_rel, "abs": worst, "ms": best,
+                                    "plain_ms": plain_ms, "bound": bd}
+        del xs, dout, flat, q, k, v, do, o, den
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_poly_flash_grid():
@@ -1663,8 +1795,12 @@ def phase_train_checks(cfg, batches, entry="polysketch_attention"):
 
 REMAT_SEQ = 4096                    # the remat gate's batch: 1 x 4096, fits without remat
 LONG_TOKENS = 32768                 # phase 6: tokens a step, the paper's 32k context
-LONG_CONTEXTS = (4096, 8192, 16384, 32768)
-LONG_STEPS = 2                      # timed steps a pair, after one warm-up
+# the two ends of the paper's context sweep (8192 and 16384 were dropped to
+# make room for phase 13: PERF.md §5 keeps their last rows)
+LONG_CONTEXTS = (4096, 32768)
+# timed steps a pair, after one warm-up: one since phase 13 came in (two
+# before; each saved step is ~29 s of the script's time over the 11 pairs)
+LONG_STEPS = 1
 LONG_FIT_SHARE = 0.9                # run a pair whose reckoned peak is within this share
 
 
@@ -2347,12 +2483,13 @@ REC_SLOTS, REC_GEN, REC_BUDGET = 2, 16, 2048
 # (phase 10 took 179.3 s in one run at full serving depth, NVIDIA H100
 # 80GB HBM3, 700 W): recurrentgemma serves at 20 of 38 layers (six whole
 # (rglru, rglru, local_attn) groups and its 2-layer tail), mamba2 trains
-# at 24 of 48. mamba2 serves at full depth: at 24 layers its float8 state
+# at 12 of 48 (24 until phase 13 came in: 21.6 s of the phase against
+# 12.2 s at 12). mamba2 serves at full depth: at 24 layers its float8 state
 # control lies too near the sound run to fail a limit between them
 # (request 0's rows 1.64e-2 of max|logit| against 1.55e-2, the same
 # next-token log-probabilities; PERF.md §6)
 REC_SERVE_LAYERS = {"recurrentgemma-9b": 20}
-REC_TRAIN_LAYERS = {"mamba2-780m": 24}
+REC_TRAIN_LAYERS = {"mamba2-780m": 12}
 # The served path against a train-mode forward of the same weights, as
 # phases 5 and 7 hold theirs: the engine's log-probabilities of the emitted
 # tokens (nats), and (rec_rows) whole logit rows of the 4096-token request
@@ -2883,7 +3020,7 @@ def phase_rec_train(arch, card):
     """One recurrent model trained at its published width, bf16, with its
     published remat (mamba2 "dots", recurrentgemma "full"), 1 x 4096
     Markov tokens a step, at the most whole pattern groups that fit
-    (rec_train_groups), at most REC_TRAIN_LAYERS (mamba2 at 24 of 48),
+    (rec_train_groups), at most REC_TRAIN_LAYERS (mamba2 at 12 of 48),
     seeded weights drawn on the
     card: a warm-up and REC_TRAIN_STEPS timed steps (step ms, tokens/s,
     peak GiB) with no port kernel and no plain version; two runs of 2 steps
@@ -3469,22 +3606,51 @@ VLM_TRAIN_SEQ = 4096           # 1 x 4096 tokens a step, 576 of them image rows
 AUDIO_BATCH, AUDIO_PROMPT, AUDIO_GEN = 4, 228, 32
 AUDIO_TRAIN = (4, 448)         # rows x tokens a step, each row over 1500 frames
 XM_TRAIN_STEPS = 3
-# Whisper misses phase 7's bf16 gate (served log-probabilities within
-# DENSE_LP_TOL of a blocked plain bf16 forward), as mamba2 does in phase
-# 10: its greedy tokens keep log-probabilities well below 0 (llava's, like
-# the dense models', repeat a token at ~0 nats), and its bf16 logits are
-# spaced 2^-5 at its max|logit| of 5.59, so one rounding flip
-# carried through 32 decoder layers moves a log-probability by a few
-# hundredths. Readings (NVIDIA H100 80GB HBM3, 700 W; alike in every
-# run): served vs the blocked plain forward 4.674e-2 nats, vs the
-# train-mode forward through B1 3.133e-2, and the same serving path with
-# only B1 swapped for its plain version (which agrees with B1 to a bf16
-# step at this shape, phase 1) 3.138e-2; a control with the decoder's
-# attention states rounded to float8_e5m2 read 4.692e-2, so no fixed
-# limit between a sound and a degraded run exists. ROADMAP.md §C records
-# the miss; the phase logs these readings and holds Whisper's logic in
-# f32 (ENGINE_LP_TOL) and its kernels by the train-mode logits gate.
-XM_BF16_GATE_MISSES = ("whisper-large-v3",)
+# llava's training depth, cut to make room for phase 13 (before it llava
+# trained at train_depth's 14 of 32 layers: 35.0 s of the phase against
+# 19.3 s at 7, NVIDIA H100 80GB HBM3, 700 W)
+VLM_TRAIN_LAYERS = 7
+# Whisper's bf16 serving gate. Phase 7's (served log-probabilities within
+# DENSE_LP_TOL of a blocked plain bf16 forward) does not hold for it
+# (4.674e-2 nats; ROADMAP.md §C): its greedy tokens keep log-probabilities
+# well below 0 (llava's, like the dense models', repeat a token at ~0
+# nats), and its bf16 logits are spaced 2^-5 at its max|logit| of 5.59, so
+# one rounding flip carried through 32 decoder layers moves a
+# log-probability by a few hundredths; and an earlier float8 control, the
+# decoder's sketched state rounded to float8_e5m2, read 4.692e-2, because
+# the state folds once, at position 256, and only the last 4 of the 32
+# steps read it. Nor does any distance from the f32 twin of the same
+# weights separate a sound run from a degraded one (NVIDIA H100 80GB
+# HBM3, 700 W; max / mean nats over the 4 x 32 served tokens): the bf16
+# train-mode forward 3.235e-2 / 1.350e-2, served 4.044e-2 / 1.180e-2, served
+# with the decoder's self-attention state rounded to float8_e5m2 3.751e-2 /
+# 1.221e-2, with the cross-attention memory so rounded 4.393e-2 / 1.334e-2,
+# with both 4.480e-2 / 1.398e-2: at random weights the served
+# log-probabilities hardly depend on what the decode steps read, and bf16
+# rounding flips dominate them. So Whisper's bf16 serving has no gate
+# (ROADMAP.md §C, known limits): the phase logs these distances, with the
+# "both" control, and holds Whisper's logic in f32 (ENGINE_LP_TOL) and its
+# kernels by the train-mode logits gate (DENSE_LOGIT_TOL).
+
+
+def cache_to_float8(cache, parts=("self", "cross")):
+    """Phase 12's control: each decoder layer's self-attention state
+    (block k, v and sketched keys, the folded state) and cross-attention
+    k and v (the memory each decode step reads), those of `parts`,
+    rounded to float8_e5m2."""
+    def r(x):
+        return x.to(torch.float8_e5m2).to(x.dtype)
+    out = []
+    for c in cache:
+        node = dict(c)
+        if "self" in parts:
+            st = c["self"]
+            node["self"] = st._replace(z=r(st.z), kbuf=r(st.kbuf), vbuf=r(st.vbuf),
+                                       mbuf=r(st.mbuf))
+        if "cross" in parts:
+            node["cross"] = c["cross"]._replace(k=r(c["cross"].k), v=r(c["cross"].v))
+        out.append(node)
+    return out
 
 
 def xm_inputs(cfg, rows, n_tokens, seed):
@@ -3502,12 +3668,13 @@ def xm_inputs(cfg, rows, n_tokens, seed):
     return batch
 
 
-def xm_serve(model, batch, gen, force=None):
+def xm_serve(model, batch, gen, force=None, degrade=None):
     """Greedy serving through the batch-dict make_serve_fns: the prefill,
     then gen - 1 decode steps at positions shared by the batch (each fed
-    the argmax, or the tokens of `force` (B, gen) when given). Returns
-    (tokens (B, gen), each one's served log-probability (B, gen), both
-    numpy; the prefill's seconds, seconds a decode step)."""
+    the argmax, or the tokens of `force` (B, gen) when given; `degrade`,
+    when given, maps the prefill's cache to the one the steps read).
+    Returns (tokens (B, gen), each one's served log-probability (B, gen),
+    both numpy; the prefill's seconds, seconds a decode step)."""
     prefill, decode = make_serve_fns(model)
     s0 = batch["tokens"].shape[1]
     if force is not None:
@@ -3516,6 +3683,8 @@ def xm_serve(model, batch, gen, force=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last, cache = prefill(batch)
+    if degrade is not None:
+        cache = degrade(cache)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for i in range(gen):
@@ -3552,11 +3721,11 @@ def phase_xm_serve(arch, card):
     tokens) and 16 new tokens, Whisper 4 x (1500 frames, a 228-token
     prompt) and 32 new. Gates: B1 once a layer per prefill block and
     nothing else (no plain version); outputs in range and finite; in bf16
-    the served log-probabilities within DENSE_LP_TOL of a blocked plain
-    forward (Whisper misses it, XM_BF16_GATE_MISSES: logged, with the same
-    serving path through B1's plain version read beside it) and the
-    train-mode logits through B1 within DENSE_LOGIT_TOL of
-    max|logit| of it (phase 7's gates); in f32 (the same weights) the
+    the train-mode logits through B1 within DENSE_LOGIT_TOL of max|logit|
+    of a blocked plain forward (phase 7's gate), and the served
+    log-probabilities within DENSE_LP_TOL of the blocked plain forward
+    (llava; phase 7's gate; Whisper's distances, which no gate holds, are
+    logged: the note above cache_to_float8); in f32 (the same weights) the
     served log-probabilities within ENGINE_LP_TOL of a train-mode forward
     (the image rows or frames included); llava's logits change with
     image_embeds + 1; ServeEngine and generate refuse Whisper. Returns a
@@ -3618,21 +3787,34 @@ def phase_xm_serve(arch, card):
     check(f"{arch}: train-mode logits, B1 vs blocked plain, bf16 (rel. to max)", logit_err,
           DENSE_LOGIT_TOL)
     del got, want
-    plain_err = None
-    if arch in XM_BF16_GATE_MISSES:
+    plain_err, vs_f32 = None, None
+    if vlm:
+        check(f"{arch}: served logprobs (B1) vs a blocked plain bf16 forward (nats)", lp_err,
+              DENSE_LP_TOL)
+    else:
         step = 2.0 ** (np.floor(np.log2(top)) - 7)
-        log(f"  phase 7's bf16 gate, served vs a blocked plain forward within "
-            f"{DENSE_LP_TOL:.0e} nats: {'holds' if lp_err <= DENSE_LP_TOL else 'MISSED'} "
-            f"({lp_err:.3e} nats; a known miss, ROADMAP.md §C: a bf16 step of the logits at "
+        log(f"  phase 7's bf16 gate, served vs a blocked plain forward, is not Whisper's "
+            f"({lp_err:.3e} nats against {DENSE_LP_TOL:.0e}; a bf16 step of the logits at "
             f"max|logit| {top:.2f} is {step:.4f})")
         with plain_ops():
             _, plain_lps, _, _ = xm_serve(model, batch, gen, force=toks)
         plain_err = float(np.abs(lps - plain_lps).max())
         log(f"  the same serving path with B1's plain version, fed these tokens: "
             f"{plain_err:.3e} nats from B1's")
-    else:
-        check(f"{arch}: served logprobs (B1) vs a blocked plain bf16 forward (nats)", lp_err,
-              DENSE_LP_TOL)
+        f32 = twin(model, "float32")                  # the same weights, f32 compute
+        want32, _ = xm_train_logprobs(f32, batch, toks)
+        del f32
+        dists = {"train-mode bf16": got_lp, "served": lps,
+                 "control: state and memory in float8": xm_serve(
+                     model, batch, gen, force=toks, degrade=cache_to_float8)[1]}
+        dists = {k: (float(np.abs(v - want32).max()), float(np.abs(v - want32).mean()))
+                 for k, v in dists.items()}
+        log("  against the f32 train-mode forward at these tokens (nats, max / mean over "
+            f"{rows} x {gen} tokens; max in bf16 steps of the logits): " + "; ".join(
+                f"{k} {mx:.3e} / {mn:.3e} ({mx / step:.2f})" for k, (mx, mn) in dists.items())
+            + " (no bf16 gate: a known limit, ROADMAP.md §C)")
+        vs_f32 = {"mean_nats": {k: mn for k, (_, mn) in dists.items()},
+                    "max_nats": {k: mx for k, (mx, _) in dists.items()}}
     if vlm:
         other = dict(batch, image_embeds=batch["image_embeds"] + 1.0)
         with torch.inference_mode():
@@ -3676,7 +3858,7 @@ def phase_xm_serve(arch, card):
             "prompt": n, "gen": gen, "prefill_ms": pre_s * 1e3, "encoder_ms": enc_ms,
             "decode_step_ms": step_s * 1e3, "gen_tok_s": tok_s, "peak_gib": peak,
             "logprob_err_bf16": lp_err, "logit_rel_err_bf16": logit_err,
-            "logprob_err_bf16_plain_serving": plain_err,
+            "logprob_err_bf16_plain_serving": plain_err, "bf16_vs_f32": vs_f32,
             "logprob_err_f32": lp_err32, "b1_launches": run_counts["polysketch_causal"]}
 
 
@@ -3696,7 +3878,8 @@ def xm_train_batches(cfg, count):
 
 def phase_xm_train(arch, card):
     """llava-next-mistral-7b (1 x 4096 tokens, 576 image rows, remat "full",
-    at the depth that trains: train_depth) or whisper-large-v3 (4 x 448
+    at the depth that trains, train_depth, at most VLM_TRAIN_LAYERS) or
+    whisper-large-v3 (4 x 448
     tokens over 1500 frames, full depth, remat "dots", which is full
     rematerialisation as in the reference) trained at its published width,
     seeded weights drawn on the card: (1) one step's f32 gradients (the
@@ -3709,13 +3892,13 @@ def phase_xm_train(arch, card):
     t_phase = time.perf_counter()
     full = get_config(arch)
     vlm = full.family == "vlm"
-    depth = train_depth(full) if vlm else full.n_layers
+    depth = min(train_depth(full), VLM_TRAIN_LAYERS) if vlm else full.n_layers
     cfg = full.replace(n_layers=depth)
     rows, seq = (1, VLM_TRAIN_SEQ) if vlm else AUDIO_TRAIN
     log(f"phase 12: {arch} training, bf16, remat {cfg.remat!r}, {rows} x {seq} tokens a step "
         + (f"({cfg.n_image_tokens} image rows), " if vlm
            else f"over {cfg.encoder_len} frames, ")
-        + (f"{depth} of {full.n_layers} layers (train_depth)" if vlm
+        + (f"{depth} of {full.n_layers} layers (train_depth, at most VLM_TRAIN_LAYERS)" if vlm
            else f"{cfg.encoder_layers} encoder + {depth} decoder layers (full depth)")
         + f"; {card}")
     batches = xm_train_batches(cfg, XM_TRAIN_STEPS + 1)
@@ -3828,6 +4011,268 @@ def phase_xm(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training what the JAX package trains: exact polynomial attention
+# in bf16 through B2's forward and backward kernels (gpt2s-poly4 at full
+# width and depth; starcoder2-3b with attention "polynomial" at its
+# published width, h 128, GQA 12:1), and the data-parallel steps at world 1
+# on NCCL (the manual-DP step with the mean and the int8 all-reduce, and
+# launch/train.py --mesh 1x1)
+# ---------------------------------------------------------------------------
+
+POLY_BF16_STEPS = 3              # timed steps, after one warm-up
+# bf16 gradient gates of exact polynomial attention (scripts/bf16_grad_study.py
+# on SMOKE gpt2s-poly4, CPU): the reference's own bf16 gradients lie up to
+# 4.20e-2 of a leaf's max|.| from float64, the median leaf up to 2.15e-2;
+# two paths each that far from float64 may differ by twice it
+POLY_BF16_GRAD_TOL, POLY_BF16_GRAD_MEDIAN = 0.084, 0.043
+# starcoder2-3b with exact polynomial attention: 22 of its 30 layers, the
+# depth phase 8 trains on the 80 GB card (train_depth; each layer is the
+# published one)
+POLY_STARCODER_LAYERS = 22
+DP_STEPS = 2                     # steps of each data-parallel run
+DP_CLI = ["--arch", "gpt2s-polysketch", "--steps", "3", "--batch", "2", "--seq", "1024",
+          "--device", "cuda", "--draw-on-device", "--log-every", "1"]
+
+
+def poly_bf16_configs():
+    """(name, config, rows, seq) of phase 13's two bf16 training runs."""
+    star = get_config("starcoder2-3b")
+    return (("gpt2s-poly4 bf16", GPT2_SMALL_POLY4.replace(compute_dtype="bfloat16"),
+             TRAIN_BATCH, TRAIN_SEQ),
+            ("starcoder2-3b polynomial", star.replace(attention="polynomial",
+                                                      n_layers=POLY_STARCODER_LAYERS),
+             1, TRAIN_SEQ))
+
+
+def b2_plain_ops():
+    """ops' B2 entry point with its plain versions, whatever the device."""
+    return mock.patch.object(ops, "poly_attention",
+                             functools.partial(ops.poly_attention, impl="torch"))
+
+
+def phase_poly_bf16_train(name, cfg, rows, seq, card):
+    """One model with exact polynomial attention trained in bf16 at its
+    width (seeded weights drawn on the card): (1) one step's gradients
+    through B2's forward and backward kernels against the plain path's,
+    leaf by leaf, within the polynomial bf16 gates (POLY_BF16_GRAD_TOL,
+    POLY_BF16_GRAD_MEDIAN);
+    (2) a warm-up and POLY_BF16_STEPS timed steps (step ms, tokens/s, peak
+    GiB) with B2's forward once a layer a step (twice under remat) and its
+    backward once, no other kernel and no plain version. Returns a row."""
+    t_phase = time.perf_counter()
+    h = cfg.resolved_head_dim
+    log(f"phase 13: {name} training, bf16, remat {cfg.remat!r}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {h} ({cfg.n_kv_heads} kv), {cfg.n_layers} layers, "
+        f"{rows} x {seq} tokens a step, through B2's forward and backward kernels; {card}")
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), rows, seq, seed=0,
+                      device="cuda")
+    batches = [next(it) for _ in range(POLY_BF16_STEPS + 1)]
+    tcfg = TrainConfig(seq_len=seq, global_batch=rows, steps=100, peak_lr=3e-3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = build_model(cfg, device="cuda", seed=0, trainable=True, draw_on_device=True).lm
+    loss_fn = make_loss_fn(cfg)
+
+    def grads():
+        for p in lm.parameters():
+            p.grad = None
+        loss, _ = loss_fn(lm, batches[0])
+        loss.backward()
+        out = {n: p.grad.clone() for n, p in lm.named_parameters() if p.grad is not None}
+        for p in lm.parameters():
+            p.grad = None
+        return out
+
+    got = grads()
+    with b2_plain_ops():
+        want = grads()
+    errs = leaf_errors(got, want)
+    median = float(np.median([e for e, _ in errs]))
+    log(f"  one step's gradients, kernels vs plain ({len(errs)} leaves, rel. to each leaf's "
+        f"max|.|): worst {errs[-1][0]:.3e} ({errs[-1][1]}), median {median:.3e}")
+    check(f"{name} gradients kernels vs plain, worst leaf", errs[-1][0], POLY_BF16_GRAD_TOL)
+    check(f"{name} gradients kernels vs plain, median leaf", median, POLY_BF16_GRAD_MEDIAN)
+    del got, want
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(lm)
+    step = make_train_step(cfg, tcfg)
+    state, _ = step(state, batches[0])            # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times, losses = [], []
+    with PlainCalls() as plain:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+    run_counts = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = len(times)
+    expected = {k: 0 for k in KERNELS}
+    expected["poly_flash"] = (1 if cfg.remat == "none" else 2) * cfg.n_layers * n
+    expected["poly_flash_backward"] = cfg.n_layers * n
+    step_ms = float(np.median(times)) * 1e3
+    tokens = rows * seq
+    log(f"  losses {[round(x, 4) for x in losses]}; step time median {step_ms:.1f} ms "
+        f"{[round(t * 1e3, 1) for t in times]}; {tokens / np.median(times):.0f} tokens/s; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  launches over the {n} steps: {run_counts} (expected {expected}); plain-version "
+        f"calls: {plain.calls}")
+    if not all(np.isfinite(losses)) or run_counts != expected or plain.calls:
+        raise AssertionError(f"{name} training: non-finite loss, or not B2's forward and "
+                             "backward as expected, or a plain version called")
+    del state, step, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 13 {name}: {time.perf_counter() - t_phase:.1f} s")
+    return {"name": name, "layers": cfg.n_layers, "head_dim": h, "rows": rows, "seq": seq,
+            "step_ms": round(step_ms, 1), "tokens_s": round(tokens / float(np.median(times))),
+            "peak_gib": round(peak, 2), "grad_worst": errs[-1][0], "grad_median": median,
+            "launches": {k: run_counts[k] for k in ("poly_flash", "poly_flash_backward")}}
+
+
+def int8_rounding_bound(x):
+    """The most the int8 all-reduce at world 1 may move one element of x:
+    half a level of the first stage's scale and half a level of the second
+    stage's (the dequantized first stage's), in float64."""
+    from repro_torch.distributed.compression import _quant
+    flat = x.reshape(1, -1).float()
+    q, s1 = _quant(flat, dim=1)
+    part = (q.float() * s1 / 127.0).sum(0)
+    s2 = part.abs().max().clamp(min=1e-20)
+    return 0.5 * (s1.double().item() + s2.double().item()) / 127.0
+
+
+def phase_dp(card):
+    """The data-parallel training paths at world 1 on NCCL (rendezvous on
+    the loopback address), gpt2s-polysketch at full width, 2 x 4096 tokens
+    a step, deterministic algorithms on: (1) make_manual_dp_train_step
+    with the mean all-reduce gives make_train_step's parameters bit for
+    bit after DP_STEPS steps; (2) with the int8 all-reduce, each synced
+    gradient element lies within the two roundings' half levels of the
+    unsynced one (int8_rounding_bound, per leaf of the reference's tree),
+    and two runs give the same parameters bit for bit; (3)
+    launch/train.py --mesh 1x1:data,model gives the losses of the run
+    without --mesh over 3 steps. Returns a row."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.step import make_manual_dp_train_step
+    t_phase = time.perf_counter()
+    cfg = get_config("gpt2s-polysketch")
+    log(f"phase 13: data parallelism at world 1 on NCCL, {cfg.name} at full width, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; {card}")
+    batches = train_batches(cfg, DP_STEPS)
+    _, owned = train_cli.init_ranks("cuda")
+
+    def at():   # the phase's clock, beside each reading
+        return f"[at {time.perf_counter() - t_phase:.1f} s]"
+    log(f"  process group: {dist.get_backend()}, world {dist.get_world_size()} {at()}")
+    row = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(**tkw):
+            gc.collect()
+            torch.cuda.empty_cache()
+            lm = build_model(cfg, device="cuda", seed=0, trainable=True,
+                             draw_on_device=True).lm
+            tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=100,
+                               peak_lr=3e-3, **tkw)
+            step = (make_manual_dp_train_step(cfg, tcfg) if tkw.get("grad_compression")
+                    else make_train_step(cfg, tcfg))
+            state, losses, times = init_train_state(lm), [], []
+            for batch in batches:
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                times.append(time.perf_counter() - t0)
+            params = [p.detach().clone() for p in lm.parameters()]
+            del state, step, lm
+            return params, losses, times
+
+        base, base_losses, base_t = run()
+        psum, psum_losses, psum_t = run(grad_compression="none")
+        same = all(torch.equal(a, b) for a, b in zip(base, psum))
+        log(f"  make_train_step losses {base_losses}, step ms "
+            f"{[round(t * 1e3, 1) for t in base_t]} {at()}")
+        log(f"  manual DP (mean all-reduce) losses {psum_losses}, step ms "
+            f"{[round(t * 1e3, 1) for t in psum_t]}; parameters after {DP_STEPS} steps equal "
+            f"make_train_step's bit for bit: {same} {at()}")
+        if not same or base_losses != psum_losses:
+            raise AssertionError("the manual-DP step at world 1 is not make_train_step's bits")
+        del psum
+        seen = {}
+        sync = compression.tree_int8_allreduce_mean
+
+        def recorded(tree, group=None):
+            out = sync(tree, group)
+            if "in" not in seen:
+                seen["in"] = {k: v.detach().clone() for k, v in tree.items()}
+                seen["out"] = {k: v.detach().clone() for k, v in out.items()}
+            return out
+        compression.tree_int8_allreduce_mean = recorded
+        try:
+            i8, i8_losses, i8_t = run(grad_compression="int8")
+        finally:
+            compression.tree_int8_allreduce_mean = sync
+        worst, worst_leaf = 0.0, None
+        for k, x in seen["in"].items():
+            bound = int8_rounding_bound(x) * (1 + 1e-5)
+            moved = (seen["out"][k].double() - x.double()).abs().max().item()
+            if moved / bound > worst:
+                worst, worst_leaf = moved / bound, k
+        log(f"  manual DP (int8 all-reduce) losses {i8_losses}, step ms "
+            f"{[round(t * 1e3, 1) for t in i8_t]}; the first sync moved each gradient "
+            f"element by at most {worst:.3f} of the two roundings' half levels "
+            f"({len(seen['in'])} leaves of the reference's tree; the most: {worst_leaf}) {at()}")
+        if worst > 1.0:
+            raise AssertionError(f"int8 all-reduce moved {worst_leaf} past its rounding bound")
+        again, _, _ = run(grad_compression="int8")
+        same8 = all(torch.equal(a, b) for a, b in zip(i8, again))
+        log(f"  two int8 runs give the same parameters bit for bit: {same8} {at()}")
+        if not same8:
+            raise AssertionError("the int8 manual-DP step is not bit-stable")
+        del i8, again, base, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, plain_losses = train_cli.run(DP_CLI)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, mesh_losses = train_cli.run(DP_CLI + ["--mesh", "1x1:data,model"])
+        mesh_peak = torch.cuda.max_memory_allocated() / 2**30
+        diff = max(abs(a - b) for a, b in zip(plain_losses, mesh_losses))
+        log(f"  launch/train.py {' '.join(DP_CLI[2:])}: losses {plain_losses}; with --mesh "
+            f"1x1:data,model {mesh_losses} (max|diff| {diff:.3e}, bit for bit: "
+            f"{plain_losses == mesh_losses}; peak {mesh_peak:.2f} GiB) {at()}")
+        if len(mesh_losses) != 3 or diff > 1e-6:
+            raise AssertionError("--mesh 1x1 does not give the losses of the run without it")
+        row = {"psum_equal": same, "int8_bound_share": worst, "int8_bit_stable": same8,
+               "step_ms": {"make_train_step": base_t, "psum": psum_t, "int8": i8_t},
+               "mesh_losses": mesh_losses, "losses": plain_losses}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if owned:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 13 data parallelism: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def phase_train_all(card):
+    """Phase 13: the two bf16 polynomial runs, then data parallelism."""
+    t0 = time.perf_counter()
+    rows = {"poly_bf16": [phase_poly_bf16_train(*c, card) for c in poly_bf16_configs()],
+            "dp": phase_dp(card)}
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"train_all": rows}, default=float))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -3853,9 +4298,9 @@ def b1_ops(bh, n, r, h, b, degree, itemsize=4):
     scale, power and row sum a pair; the cross term's elementwise work a
     row; the product km (x) v and the prefix a block. TF32 products: three
     an f32 product (3xTF32); with bf16 operands (itemsize 2) only the
-    passes whose lo half is not zero: Q K^T one, W V two (W is f32), the
-    cross term three (Phi(qm) and Z_l are f32), the fold two (Km is
-    bf16)."""
+    passes whose lo half is not zero: Q K^T on the bf16 tensor cores
+    (BF16_PASS: both operands bf16), W V two (W is f32), the cross term
+    three (Phi(qm) and Z_l are f32), the fold two (Km is bf16)."""
     t = n // b
     pairs = t * b * (b + 1) // 2
     cross = n * (2 * r * r * h + 2 * r * r)
@@ -3863,7 +4308,8 @@ def b1_ops(bh, n, r, h, b, degree, itemsize=4):
     prod = pairs * 4 * h + cross + fold
     rest = (pairs * (2 + pow_muls(degree)) + n * (2 * r * h + 2 * r + h)
             + t * b * r * h + t * (r * r * h + r * r))
-    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * 3 + 3 * cross + 2 * fold
+    tf32 = (3 * prod if itemsize == 4
+            else pairs * 2 * h * (BF16_PASS + 2) + 3 * cross + 2 * fold)
     return bh * prod, bh * rest, bh * tf32
 
 
@@ -3890,7 +4336,8 @@ class Bounds(NamedTuple):
 def bounds(prod, rest, nbytes, tf32=None) -> Bounds:
     """Least times on an H100 (ms), each the larger of operations and bytes
     at the HBM rate: on the tensor-core route, `tf32` TF32 product flops
-    (three TF32 products per f32 product by default) at the TF32 peak plus
+    (three TF32 products per f32 product by default; a product of two bf16
+    operands counts BF16_PASS of one, the bf16 peak) at the TF32 peak plus
     the rest at the f32 peak; on the FMA route, all operations at the f32
     peak."""
     t_bytes = nbytes / H100_BYTES_PER_S
@@ -3916,7 +4363,11 @@ def b1_bwd_bound(bh, n, r, h, b, degree, itemsize=4):
     query-diagonal and key-diagonal kernels each rebuild S and dW (and dS),
     ~13 GFLOP at the training shape, the price of having no atomics; that
     recomputation is part of the gap between the kernel and this bound. The
-    state kernels (M, N and Phi(km) dHv) and the fold recompute nothing."""
+    state kernels (M, N and Phi(km) dHv) and the fold recompute nothing.
+    TF32 products: three an f32 product; with bf16 operands (itemsize 2)
+    S = Q K^T on the bf16 tensor cores (BF16_PASS: both operands bf16),
+    dW, dq and dk two (G and dS are f32), dv three, the fold two (qm is
+    bf16), M three (Z and g are f32), N two, Phi(km) dHv three."""
     t = n // b
     pairs = t * b * (b + 1) // 2
     rr = r * r
@@ -3927,7 +4378,14 @@ def b1_bwd_bound(bh, n, r, h, b, degree, itemsize=4):
             + t * rr * (h + 1))
     nbytes = itemsize * (n * (2 * r + 5 * h + 1) + n * (2 * r + 3 * h)) \
         + 4 * (t + 1) * rr * (h + 1)
-    return bounds(bh * prod, bh * rest, bh * nbytes)
+    if itemsize == 4:
+        tf32 = 3 * prod
+    else:   # bf16 operands: as b1_ops, fewer passes where both operands are exact in TF32
+        tf32 = (pairs * (2 * h * BF16_PASS + 2 * (h + 1) * 2 + 2 * h * 2 + 2 * h * 2
+                         + 2 * h * 3)
+                + n * 2 * rr * (h + 1) * (2 + 3)
+                + (n - b) * (2 * rr * (h + 1) * 2 + 2 * rr * h * 3))
+    return bounds(bh * prod, bh * rest, bh * nbytes, bh * tf32)
 
 
 def pow_muls(degree):
@@ -4217,11 +4675,12 @@ def b2_bound(bh, n, h, degree, itemsize=4):
     """Causal B2 (n == t): per pair the products Q K^T and W V (4h), the
     scale, the power and the row sum; per row the normalisation. Bytes:
     q, k, v read once, out written once. TF32 products: three an f32
-    product; with bf16 operands Q K^T one and W V two (W is f32)."""
+    product; with bf16 operands Q K^T on the bf16 tensor cores (BF16_PASS:
+    both operands bf16) and W V two (W is f32)."""
     pairs = bh * n * (n + 1) // 2
     prod = pairs * 4 * h
     rest = pairs * (2 + pow_muls(degree)) + bh * n * (h + 2)
-    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * 3
+    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * (BF16_PASS + 2)
     return bounds(prod, rest, 4 * bh * n * h * itemsize, tf32)
 
 
@@ -4229,14 +4688,20 @@ def b2_bwd_bound(bh, n, h, degree, itemsize=4):
     """Causal B2's backward as the function needs it, each product counted
     once: per pair S = Q K^T, dW = dNum V^T, dv, dq and dk (2h each); the
     rest per pair dS = p x^(p-1) scale dW, W = x^p, dDen's add and the mask,
-    per row dNum, dDen and Delta. Bytes: q, k, v, out, dO and D read once,
-    dq, dk and dv written once. csrc/poly_flash_bwd.cu forms each product
-    once too; it also reads and writes each dq row once per key tile at or
-    before it (its ordered sum, through L2), which this count leaves out."""
+    per row dNum, dDen and Delta. Bytes: q, k, v, out, dO (itemsize) and D
+    read once, dq, dk and dv (itemsize) written once. TF32 products: three
+    an f32 product; with bf16 q, k and v (itemsize 2) those whose operands
+    are exact in TF32 need fewer: Q K^T on the bf16 tensor cores
+    (BF16_PASS: both operands bf16), dNum V^T, dS Q and dS K two (dNum and
+    dS are f32), W^T dNum three. csrc/poly_flash_bwd.cu forms
+    each product once at h 64 (S and dW twice at h 128); it also reads and
+    writes each dq row once per key tile at or before it (its ordered sum,
+    through L2), which this count leaves out."""
     pairs = bh * n * (n + 1) // 2
     prod = pairs * 5 * 2 * h
     rest = pairs * (4 + pow_muls(degree - 1) + pow_muls(degree)) + bh * n * (3 * h + 2)
-    return bounds(prod, rest, bh * n * (8 * h * itemsize + 4))
+    tf32 = 3 * prod if itemsize == 4 else pairs * 2 * h * (BF16_PASS + 2 + 2 + 2 + 3)
+    return bounds(prod, rest, bh * n * (8 * h * itemsize + 4), tf32)
 
 
 def b3_bound(bh, n, m, k, b, itemsize=4):
@@ -4298,8 +4763,9 @@ def phase_timing_b2_backward(ptxas):
     """B2's backward at the training shape (bh 24, n 4096, h 64, p 4): its
     kernels' occupancy, its time (time_backward), and B2's forward at the
     same shape with and without den_out."""
-    kernel_occupancy("B2 backward kernels on the card (h 64)", pf.backward_occupancy(64),
-                     ptxas.get("poly_flash_bwd", {}), B2_BWD_HEAVY)
+    kernel_occupancy("B2 backward kernels on the card (h 64, f32)", pf.backward_occupancy(64),
+                     ptxas.get("poly_flash_bwd", {}), B2_BWD_HEAVY, inst=B2_BWD_INST[
+                         ("float32", 64)])
     log("phase 4: B2 backward and forward time at the training shape (CUDA events, "
         "warmed up)")
     xs, dout = b2_grad_inputs(16, 2, 12, 12, TRAIN_SEQ, 64, 4)
@@ -4499,6 +4965,7 @@ def main(argv=None):
     bwd_err = phase_b1_backward_grid()
     b2_err = phase_poly_flash_grid()
     b2_bwd_err = phase_b2_backward_grid()
+    b2_wide = phase_b2_backward_wide(ptxas)
     long_errs = phase_long_kernels()
     h128_errs = phase_b1_h128_grid(card)
     xm_errs = phase_b1_xm_grid(card)
@@ -4584,6 +5051,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     xm_rows = phase_xm(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_all = phase_train_all(card)
     dense_launches = {
         "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
                               "train": dense_train["launches"]["polysketch_causal"]},
@@ -4625,6 +5095,17 @@ def main(argv=None):
         if name in ("polysketch_causal", "polysketch_causal_backward"):
             # phase 12: llava (h 128, GQA 4:1) and Whisper's decoder (h 64), bf16
             out["vlm_audio"] = xm_json(name, xm_rows, xm_times, xm_errs)
+        if name in ("poly_flash", "poly_flash_backward"):
+            # phase 13: exact polynomial attention trained in bf16 (h 64, 128)
+            out["train_bf16_launches"] = {r["name"]: r["launches"][name]
+                                          for r in train_all["poly_bf16"]}
+        if name == "poly_flash_backward":   # phase 1 and 4: bf16 and h 128
+            out["bf16_h128"] = {
+                f"{dt} h {h}": {"shape": f"bh 24, n {TRAIN_SEQ}, h {h}, p 4",
+                                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                                "bound_ms": r["bound"].tc_ms, "bound_by": r["bound"].tc_by,
+                                "max_abs_err": r["abs"], "max_rel_err": r["rel"]}
+                for (dt, h), r in b2_wide.items()}
         if name in long_times:
             l_ms, l_plain, l_bd = long_times[name]
             out["long_context"] = {"shape": f"bh 12, n {LONG_TOKENS}", "ms": l_ms,

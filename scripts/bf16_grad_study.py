@@ -4,16 +4,18 @@ reference, on SMOKE configs (CPU).
 
     PYTHONPATH=src python scripts/bf16_grad_study.py
 
-For each arch (gpt2s-polysketch and qwen3-14b by default) and each of a
-few token batches: the float64 gradient of the reference's loss (jax with
+For each arch (gpt2s-polysketch, qwen3-14b and the exact polynomial
+mechanism, gpt2s-poly4 at head width 16 and 128, by default) and each of
+a few token batches: the float64 gradient of the reference's loss (jax with
 x64, every parameter and the compute type float64), the reference's
 gradient at compute_dtype="bfloat16", and the port's (plain ops, the same
 bridged parameters, bfloat16). Each gradient leaf's max|err| is taken as a
 share of that leaf's max|.| in float64; the script prints the worst and
 the median leaf of each, and their distance from each other, which is
-what a test of port against reference can hold. The gate in
-tests/test_torch_bf16.py is set from the worst of these. A numerics study
-on the CPU: it times nothing.
+what a test of port against reference can hold. The gates in
+tests/test_torch_bf16.py and tests/test_torch_b2_bf16.py (and
+chip_smoke.py's BF16_GRAD_TOL) are set from the worst of these. A
+numerics study on the CPU: it times nothing.
 """
 from __future__ import annotations
 
@@ -39,13 +41,28 @@ from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.train import make_loss_fn  # noqa: E402
 
 
+# names of the study for configs the registry reaches through overrides:
+# the exact polynomial baseline (gpt2s-poly4's mechanism) on the SMOKE
+# model, at its head width and at the dense models' 128
+VARIANTS = {
+    "gpt2s-poly4": ("gpt2s-polysketch", dict(attention="polynomial")),
+    "gpt2s-poly4-h128": ("gpt2s-polysketch", dict(attention="polynomial", head_dim=128)),
+}
+
+
+def resolve(arch):
+    """(registry name, overrides) of a study name."""
+    return VARIANTS.get(arch, (arch, {}))
+
+
 def flat(tree):
     return {p: np.asarray(x, np.float64) for p, x in
             zip(tree_paths(tree), jax.tree_util.tree_leaves(tree))}
 
 
 def jax_grads(arch, params, toks, dtype):
-    cfg = jax_get_config(arch, smoke=True, compute_dtype=dtype)
+    name, over = resolve(arch)
+    cfg = jax_get_config(name, smoke=True, compute_dtype=dtype, **over)
     jm = jax_build_model(cfg)
     if dtype == "float64":
         params = jax.tree_util.tree_map(lambda x: x.astype(jnp.float64), params)
@@ -54,7 +71,8 @@ def jax_grads(arch, params, toks, dtype):
 
 
 def port_grads(arch, params, toks):
-    cfg = get_config(arch, smoke=True, compute_dtype="bfloat16")
+    name, over = resolve(arch)
+    cfg = get_config(name, smoke=True, compute_dtype="bfloat16", **over)
     f32 = {k: np.asarray(v, np.float32) for k, v in flat(params).items()}
     model = build_model(cfg, device="cpu", trainable=True, params=params_from_jax(f32, cfg))
     loss, _ = make_loss_fn(cfg)(model.lm, {"tokens": torch.from_numpy(toks.astype(np.int64))})
@@ -70,12 +88,14 @@ def rel_errors(got, want):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--archs", nargs="+", default=["gpt2s-polysketch", "qwen3-14b"])
+    ap.add_argument("--archs", nargs="+", default=["gpt2s-polysketch", "qwen3-14b",
+                                                   *VARIANTS])
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seq", type=int, default=40)
     args = ap.parse_args(argv)
     for arch in args.archs:
-        jm = jax_build_model(jax_get_config(arch, smoke=True))
+        name, over = resolve(arch)
+        jm = jax_build_model(jax_get_config(name, smoke=True, **over))
         params, _ = jm.init(jax.random.PRNGKey(0))
         data = synthetic.make_markov_lm(128, seed=1)
         worst = {"port": 0.0, "jax": 0.0, "port-jax": 0.0}

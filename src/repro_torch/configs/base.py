@@ -114,8 +114,9 @@ def effective_pattern(cfg) -> tuple[tuple[str, str], ...]:
 class TrainConfig:
     """Training-run hyperparameters (paper Section 4 recipe defaults), as
     the reference's. Its checkpoint and logging fields, which no step
-    reads, are the launcher's flags here; its two sharded-gradient options
-    wait for the port's data-parallel step."""
+    reads, are the launcher's flags here, and so is its zero_grad_sync,
+    which nothing reads; grad_compression picks the manual-DP step's
+    gradient sync ("none": a mean all-reduce, "int8": the compressed one)."""
     seq_len: int = 512
     global_batch: int = 8
     steps: int = 100
@@ -127,3 +128,4 @@ class TrainConfig:
     grad_clip: float = 1.0
     microbatches: int = 1
     seed: int = 0
+    grad_compression: str = "none"   # none|int8

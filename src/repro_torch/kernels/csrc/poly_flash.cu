@@ -31,7 +31,8 @@
 // rule), so the least time is 3 x 25.6 GFLOP at 495 TFLOP/s plus the rest
 // at 67 TFLOP/s, 0.161 ms: bound by operations (0.388 ms on the f32 FMA
 // pipes). In bf16 Q, K and V have no lo half: S is one TF32 product and
-// W V two, so the bound is half of f32's (chip_smoke.py's b2_bound).
+// W V two. chip_smoke.py's b2_bound counts W V's two passes and S at the
+// bf16 tensor cores' rate (half a TF32 pass): 0.44 of f32's bound.
 //
 // Registers and shared memory (nvcc -Xptxas -v, and chip_smoke.py's
 // forward_occupancy, which prints each instantiation's): ptxas allocates

@@ -59,7 +59,8 @@
 // and 0.123 ms. In bf16 the diagonal's S is one TF32 product, W V two and
 // the fold two (a bf16 operand has no lo half); the cross term stays three
 // (Phi(qm) is a product of two bf16 values, Z_l f32): chip_smoke.py's
-// b1_bound counts those passes.
+// b1_bound counts those passes, but S at the bf16 tensor cores' rate (half
+// a TF32 pass), since the card has that rate for two bf16 operands.
 //
 // Registers and shared memory (nvcc -Xptxas -v, and chip_smoke.py's
 // forward_occupancy, which prints each instantiation's): fold_kernel and

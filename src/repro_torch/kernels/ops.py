@@ -12,7 +12,7 @@ Gradients: with grad on, ``polysketch_attention`` runs through
 ``polysketch_causal_autograd`` (B1's forward and its backward kernel, or
 both plain versions; float32 or bfloat16), and causal ``poly_attention`` through
 ``poly_flash_autograd`` (B2's forward and its backward kernel, or both
-plain versions; float32 only, and non-causal raises). B3 has no backward
+plain versions; float32 or bfloat16, and non-causal raises). B3 has no backward
 yet: ``lt_mult`` raises when a CUDA input requires grad, rather than
 return an output that autograd cannot see through.
 
@@ -138,8 +138,8 @@ def poly_attention(q, k, v, *, degree: int, scale: float | None = None,
     (B, Hkv, T, h) -> (B, Hq, S, h). Causal needs S == T.
 
     Any S: the kernel masks a ragged last tile itself, so nothing is
-    padded. With grad on (causal, float32), the gradient reaches q, k and
-    v through B2's backward (the CUDA backward takes h <= 64); the kv
+    padded. With grad on (causal, float32 or bfloat16), the gradient reaches
+    q, k and v through B2's backward (the CUDA backward takes h <= 128); the kv
     heads' repeats for GQA are summed by autograd.
     """
     fn = _pick(impl, q, poly_flash_cuda, poly_flash_torch)

@@ -17,10 +17,12 @@ over j <= i (causal, n == t) or over every key (non-causal).
 
 The backward (the JAX package has none: it trains the polynomial
 baseline through XLA's gradient of ``core/poly_attention.py``'s
-``poly_attention_full``) comes in the same two forms, causal and float32
-only: ``poly_flash_backward_torch`` and ``poly_flash_backward_cuda``
-(``csrc/poly_flash_bwd.cu``). Both read the forward's output and its
-D_i = 1 + sum_j w_ij, which the forward returns with ``return_den``.
+``poly_attention_full``) comes in the same two forms, causal, float32 or
+bfloat16, h <= 128: ``poly_flash_backward_torch`` and
+``poly_flash_backward_cuda`` (``csrc/poly_flash_bwd.cu``). Both read the
+forward's output and its D_i = 1 + sum_j w_ij (float32), which the
+forward returns with ``return_den``, compute in float32 and return the
+gradients in the inputs' dtype, as ``jax.grad`` of the reference does.
 ``poly_flash_autograd`` joins a forward and a backward in a
 ``torch.autograd.Function``.
 """
@@ -80,8 +82,10 @@ def poly_flash_torch(q, k, v, *, degree: int, scale: float,
 def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
                               scale: float, block_q: int = 256):
     """Gradients (dq, dk, dv) of causal poly_flash_torch (n == t), from its
-    output and D = 1 + den (return_den), float32 (or float64 throughout, as
-    a reference), one query block at a time.
+    output and D = 1 + den (return_den, float32), one query block at a
+    time. dout, q, k, v and out share one dtype, float32 or bfloat16: the
+    sums run in float32 and the gradients come back in that dtype. float64
+    throughout computes in float64, as a reference.
 
     With Delta_i = <do_i, out_i>, s_ij = <q_i, k_j> scale, w_ij = s_ij^p,
     dW_ij = (<do_i, v_j> - Delta_i) / D_i and dS_ij = dW_ij p s_ij^(p-1):
@@ -89,13 +93,19 @@ def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
       dq_i = scale sum_{j<=i} dS_ij k_j,   dk_j = scale sum_{i>=j} dS_ij q_i.
     """
     bh, n, _, _ = _check_shapes(q, k, v, True)
-    f32 = torch.float64 if q.dtype == torch.float64 else torch.float32
-    if any(x.dtype != f32 for x in (dout, q, k, v, out, den)):
-        raise TypeError("the backward takes float32 only (or float64 "
-                        "throughout, as a reference)")
+    dt = q.dtype
+    f64 = dt == torch.float64
+    if (dt not in (torch.float32, torch.bfloat16, torch.float64)
+            or any(x.dtype != dt for x in (dout, k, v, out))
+            or den.dtype != (torch.float64 if f64 else torch.float32)):
+        raise TypeError("the backward takes dout, q, k, v and out of one dtype "
+                        "(float32 or bfloat16) with a float32 den, or float64 "
+                        f"throughout; got {[x.dtype for x in (dout, q, k, v, out, den)]}")
     if dout.shape != q.shape or out.shape != q.shape or den.shape != (bh, n):
         raise ValueError(f"shape mismatch: dout {tuple(dout.shape)} out "
                          f"{tuple(out.shape)} den {tuple(den.shape)}")
+    f32 = torch.float64 if f64 else torch.float32
+    dout, q, k, v, out = (x.to(f32) for x in (dout, q, k, v, out))
     inv = 1.0 / den
     dnum = dout * inv[..., None]                        # do_i / D_i
     dden = -(dout * out).sum(-1) * inv                  # -Delta_i / D_i
@@ -113,7 +123,7 @@ def poly_flash_backward_torch(dout, q, k, v, out, den, *, degree: int,
         dv[:, :q1] += w.transpose(1, 2) @ dnum[:, q0:q1]
         dq[:, q0:q1] = ds @ k[:, :q1]
         dk[:, :q1] += ds.transpose(1, 2) @ q[:, q0:q1]
-    return dq, dk, dv
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -185,7 +195,7 @@ def forward_occupancy(h: int = 64, dtype=torch.float32) -> dict:
     return build.occupancy(_lib().poly_flash_forward_occupancy, FWD_KERNELS, h,
                            _DTYPES[dtype])
 
-BWD_MAX_H = 64   # the backward kernel's head width (csrc/poly_flash_bwd.cu)
+BWD_MAX_H = 128  # the backward kernel's widest head (csrc/poly_flash_bwd.cu)
 BWD_STAGE = 32   # queries a stage of the backward kernel, one ordering counter each
 # The backward's kernels in launch order (csrc/poly_flash_bwd.cu).
 BWD_KERNELS = ("poly_flash_bwd_prep_kernel", "poly_flash_bwd_kernel")
@@ -196,7 +206,7 @@ def _bwd_lib():
     fn = lib.poly_flash_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 4 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 13 + [i] * 4 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -211,9 +221,10 @@ def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
                              scale: float):
     """The CUDA backward; same contract as poly_flash_backward_torch.
 
-    Takes contiguous float32 CUDA tensors with h <= 64, causal (n == t);
-    raises on anything else. Launches on the current stream and does not
-    synchronise.
+    Takes contiguous CUDA tensors, dout, q, k, v and out all float32 or
+    all bfloat16 and den float32, with h <= 128, causal (n == t); raises
+    on anything else. Returns dq, dk and dv in the inputs' dtype. Launches
+    on the current stream and does not synchronise.
     """
     xs = (dout, q, k, v, out, den)
     dev = q.device
@@ -221,9 +232,12 @@ def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
         raise ValueError(f"poly_flash_backward_cuda takes CUDA tensors, got {dev}")
     if any(x.device != dev for x in xs):
         raise ValueError("all inputs must be on one device")
-    if any(x.dtype != torch.float32 for x in xs):
-        raise TypeError("the backward takes float32 only (bf16 training is "
-                        f"not ported), got {[x.dtype for x in xs]}")
+    dt = q.dtype
+    if (dt not in _DTYPES or any(x.dtype != dt for x in (dout, k, v, out))
+            or den.dtype != torch.float32):
+        raise TypeError("the backward takes dout, q, k, v and out all float32 "
+                        "or all bfloat16 and a float32 den, got "
+                        f"{[x.dtype for x in xs]}")
     bh, n, _, h = _check_shapes(q, k, v, True)
     check_backward_shapes(h)
     if dout.shape != q.shape or out.shape != q.shape or den.shape != (bh, n):
@@ -233,20 +247,24 @@ def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
         raise ValueError(f"degree must be >= 1, got {degree}")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("inputs must be contiguous")
-    dnum = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dnum = torch.empty(q.shape, **f32)
     dden = torch.empty_like(den)
     # the work-item ticket and one counter per (bh, query stage), which the
     # kernel's prep launch zeroes
     sync = torch.empty(1 + bh * -(-n // BWD_STAGE), dtype=torch.int32, device=dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # dq's f32 sums across key tiles: dq itself in f32
+    dqa = dq if dt == torch.float32 else torch.empty(q.shape, **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, den, dnum, dden, sync, dq, dk, dv)]
+    ptrs = [x.data_ptr() for x in (q, k, v, out, dout, den, dnum, dden, sync, dqa,
+                                   dq, dk, dv)]
     with torch.cuda.device(dev):
         err = _bwd_lib().poly_flash_backward(*ptrs, bh, n, h, degree, scale,
-                                             stream)
+                                             _DTYPES[dt], stream)
     if err != 0:
         raise RuntimeError(f"poly_flash_backward failed: CUDA error {err} "
-                           f"(bh={bh}, n={n}, h={h})")
+                           f"(bh={bh}, n={n}, h={h}, {dt})")
     poly_flash_backward_cuda.launches += 1
     return dq, dk, dv
 
@@ -254,11 +272,13 @@ def poly_flash_backward_cuda(dout, q, k, v, out, den, *, degree: int,
 poly_flash_backward_cuda.launches = 0
 
 
-def backward_occupancy(h: int = BWD_MAX_H) -> dict:
-    """What each backward kernel holds on the current card at head width h:
-    {name: {"registers", "local_bytes", "smem_bytes", "threads",
-    "ctas_per_sm", "warps_per_sm"}} (build.occupancy). Needs a CUDA card."""
-    return build.occupancy(_bwd_lib().poly_flash_backward_occupancy, BWD_KERNELS, h)
+def backward_occupancy(h: int = 64, dtype=torch.float32) -> dict:
+    """What each backward kernel holds on the current card at head width h
+    (its 64 or its 128 instantiation) for operands of `dtype`: {name:
+    {"registers", "local_bytes", "smem_bytes", "threads", "ctas_per_sm",
+    "warps_per_sm"}} (build.occupancy). Needs a CUDA card."""
+    return build.occupancy(_bwd_lib().poly_flash_backward_occupancy, BWD_KERNELS,
+                           h, _DTYPES[dtype])
 
 
 class _PolyFlash(torch.autograd.Function):
@@ -284,11 +304,8 @@ class _PolyFlash(torch.autograd.Function):
 
 def poly_flash_autograd(q, k, v, *, fwd, bwd, degree: int, scale: float):
     """Causal out of `fwd` (poly_flash_cuda or _torch) with a gradient
-    from `bwd` (poly_flash_backward_cuda or _torch) to q, k and v.
-    float32 only."""
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise TypeError("polynomial attention trains in float32 only (bf16 "
-                        "training is not ported)")
+    from `bwd` (poly_flash_backward_cuda or _torch) to q, k and v, in
+    their dtype (float32 or bfloat16)."""
     if bwd is poly_flash_backward_cuda:
         check_backward_shapes(q.shape[-1])
     return _PolyFlash.apply(q, k, v, dict(degree=degree, scale=scale), fwd, bwd)

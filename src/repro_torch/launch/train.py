@@ -4,12 +4,27 @@
         --steps 50 --batch 8 --seq 128 --ckpt-dir build/run1
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
-The port of the JAX package's ``launch/train.py`` on one device: config
-registry, seeded model init, the synthetic Markov data pipeline, AdamW
-and its schedule, the train step, the checkpoint manager (atomic, async,
-keep-k, auto-resume), the preemption guard and the straggler detector.
-It takes the reference's flags except ``--mesh``, plus ``--device``
-(default cuda; raises when there is no card). ``--set remat=full`` (or
+The port of the JAX package's ``launch/train.py``: config registry,
+seeded model init, the synthetic Markov data pipeline, AdamW and its
+schedule, the train step, the checkpoint manager (atomic, async, keep-k,
+auto-resume), the preemption guard and the straggler detector. It takes
+the reference's flags, plus ``--device`` (default cuda; raises when there
+is no card). ``--mesh "AxB:data,model"`` trains over a device mesh of one
+process a rank (``torchrun``, which sets the ranks; one process alone is
+world 1): parameters and AdamW moments stored sharded by the sharding
+rules (FSDP), gathered whole for each step, each rank on its rows of the
+batch, gradients reduced to each rank's blocks (``train.step.
+make_sharded_train_step``). The world size must be the mesh's size; with
+``--device cuda`` each rank takes its own card, so a mesh larger than the
+visible cards raises. The compute is replicated over "model" (the
+reference's tensor-parallel contraction is not ported), and
+``--ckpt-dir`` does not combine with ``--mesh``:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
+        --device cpu --mesh 2x1:data,model --steps 3 --batch 4 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --mesh 1x1:data,model
+
+``--set remat=full`` (or
 ``dots``) rematerialises each block; the paper's 32k context on one
 card:
 
@@ -51,21 +66,32 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
+import socket
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data import DataIterator, make_markov_lm
 from repro_torch.distributed.fault import PreemptionGuard, StragglerDetector
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train.step import init_sharded_train_state, make_sharded_train_step
+from repro_torch.utils import resolve_device
 
 log = logging.getLogger("repro_torch.train")
 
 
 def main(argv=None):
+    return run(argv)[0]
+
+
+def run(argv=None):
+    """main's work: returns (the final state, the loss of every step)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
@@ -85,6 +111,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--mesh", default="",
+                    help='e.g. "2x4:data,model", one process a rank (default: '
+                         'one device)')
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--device", default=None,
@@ -104,14 +133,38 @@ def main(argv=None):
                          "encoder frames, which an encoder-decoder trains on; "
                          "train it through train.make_train_step with batches "
                          "of tokens and frames")
-    model = build_model(cfg, device=args.device, seed=args.seed,
+    if not args.mesh:
+        return _train(args, cfg, args.device, None)
+    if args.ckpt_dir:
+        raise SystemExit("--ckpt-dir does not combine with --mesh in the port "
+                         "(a sharded checkpoint is not ported)")
+    mesh_shape = parse_mesh(args.mesh)
+    device, owned = init_ranks(args.device)
+    try:
+        return _train(args, cfg, device, mesh_shape)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device, mesh_shape):
+    """The run on `device`, over a mesh of ((sizes), (axes)) when given."""
+    chatty = mesh_shape is None or dist.get_rank() == 0
+    model = build_model(cfg, device=device, seed=args.seed,
                         trainable=True, draw_on_device=args.draw_on_device)
     dev = model.device
     tcfg = TrainConfig(seq_len=args.seq, global_batch=args.batch,
                        steps=args.steps, peak_lr=args.lr,
                        microbatches=args.microbatches, seed=args.seed)
-    state = init_train_state(model.lm)
-    step_fn = make_train_step(cfg, tcfg)
+    if mesh_shape is not None:
+        mesh = make_mesh(*mesh_shape, dev.type)
+        state = init_sharded_train_state(model.lm, mesh, model.axes())
+        step_fn = make_sharded_train_step(cfg, tcfg)
+        if chatty:
+            log.info("mesh %s over %d ranks", args.mesh, dist.get_world_size())
+    else:
+        state = init_train_state(model.lm)
+        step_fn = make_train_step(cfg, tcfg)
     it = DataIterator(make_markov_lm(cfg.vocab_size, seed=args.seed + 1),
                       args.batch, args.seq, seed=args.seed, device=dev)
 
@@ -128,14 +181,16 @@ def main(argv=None):
     guard = PreemptionGuard().install()
     straggler = StragglerDetector()
     t_start = time.perf_counter()
+    losses = []
     try:
         for i in range(start_step, args.steps):
             batch = next(it)
             straggler.start()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])          # waits for the device
+            losses.append(loss)
             straggler.stop()
-            if (i + 1) % args.log_every == 0 or i == start_step:
+            if chatty and ((i + 1) % args.log_every == 0 or i == start_step):
                 aux = "".join(f" {k} {float(v):.4f}" for k, v in metrics.items()
                               if k.startswith("aux_"))
                 log.info("step %d loss %.4f lr %.2e grad_norm %.3f%s", i + 1,
@@ -154,10 +209,59 @@ def main(argv=None):
         guard.uninstall()
     dt = time.perf_counter() - t_start
     n = state.step - start_step
-    log.info("done: %d steps on %s, %.2f s/step, %d flagged stragglers", n,
-             torch.device(dev), dt / max(n, 1), len(straggler.flagged))
-    log.info("peak device memory: %s", _peak_memory(dev))
-    return state
+    if chatty:
+        log.info("done: %d steps on %s, %.2f s/step, %d flagged stragglers", n,
+                 torch.device(dev), dt / max(n, 1), len(straggler.flagged))
+        log.info("peak device memory: %s", _peak_memory(dev))
+    return state, losses
+
+
+def parse_mesh(text: str):
+    """"2x4:data,model" -> ((2, 4), ("data", "model"))."""
+    shape_s, _, axes_s = text.partition(":")
+    try:
+        shape = tuple(int(x) for x in shape_s.split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: want e.g. 2x4:data,model") from None
+    axes = tuple(a for a in axes_s.split(",") if a)
+    if len(axes) != len(shape):
+        raise SystemExit(f"--mesh {text!r}: {len(shape)} sizes but {len(axes)} axis names")
+    return shape, axes
+
+
+def init_ranks(device):
+    """This process's device for a mesh run, the process group joined if
+    the caller has not: from torchrun's environment (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), or alone at world 1 on a free loopback
+    port. NCCL on CUDA (one card a rank: LOCAL_RANK's), gloo on the CPU.
+    Returns (device, whether this call joined the group)."""
+    dev = resolve_device(device)
+    owned = not dist.is_initialized()
+    if owned:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    rank=0, world_size=1)
+    if dev.type == "cuda":
+        world, cards = dist.get_world_size(), torch.cuda.device_count()
+        if world > cards:
+            if owned:
+                dist.destroy_process_group()
+            raise SystemExit(f"--mesh with --device cuda runs one rank a card: {world} "
+                             f"ranks but {cards} visible cards (NCCL cannot put two "
+                             "ranks on one GPU); train on the CPU with gloo instead")
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    return dev, owned
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _peak_memory(dev) -> str:

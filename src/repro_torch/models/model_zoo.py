@@ -32,6 +32,11 @@ class Model:
     def device(self) -> torch.device:
         return self.lm.embed.table.device
 
+    def axes(self) -> dict[str, tuple]:
+        """{parameter name: logical axis names}, the reference's axes tree
+        from ``model.init`` leaf for leaf (param_axes)."""
+        return param_axes(self.lm)
+
 
 def build_model(cfg, *, device=None, seed: int = 0,
                 params: dict[str, torch.Tensor] | None = None,
@@ -87,3 +92,57 @@ def input_specs(cfg, shape, *, for_train: bool | None = None
     if cfg.family == "audio" and kind != "decode":
         specs["frames"] = ((b, cfg.encoder_len, cfg.d_model), dt)
     return specs
+
+
+# The logical axis names of each leaf, by its last name (a norm's scale and
+# bias, q/k norms, the polynomial LayerNorms and the SSM's scalars are
+# replicated); the FFN's and the attention's names depend on the owner.
+_LEAF_AXES = {
+    "table": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "wq": ("embed", "q_heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "router": ("embed", "experts"),
+    # learned sketch projections (core/sketches), and a random one's g
+    "w1": (None, "sketch_hidden"), "w3": (None, "sketch_hidden"),
+    "b1": ("sketch_hidden",), "b3": ("sketch_hidden",),
+    "w2": ("sketch_hidden", None), "w4": ("sketch_hidden", None),
+    "g": (None, "sketch"),
+    # RG-LRU
+    "w_gate": ("embed", "rnn"), "w_in": ("embed", "rnn"),
+    "w_a": ("rnn", "rnn2"), "w_x": ("rnn", "rnn2"), "w_out": ("rnn", "embed"),
+    "b_a": ("rnn",), "b_x": ("rnn",), "lambda": ("rnn",),
+    # RG-LRU and SSD convolutions; SSD projections
+    "conv_w": (None, "rnn"), "conv_b": ("rnn",),
+    "in_proj": ("embed", "rnn"), "out_proj": ("rnn", "embed"),
+}
+_FFN_AXES = {   # by leaf and ndim: the GLU FFN (2) or the MoE experts (3)
+    ("wi", 2): ("embed", "mlp"), ("wg", 2): ("embed", "mlp"), ("wo", 2): ("mlp", "embed"),
+    ("wi", 3): ("experts", "embed", "mlp"), ("wg", 3): ("experts", "embed", "mlp"),
+    ("wo", 3): ("experts", "mlp", "embed"),
+}
+
+
+def leaf_axes(name: str, shape: tuple) -> tuple:
+    """The reference's logical axis names of the port's parameter `name`
+    of `shape`, without the reference's leading "layers" entry (the port
+    keeps one module a layer)."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    if len(parts) >= 2 and parts[-2] == "ffn" and (leaf, len(shape)) in _FFN_AXES:
+        return _FFN_AXES[(leaf, len(shape))]
+    if leaf == "wo":
+        return ("q_heads", "head_dim", "embed")
+    if leaf in _LEAF_AXES:
+        return _LEAF_AXES[leaf]
+    if len(shape) == 1:
+        return (None,)
+    raise KeyError(f"no logical axes for parameter {name!r} of shape {tuple(shape)}")
+
+
+def param_axes(lm) -> dict[str, tuple]:
+    """{parameter name: logical axis names} of an LM or a Whisper, in
+    named_parameters' order. Through ``bridge.jax_path`` each equals the
+    reference's axes leaf, less its leading "layers" for a stacked leaf."""
+    return {n: leaf_axes(n, tuple(p.shape)) for n, p in lm.named_parameters()}

@@ -108,10 +108,12 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
                           for x in tree.values()))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm):
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm, norm=None):
     """Scale grads in place so that their global norm is at most max_norm
     (the bits of (g.float() * scale).to(g.dtype)); returns (grads, the
-    norm before scaling)."""
-    norm = global_norm(grads)
+    norm before scaling). `norm`, when given, is that norm (the sharded
+    step takes it over every rank's blocks)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: g.mul_(scale) for n, g in grads.items()}, norm

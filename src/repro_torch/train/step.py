@@ -2,11 +2,14 @@
 clipping over every parameter, AdamW and the lr schedule.
 
 The port of the JAX package's ``train/step.py`` (``TrainState``,
-``init_train_state``, ``make_loss_fn``, ``make_train_step``). The
-reference's functional step maps a state to a new one; here the
-parameters live in the LM module and the step updates them and the
-AdamW moments in place, returning the new state. The
-manual data-parallel step waits for the port's sharding.
+``init_train_state``, ``make_loss_fn``, ``make_train_step``,
+``make_manual_dp_train_step``). The reference's functional step maps a
+state to a new one; here the parameters live in the LM module and the
+step updates them and the AdamW moments in place, returning the new
+state. ``make_sharded_train_step`` is the port's counterpart of the
+reference's jit over sharded parameters (``launch/train.py --mesh``):
+parameters and moments stored by ``distributed.sharding``'s specs (FSDP),
+the compute replicated.
 
 Gradients come from autograd; in train mode the attention runs
 ``ops.polysketch_attention``, whose gradient on the card is B1's backward
@@ -23,7 +26,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.bridge import is_stacked, jax_path
+from repro_torch.distributed import compression
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_linear_decay)
 
@@ -89,20 +96,7 @@ def make_train_step(cfg, tcfg):
     def train_step(state: TrainState, batch):
         lm = state.lm
         params = dict(lm.named_parameters())
-        for p in params.values():
-            p.grad = None
-        for i in range(mb):
-            part = batch if mb == 1 else {
-                k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                for k, v in batch.items()}
-            loss, metrics = loss_fn(lm, part)
-            loss.backward()
-        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
-                 for n, p in params.items()}
-        if mb > 1:
-            grads = {n: g.div_(mb) for n, g in grads.items()}
-        for p in params.values():
-            p.grad = None
+        grads, metrics = _grads(lm, params, loss_fn, batch, mb)
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = schedule(state.step)
         opt = adamw_update(grads, state.opt, params, lr=lr, b1=tcfg.b1,
@@ -110,5 +104,197 @@ def make_train_step(cfg, tcfg):
         del grads
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(lm, opt, state.step + 1), metrics
+
+    return train_step
+
+
+def _grads(lm, params, loss_fn, batch, mb):
+    """The gradient of the mean loss over `batch` (mb consecutive slices,
+    their gradients summed and divided by mb), taken out of the
+    parameters' .grad; and the last slice's metrics."""
+    for p in params.values():
+        p.grad = None
+    for i in range(mb):
+        part = batch if mb == 1 else {
+            k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+            for k, v in batch.items()}
+        loss, metrics = loss_fn(lm, part)
+        loss.backward()
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for n, p in params.items()}
+    if mb > 1:
+        grads = {n: g.div_(mb) for n, g in grads.items()}
+    for p in params.values():
+        p.grad = None
+    return grads, metrics
+
+
+def _rows(batch, index: int, parts: int):
+    """Rows [index * B / parts, (index + 1) * B / parts) of every array
+    of a batch: one data-parallel rank's shard."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % parts:
+            raise ValueError(f"batch of {v.shape[0]} rows does not split over "
+                             f"{parts} data-parallel ranks")
+        step = v.shape[0] // parts
+        out[k] = v[index * step:(index + 1) * step]
+    return out
+
+
+def _stacked(grads, cfg, fn):
+    """fn applied to the gradients as the reference's tree holds them: the
+    layers of a stacked leaf (bridge.is_stacked) stacked into one tensor,
+    as the int8 all-reduce quantizes a leaf's chunks over all its layers
+    at once; returns them unstacked, by the port's names."""
+    paths: dict[str, list[str]] = {}
+    for n in grads:   # layers in order, as named_parameters gives them
+        paths.setdefault(jax_path(n, cfg), []).append(n)
+    tree = {p: (torch.stack([grads[n] for n in names]) if is_stacked(p, cfg)
+                else grads[names[0]]) for p, names in paths.items()}
+    done = fn(tree)
+    out = {}
+    for p, names in paths.items():
+        if is_stacked(p, cfg):
+            out.update(zip(names, done[p].unbind(0)))
+        else:
+            out[names[0]] = done[p]
+    return out
+
+
+def _mean_metrics(metrics, group):
+    """Each metric averaged over the group's ranks (the reference's pmean)."""
+    names = sorted(metrics)
+    x = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32) for k in names])
+    dist.all_reduce(x, group=group)
+    x = x / dist.get_world_size(group)
+    return {k: x[i] for i, k in enumerate(names)}
+
+
+def make_manual_dp_train_step(cfg, tcfg, group=None):
+    """The reference's shard_map manual-DP step on a process group (None:
+    the default one): per-rank gradients and an explicit sync, so the
+    gradient collective is the port's to choose, a mean all-reduce
+    (tree_psum_mean) or, when tcfg.grad_compression == "int8", the int8
+    all-to-all reduce (tree_int8_allreduce_mean).
+
+    train_step(state, batch) takes the global batch. Parameters are
+    replicated: each rank holds the whole LM and takes its block of the
+    batch's rows (rank r of N: rows r * B / N ..), computes the gradient
+    of its own mean loss, syncs it and averages the metrics; then every
+    rank clips and steps AdamW on the same synced gradients, as the
+    reference does after shard_map. The int8 sync quantizes each leaf of
+    the reference's tree, a stacked leaf over all its layers at once."""
+    loss_fn = make_loss_fn(cfg)
+    schedule = linear_warmup_linear_decay(tcfg.peak_lr, tcfg.steps,
+                                          tcfg.warmup_frac)
+    if tcfg.grad_compression not in ("none", "int8"):
+        raise ValueError(f"grad_compression must be 'none' or 'int8', got "
+                         f"{tcfg.grad_compression!r}")
+
+    def sync(grads):
+        if tcfg.grad_compression == "int8":
+            return _stacked(grads, cfg, lambda tree: compression.tree_int8_allreduce_mean(
+                tree, group))
+        return compression.tree_psum_mean(grads, group)
+
+    def train_step(state: TrainState, batch):
+        lm = state.lm
+        params = dict(lm.named_parameters())
+        local = _rows(batch, dist.get_rank(group), dist.get_world_size(group))
+        grads, metrics = _grads(lm, params, loss_fn, local, 1)
+        grads = sync(grads)
+        metrics = _mean_metrics({k: metrics[k] for k in ("loss", "ce_loss")}, group)
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        lr = schedule(state.step)
+        opt = adamw_update(grads, state.opt, params, lr=lr, b1=tcfg.b1,
+                           b2=tcfg.b2, weight_decay=tcfg.weight_decay, cfg=cfg)
+        del grads
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return TrainState(lm, opt, state.step + 1), metrics
+
+    return train_step
+
+
+@dataclass
+class ShardedTrainState:
+    """The training state of the sharded step: the LM (whose parameters
+    hold no storage between steps), this rank's block of every parameter,
+    the AdamW moments of those blocks, the step, the mesh and each
+    parameter's spec."""
+    lm: torch.nn.Module
+    params: dict[str, torch.Tensor]
+    opt: AdamWState
+    step: int
+    mesh: object
+    specs: dict[str, tuple]
+
+
+def init_sharded_train_state(lm, mesh, axes: dict[str, tuple]) -> ShardedTrainState:
+    """Shard `lm`'s parameters (the same values on every rank, e.g. from
+    one seed) by shardings_for(axes) over `mesh`: each rank keeps its
+    blocks and AdamW moments of their size, and the LM's parameters give
+    up their storage until a step gathers them."""
+    named = dict(lm.named_parameters())
+    specs = shd.shardings_for(axes, named, mesh)
+    params = {n: shd.shard(p.detach(), specs[n], mesh) for n, p in named.items()}
+    _release(named)
+    return ShardedTrainState(lm, params, adamw_init(params), 0, mesh, specs)
+
+
+def _release(named):
+    for p in named.values():
+        p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+
+
+def dp_axes(mesh, batch_size: int) -> tuple[str, ...]:
+    """The mesh axes the batch is split over (batch_spec's leading entry)."""
+    return shd.spec_axes(shd.batch_spec(mesh, batch_size)[0])
+
+
+def make_sharded_train_step(cfg, tcfg):
+    """train_step(state, batch) -> (state, metrics) over a
+    ShardedTrainState: the reference's train step under jit with sharded
+    parameters (its GSPMD FSDP), computed replicated. Every parameter is
+    gathered whole into the LM, each rank takes its rows of the global
+    batch (batch_spec over the mesh's batch axes) and computes the
+    gradient of their mean loss (microbatches as make_train_step), the
+    gradients are reduced to each rank's blocks of their mean
+    (sharding.reduce_grad), clipped by the global norm of the whole
+    gradients (sharding.global_sumsq) and stepped by AdamW on the blocks;
+    the LM gives up the gathered storage again. The metrics are averaged over the
+    data-parallel ranks (an MoE's aux losses are each rank's rows' own)."""
+    loss_fn = make_loss_fn(cfg)
+    schedule = linear_warmup_linear_decay(tcfg.peak_lr, tcfg.steps,
+                                          tcfg.warmup_frac)
+    mb = tcfg.microbatches
+
+    def train_step(state: ShardedTrainState, batch):
+        mesh, specs = state.mesh, state.specs
+        named = dict(state.lm.named_parameters())
+        with torch.no_grad():
+            for n, p in named.items():
+                p.data = shd.gather(state.params[n], specs[n], mesh)
+        rows = next(iter(batch.values())).shape[0]
+        axes = dp_axes(mesh, rows)
+        index, parts = 0, 1
+        for a in axes:
+            dim = mesh.mesh_dim_names.index(a)
+            index = index * mesh.size(dim) + mesh.get_local_rank(dim)
+            parts *= mesh.size(dim)
+        grads, metrics = _grads(state.lm, named, loss_fn, _rows(batch, index, parts), mb)
+        _release(named)
+        grads = {n: shd.reduce_grad(g, specs[n], mesh, axes) for n, g in grads.items()}
+        gnorm = torch.sqrt(shd.global_sumsq(grads, specs, mesh))
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=gnorm)
+        lr = schedule(state.step)
+        opt = adamw_update(grads, state.opt, state.params, lr=lr, b1=tcfg.b1,
+                           b2=tcfg.b2, weight_decay=tcfg.weight_decay, cfg=cfg)
+        del grads
+        # over every rank: a model axis's ranks hold their data rank's values
+        metrics = _mean_metrics(metrics, None)
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return ShardedTrainState(state.lm, state.params, opt, state.step + 1, mesh,
+                                 specs), metrics
 
     return train_step

@@ -28,10 +28,11 @@ CASES = [
     ("b3_bound", (4, 2048, 32, 64, 256), 0.001878, "bytes", 0.004019, "operations"),
     ("b1_bound", (48, 2048, 32, 64, 1024, 4), 0.2491, "operations", 0.5954, "operations"),
     ("b2_bound", (48, 2040, 64, 4), 0.1611, "operations", 0.3879, "operations"),
-    # bf16 operands: only the TF32 passes whose lo half is not zero (B1 at
+    # bf16 operands: only the TF32 passes whose lo half is not zero, and a
+    # product of two bf16 operands at the bf16 rate, half a TF32 pass (B1 at
     # starcoder2-3b's training shape; B2 at the serving shape)
-    ("b1_bound", (24, 4096, 32, 128, 256, 4, 2), 0.3018, "operations", 0.8916, "operations"),
-    ("b2_bound", (48, 2040, 64, 4, 2), 0.08358, "operations", 0.3879, "operations"),
+    ("b1_bound", (24, 4096, 32, 128, 256, 4, 2), 0.2985, "operations", 0.8916, "operations"),
+    ("b2_bound", (48, 2040, 64, 4, 2), 0.07067, "operations", 0.3879, "operations"),
     ("b1_bwd_bound", (24, 4096, 32, 64, 1024, 4), 0.4938, "operations", 1.1852,
      "operations"),
     # B2's backward at the training shape: 201.4 M causal pairs, 5 x 2h
@@ -40,12 +41,22 @@ CASES = [
     # phase 12's bf16 shapes: llava's 4 x 32 heads of 128 over 2048 tokens
     # and one 256-token prefill block; Whisper's decoder in training (4 x
     # 20 heads of 64, 448 tokens padded to 512), forward and backward
-    ("b1_bound", (128, 2048, 32, 128, 256, 4, 2), 0.8047, "operations", 2.3776,
+    ("b1_bound", (128, 2048, 32, 128, 256, 4, 2), 0.7960, "operations", 2.3776,
      "operations"),
-    ("b1_bound", (128, 256, 32, 128, 256, 4, 2), 0.1006, "operations", 0.2972, "operations"),
-    ("b1_bound", (80, 512, 32, 64, 256, 4, 2), 0.06347, "operations", 0.1872, "operations"),
-    ("b1_bwd_bound", (80, 512, 32, 64, 256, 4, 2), 0.1256, "operations", 0.3002,
+    ("b1_bound", (128, 256, 32, 128, 256, 4, 2), 0.09950, "operations", 0.2972, "operations"),
+    ("b1_bound", (80, 512, 32, 64, 256, 4, 2), 0.06279, "operations", 0.1872, "operations"),
+    # (bf16: the passes by operand width, as the forwards count them)
+    ("b1_bwd_bound", (80, 512, 32, 64, 256, 4, 2), 0.1016, "operations", 0.3002,
      "operations"),
+    # B1's backward at starcoder2-3b's h-128 training shape, bf16 and f32
+    ("b1_bwd_bound", (24, 4096, 32, 128, 256, 4, 2), 0.5912, "operations", 1.7630,
+     "operations"),
+    ("b1_bwd_bound", (24, 4096, 32, 128, 256, 4), 0.7289, "operations", 1.7630,
+     "operations"),
+    # B2's backward at the training shape in bf16 (h 64, 128) and f32 at h 128
+    ("b2_bwd_bound", (24, 4096, 64, 4, 2), 0.5191, "operations", 1.9479, "operations"),
+    ("b2_bwd_bound", (24, 4096, 128, 4, 2), 1.0141, "operations", 3.8737, "operations"),
+    ("b2_bwd_bound", (24, 4096, 128, 4), 1.5868, "operations", 3.8737, "operations"),
 ]
 
 

@@ -461,6 +461,49 @@ def test_b2_backward_kernel_more_items_than_resident_ctas(card):
         assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
 
 
+# B2's backward in bf16 at h 64 and 128 and in f32 at h 128 (64-key items
+# whose two warpgroups split the columns at h 128)
+B2_WIDE = [("bfloat16", 64), ("bfloat16", 128), ("float32", 128)]
+
+
+@pytest.mark.parametrize("dtype,h", B2_WIDE)
+@pytest.mark.parametrize("degree", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,hkv", [(77, 2), (200, 2), (200, 1)])
+def test_b2_backward_kernel_bf16_and_h128_match_plain_version(card, dtype, h, degree, n,
+                                                              hkv):
+    """ops.poly_attention's gradients through B2's backward kernel against
+    the plain backward in the inputs' dtype (bh 2; GQA 2:1 at hkv 1), each
+    within TOL[dtype] of its max|.|, returned in that dtype."""
+    dt = getattr(torch, dtype)
+    xs, dout = _b2_inputs(degree + n + h, 1, 2, hkv, n, h, degree, card)
+    xs, dout = tuple(x.to(dt) for x in xs), dout.to(dt)
+    kw = dict(degree=degree, scale=1.0 / h)
+    before = pf.poly_flash_backward_cuda.launches
+    got = _grads(lambda *a: ops.poly_attention(*a, **kw), xs, dout)
+    want = _grads(lambda *a: ops.poly_attention(*a, impl="torch", **kw), xs, dout)
+    torch.cuda.synchronize()
+    assert pf.poly_flash_backward_cuda.launches == before + 1
+    assert all(g.dtype == dt for g in got)
+    _assert_grads_close([g.float() for g in got], [w.float() for w in want], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,h", B2_WIDE)
+def test_b2_backward_kernel_bf16_and_h128_more_items_than_ctas_bit_stable(card, dtype, h):
+    """bh 48, n 2048 (768 or 1536 work items over the persistent grid):
+    against the plain backward, and three calls bit for bit."""
+    dt = getattr(torch, dtype)
+    xs, dout = _b2_inputs(43 + h, 1, 48, 48, 2048, h, 4, card)
+    q, k, v, dout = (x.reshape(48, 2048, h).to(dt).contiguous() for x in (*xs, dout))
+    kw = dict(degree=4, scale=1.0 / h)
+    out, den = pf.poly_flash_cuda(q, k, v, return_den=True, **kw)
+    runs = [pf.poly_flash_backward_cuda(dout, q, k, v, out, den, **kw) for _ in range(3)]
+    want = pf.poly_flash_backward_torch(dout, q, k, v, out, den, **kw)
+    torch.cuda.synchronize()
+    _assert_grads_close([g.float() for g in runs[0]], [w.float() for w in want], TOL[dtype])
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+
+
 def test_b2_forward_den_out_keeps_the_outputs_bits(card):
     (q, k, v), _ = _b2_inputs(6, 1, 4, 4, 2040, 64, 4, card)
     q, k, v = (x.reshape(4, 2040, 64).contiguous() for x in (q, k, v))

@@ -107,9 +107,16 @@ def test_ops_gradients_match_jax(case, degree):
 
 
 def test_bf16_gradient_raises():
+    """Since B2's backward takes bfloat16, a bf16 gradient no longer raises
+    and comes back in bf16 (tests/test_torch_b2_bf16.py holds its values
+    to jax.grad); float16, which neither version takes, still raises."""
     x = torch.zeros(1, 2, 32, 8, dtype=torch.bfloat16, requires_grad=True)
+    out = ops.poly_attention(x, x, x, degree=4)
+    (g,) = torch.autograd.grad(out.sum(), x)
+    assert g.dtype == torch.bfloat16 and g.shape == x.shape
+    h = torch.zeros(1, 2, 32, 8, dtype=torch.float16, requires_grad=True)
     with pytest.raises(TypeError, match="float32"):
-        ops.poly_attention(x, x, x, degree=4)
+        ops.poly_attention(h, h, h, degree=4).sum().backward()
 
 
 def test_noncausal_gradient_raises():
@@ -124,8 +131,8 @@ def test_cuda_backward_refuses_cpu_tensors_and_wide_heads():
     x, den = torch.zeros(2, 32, 8), torch.ones(2, 32)
     with pytest.raises(ValueError, match="CUDA tensors"):
         pf.poly_flash_backward_cuda(x, x, x, x, x, den, degree=4, scale=0.125)
-    with pytest.raises(ValueError, match="h <= 64"):
-        pf.check_backward_shapes(128)
+    with pytest.raises(ValueError, match="h <= 128"):
+        pf.check_backward_shapes(256)
 
 
 # ---------------------------------------------------------------------------

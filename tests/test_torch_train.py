@@ -168,16 +168,16 @@ def test_gradient_reaches_z0_and_not_through_returned_state():
 
 
 def test_bf16_gradient_raises():
-    """bf16 trains through B1 (tests/test_torch_bf16.py); its gradient
-    still raises where the types are mixed, and B2's backward takes f32
-    only."""
+    """bf16 trains through B1 (tests/test_torch_bf16.py) and, since B2's
+    backward takes bf16 too, through B2 (tests/test_torch_b2_bf16.py);
+    either gradient still raises where the types are mixed."""
     x = torch.zeros(1, 2, 32, 8, dtype=torch.bfloat16, requires_grad=True)
     y = torch.zeros(1, 2, 32, 8, requires_grad=True)
     out = ops.polysketch_attention(x, x, y, y, y, degree=4, scale=0.125, block_size=16)
     with pytest.raises(TypeError, match="one type"):
         out.sum().backward()
-    with pytest.raises(TypeError, match="float32"):
-        ops.poly_attention(x, x, x, degree=4)
+    with pytest.raises(TypeError, match="one dtype"):
+        ops.poly_attention(x, y, y, degree=4).sum().backward()
 
 
 def test_cuda_backward_refuses_cpu_tensors():

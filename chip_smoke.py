@@ -10,8 +10,9 @@ prefix cache with tracing on, serve and train the two recurrent families
 serve and train the VLM (llava-next-mistral-7b, with image embeddings)
 and the encoder-decoder (whisper-large-v3) in bf16, train exact
 polynomial attention in bf16 (gpt2s-poly4, and starcoder2-3b at h 128),
-run the data-parallel training steps at world 1 on NCCL, and check the
-port against itself.
+run the data-parallel training steps at world 1 on NCCL, serve
+gpt2s-polysketch and gpt2s-poly4 through two replicas with seeded faults
+and bit-exact failover, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -91,7 +92,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      f32), with the backward's occupancy there;
   5. the continuous-batching ServeEngine (run after each model's phase-3
      checks): each of the three models at full width and depth serves 8
-     requests on 4 slots (prompts 600-4096 tokens, 32 new tokens, greedy
+     requests on 4 slots (prompts 600-4096 tokens, 16 new tokens, greedy
      and sampled, prefill budget 2048, overlap on), with TTFT, time a
      decode tick, generated tokens/s, B1 / B2 launches (one a layer per
      prefill chunk, no plain-version call) and the host syncs of a decode
@@ -115,7 +116,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      qwen3-14b, yi-34b) and llava-next-mistral-7b's backbone (token-only
      prompts, the reference's DecodeState path) at their published widths
      in bf16, seeded
-     weights drawn on the card, each at 12 layers (serve_depth: the
+     weights drawn on the card, each at 8 layers (serve_depth: the
      most whose f32 weights fit, at most DENSE_SERVE_LAYERS), served
      through ServeEngine: 4 requests on 2 slots (prompts 1024-4096
      tokens, 16 new, two greedy and two sampled), B1 once a layer per
@@ -135,7 +136,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
   9. the prefix-reuse snapshot cache and the serving telemetry (run after
      phase 5): gpt2s-polysketch at full width and depth, f32, serves 8
      requests on 4 slots, each a 3072-token shared system prompt and its
-     own 256-1023-token suffix (32 new tokens, greedy and sampled, budget
+     own 256-1023-token suffix (16 new tokens, greedy and sampled, budget
      2048, overlap on) with no prefix cache (A), with a PrefixCache of 512
      MiB and a disk tier under build/ plus tracing and memory sampling
      after a warm-up and reset_stats() (B), and through a new engine and
@@ -177,7 +178,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      drops), the sort-based dispatch against the dense oracle in f32
      (1e-4 of max|y|) and bf16 (5e-2) in 1, 2 and 4 dispatch groups, and
      twice bit for bit; dbrx-132b (16 experts top-4, every layer) at the
-     most layers whose f32 weights fit (5 of 40) and
+     most layers whose f32 weights fit, at most MOE_SERVE_LAYERS (3 of 40) and
      llama4-maverick-400b-a17b (128 experts top-1, every second layer) at
      its first (GLU, MoE) cycle, bf16, seeded weights drawn on the card,
      served through ServeEngine at the published capacity factor 1.25 (4
@@ -216,8 +217,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      llava's logits move with image_embeds + 1; ServeEngine and generate
      refuse Whisper. Training: llava 1 x 4096 tokens (576 image rows),
      remat "full", at the depth that fits (train_depth), at most 7 layers
-     (VLM_TRAIN_LAYERS); Whisper 4 x 448 tokens over 1500 frames at full
-     depth, remat "dots" (a full
+     (VLM_TRAIN_LAYERS); Whisper 4 x 448 tokens over 1500 frames at 16
+     encoder + 16 decoder layers (AUDIO_TRAIN_LAYERS), remat "dots" (a full
      rematerialisation, as the reference's plain jax.checkpoint): one
      step's f32 gradients through B1 and its backward against the plain
      path's (1e-4 of each leaf's max), 1 + 3 timed bf16 steps (step ms,
@@ -241,6 +242,33 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      and launch/train.py --mesh 1x1:data,model the losses of the run
      without --mesh (3 steps). The JSON line's B2 rows carry these runs'
      launches under `train_bf16_launches`.
+ 14. replicated serving with bit-exact failover (after phase 13):
+     gpt2s-polysketch at full width and depth, f32, seed-0 weights drawn on
+     the card, served by a ReplicaSet of 2 replicas x 4 slots on one card
+     (a 512 MiB PrefixCache, log-probabilities, overlap, budget 2048): 6
+     requests of 600-3070 tokens, four of whose streams cross a 1024-token
+     block boundary in their first decode ticks, 24 new tokens, greedy and
+     sampled, each run after a warm-up of every engine: A fault-free; B
+     kill@K:r0, K two ticks after replica 0's first checkpoint in A; C
+     drop-snapshot@0:r0 and that kill (a cold prefill and a full replay); D
+     a hang on replica 1 past a limit of 4 x A's slowest tick. Gates: B, C
+     and D give A's tokens and log-probabilities bit for bit request by
+     request; deaths exactly the schedule's (a death it did not arm, a
+     crash, fails the phase); failovers, checkpoints in B, dropped ones in
+     C, recovered installs, no duplicate, no retrace on the survivors; B1
+     launched in every run, no plain-version call; A's profiled ticks at
+     one host sync a replica tick and one more a checkpoint. Logged: ms a
+     coordinator tick, TTFT p50, the recovery's wall ms (death to the first
+     recovered token), each checkpoint call's ms and bytes. gpt2s-poly4 (a
+     KV state, no snapshot) in runs A and B without a cache: bit for bit,
+     B2 launched more in B (the recovery's cold prefill). launch/serve.py
+     at full width with --replicas 2 --chaos kill@6 --logprobs writes the
+     fault-free run's --tokens-out file exactly, each run's fleet line
+     names exactly its schedule's deaths (the CLI itself exits non-zero on
+     a death its schedule did not cause), and a SMOKE run under
+     SIGTERM after its `serving:` line exits 0 with one checkpoint file a
+     decoding slot. The JSON line's B1 and B2 rows carry these runs'
+     launches under `replica_launches`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -248,12 +276,16 @@ as its last line `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import functools
 import gc
+import io
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -277,13 +309,16 @@ from repro_torch.configs.gpt2_paper import GPT2_SMALL_POLY4, GPT2_SMALL_SOFTMAX 
 from repro_torch.core import decode as dec  # noqa: E402
 from repro_torch.data import DataIterator, make_markov_lm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.kernels import lt_mult as lt  # noqa: E402
 from repro_torch.kernels import poly_flash as pf  # noqa: E402
 from repro_torch.kernels import polysketch_causal as pc  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.serve.chaos import ChaosInjector  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, generate, make_serve_fns  # noqa: E402
 from repro_torch.serve.prefix_cache import PrefixCache, snapshot_nbytes  # noqa: E402
+from repro_torch.serve.replicas import ReplicaSet  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams, sample_step  # noqa: E402
 from repro_torch.serve.telemetry import Telemetry, validate_trace  # noqa: E402
 from repro_torch.train import init_train_state, make_loss_fn, make_train_step  # noqa: E402
@@ -1216,7 +1251,8 @@ def phase_softmax_self_checks(model):
 # ---------------------------------------------------------------------------
 
 ENGINE_LENS = (600, 1024, 1500, 2048, 2600, 3072, 3500, 4096)
-ENGINE_SLOTS, ENGINE_GEN, ENGINE_BUDGET = 4, 32, 2048
+# 16 new tokens a request (cut from 32 to make room for phase 14)
+ENGINE_SLOTS, ENGINE_GEN, ENGINE_BUDGET = 4, 16, 2048
 ENGINE_SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
 ENGINE_LP_TOL = 1e-3
 # the CUDA runtime calls that make the host wait for the device
@@ -1308,7 +1344,7 @@ def profile_engine_ticks(model, prompts, samp, ticks=8, eng=None, cut=600):
 def phase_engine(model, kernel=None):
     """gpt2s-polysketch / gpt2s-poly4 / gpt2s-softmax at full width and
     depth served through ServeEngine: 8 requests on 4 slots (prompts of
-    600-4096 tokens, 32 new tokens each, requests 0-3 greedy, 4-7 sampled
+    600-4096 tokens, 16 new tokens each, requests 0-3 greedy, 4-7 sampled
     at temperature 0.8, top-k 40, top-p 0.95), prefill budget 2048 tokens a
     tick, overlap on, all submitted at t = 0. The run is made twice: in
     reverse order first (it also warms the allocator and cuBLAS), then in
@@ -1477,7 +1513,7 @@ def prefix_run(label, eng, prompts, samp, blk):
 def phase_prefix_cache(model, card):
     """gpt2s-polysketch at full width and depth, f32, serving a shared
     system prompt through the prefix cache: 8 requests on 4 slots, each a
-    3072-token system prompt and its own 256-1023-token suffix, 32 new
+    3072-token system prompt and its own 256-1023-token suffix, 16 new
     tokens, requests 0-3 greedy and 4-7 sampled, prefill budget 2048,
     overlap on, all at t = 0, in three runs: A with no prefix cache; B
     with PrefixCache(512 MiB, save_dir) and Telemetry(trace, memory),
@@ -2151,7 +2187,7 @@ DENSE_SHARE = 0.9              # of the card's memory the reckoning may plan for
 # phase 7's depth cap: its engine ticks are host-bound (~12.5 ms a layer),
 # and the script must stay well inside its time limit (1036 s in all with
 # the four at up to 40 layers, NVIDIA H100 80GB HBM3, 700 W)
-DENSE_SERVE_LAYERS = 12
+DENSE_SERVE_LAYERS = 8
 DENSE_SERVE_RESERVE_GIB = 12   # beside the f32 weights: casts, states, logits, the check
 DENSE_TRAIN_RESERVE_GIB = 14   # beside 16 B a parameter: logits, casts, the gradient check
 DENSE_TRAIN_ACT_GIB = 0.5      # a layer's kept activations at 1 x 4096 under remat "dots"
@@ -3126,6 +3162,9 @@ MOE_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b")
 # GiB), the slots' states, a chunk's activations and logits, the checks'
 # train-mode forward
 MOE_SERVE_RESERVE_GIB = 8
+# dbrx serves at most this many of the 5 layers that fit, to make room for
+# phase 14 (in whole cycles: maverick keeps its first (GLU, MoE) pair)
+MOE_SERVE_LAYERS = 3
 # beside 16 B a parameter: the layer's bf16 expert casts kept for its
 # recomputed backward (6 GiB for dbrx), their gradients, logits
 MOE_TRAIN_RESERVE_GIB = 12
@@ -3327,7 +3366,8 @@ def log_profile(label, prof):
 def phase_moe_serve(arch, card):
     """One MoE model at its published width, bf16, seeded weights drawn on
     the card, at the most whole cycles that fit (moe_depth: dbrx 5 of 40
-    layers, maverick its first (GLU, MoE) cycle), served through
+    layers, capped at MOE_SERVE_LAYERS; maverick its first (GLU, MoE)
+    cycle), served through
     ServeEngine at the published capacity factor 1.25: 4 requests on 2
     slots (prompts 4096 / 1024 / 3072 / 2048, 16 new tokens, 0 and 1
     greedy, 2 and 3 sampled), prefill budget 2048, overlap on. Gates: B1
@@ -3346,6 +3386,7 @@ def phase_moe_serve(arch, card):
     t_phase = time.perf_counter()
     full = get_config(arch)
     depth = moe_depth(full, 4, MOE_SERVE_RESERVE_GIB)
+    depth = max(min(depth, MOE_SERVE_LAYERS), cycle_split(full)[1])
     cfg = full.replace(n_layers=depth)
     cycle, g, rest = cycle_split(full)
     torch.cuda.reset_peak_memory_stats()
@@ -3610,6 +3651,10 @@ XM_TRAIN_STEPS = 3
 # trained at train_depth's 14 of 32 layers: 35.0 s of the phase against
 # 19.3 s at 7, NVIDIA H100 80GB HBM3, 700 W)
 VLM_TRAIN_LAYERS = 7
+# Whisper's training depth (encoder and decoder), cut to make room for
+# phase 14 (full depth, 32 + 32: 54.8 s of the phase against 23.2 s at 16
+# + 16, NVIDIA H100 80GB HBM3, 700 W)
+AUDIO_TRAIN_LAYERS = 16
 # Whisper's bf16 serving gate. Phase 7's (served log-probabilities within
 # DENSE_LP_TOL of a blocked plain bf16 forward) does not hold for it
 # (4.674e-2 nats; ROADMAP.md §C): its greedy tokens keep log-probabilities
@@ -3880,7 +3925,8 @@ def phase_xm_train(arch, card):
     """llava-next-mistral-7b (1 x 4096 tokens, 576 image rows, remat "full",
     at the depth that trains, train_depth, at most VLM_TRAIN_LAYERS) or
     whisper-large-v3 (4 x 448
-    tokens over 1500 frames, full depth, remat "dots", which is full
+    tokens over 1500 frames, 16 encoder + 16 decoder layers
+    (AUDIO_TRAIN_LAYERS), remat "dots", which is full
     rematerialisation as in the reference) trained at its published width,
     seeded weights drawn on the card: (1) one step's f32 gradients (the
     same weights under f32 compute) through B1 and its backward against
@@ -3892,14 +3938,16 @@ def phase_xm_train(arch, card):
     t_phase = time.perf_counter()
     full = get_config(arch)
     vlm = full.family == "vlm"
-    depth = min(train_depth(full), VLM_TRAIN_LAYERS) if vlm else full.n_layers
-    cfg = full.replace(n_layers=depth)
+    depth = min(train_depth(full), VLM_TRAIN_LAYERS) if vlm else AUDIO_TRAIN_LAYERS
+    cfg = (full.replace(n_layers=depth) if vlm else
+           full.replace(n_layers=depth, encoder_layers=AUDIO_TRAIN_LAYERS))
     rows, seq = (1, VLM_TRAIN_SEQ) if vlm else AUDIO_TRAIN
     log(f"phase 12: {arch} training, bf16, remat {cfg.remat!r}, {rows} x {seq} tokens a step "
         + (f"({cfg.n_image_tokens} image rows), " if vlm
            else f"over {cfg.encoder_len} frames, ")
         + (f"{depth} of {full.n_layers} layers (train_depth, at most VLM_TRAIN_LAYERS)" if vlm
-           else f"{cfg.encoder_layers} encoder + {depth} decoder layers (full depth)")
+           else f"{cfg.encoder_layers} encoder + {depth} decoder layers of "
+                f"{full.encoder_layers} + {full.n_layers} (AUDIO_TRAIN_LAYERS)")
         + f"; {card}")
     batches = xm_train_batches(cfg, XM_TRAIN_STEPS + 1)
     tcfg = TrainConfig(seq_len=seq, global_batch=rows, steps=100, peak_lr=3e-3)
@@ -4270,6 +4318,339 @@ def phase_train_all(card):
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"train_all": rows}, default=float))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 14: replicated serving with bit-exact failover
+# ---------------------------------------------------------------------------
+
+# prompts whose streams cross a 1024-token block boundary in their first
+# decode ticks (1020 +4, 2040 +8, 3070 +2, 2046 +2), and two that do not
+REPLICA_LENS = (1020, 2040, 3070, 2046, 600, 1500)
+REPLICA_GEN, REPLICA_SLOTS, REPLICA_BUDGET = 24, 4, 2048
+REPLICA_SAMPLED = (dict(temperature=0.8, top_k=40), dict(temperature=0.8, top_p=0.9),
+                   dict(temperature=0.8, top_k=40, top_p=0.9))
+REPLICA_KILL_AFTER = 2          # the kill: this many ticks after replica 0's first checkpoint
+REPLICA_HANG_FACTOR = 4         # the hang limit: this many times run A's slowest tick
+# the reference's CI chaos gate at full width: prompt buckets 1020 / 1530 / 2040
+REPLICA_CLI = ["--arch", "gpt2s-polysketch", "--draw-on-device", "--requests", "4",
+               "--slots", "2", "--prompt-len", "2040", "--gen", "24", "--overlap",
+               "--prefill-budget", "2048", "--replicas", "2", "--logprobs"]
+# the SIGTERM drain: SMOKE (block 16), so the drain's extra ticks stay under 16
+REPLICA_DRAIN_CLI = ["--smoke", "--requests", "4", "--slots", "2", "--prompt-len", "40",
+                     "--gen", "2000", "--prefix-cache-mb", "8"]
+REPLICA_DIR = os.path.join(ROOT, "build", "replica_drain")   # git-ignored
+
+
+def replica_workload(vocab):
+    """6 requests (REPLICA_LENS), 0-2 greedy and 3-5 sampled (REPLICA_SAMPLED,
+    a seed each); 6 warm-up prompts of the same lengths, other tokens."""
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, vocab, n) for n in REPLICA_LENS]
+    warm = [rng.integers(0, vocab, n) for n in REPLICA_LENS]
+    samp = [SamplingParams()] * 3 + [SamplingParams(seed=140 + i, **s)
+                                     for i, s in enumerate(REPLICA_SAMPLED)]
+    return prompts, warm, samp
+
+
+def replica_run(label, model, prompts, warm, samp, *, chaos=None, cache=True,
+                hang_timeout=None, profile=None):
+    """One counted run of the workload through a ReplicaSet of 2 replicas x
+    REPLICA_SLOTS slots on the card (a 512 MiB PrefixCache when `cache`,
+    log-probabilities, budget REPLICA_BUDGET, overlap, tracing), after each
+    engine served the `warm` prompts (2 tokens; none: no warm-up, and the
+    watchdogs stay unarmed) and reset_stats() armed the
+    watchdogs. `profile`: (first, last) coordinator ticks to count the CUDA
+    runtime calls of. Returns (outputs by request, the ReplicaSet, its row)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    tel = Telemetry(trace=True)
+    rs = ReplicaSet(model, n_replicas=2, slots=REPLICA_SLOTS,
+                    max_len=max(REPLICA_LENS) + REPLICA_GEN,
+                    prefix_cache=PrefixCache(PREFIX_CACHE_BYTES) if cache else None,
+                    logprobs=True, prefill_budget=REPLICA_BUDGET, overlap=True,
+                    hang_timeout_s=hang_timeout,
+                    chaos=ChaosInjector(chaos) if chaos else None, telemetry=tel)
+    if warm:
+        for k, eng in enumerate(rs.engines):
+            # other tokens on each replica: they share the prefix cache
+            for p in warm:
+                eng.submit((p + k) % model.cfg.vocab_size, 2)
+            eng.run()
+        rs.reset_stats()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=acts) as prof:   # the profiler's own calls
+        pass
+    base = {e.key: e.count for e in prof.key_averages()}
+    ckpts = []                     # (replica, tick, host ms of the call, serialized bytes)
+    checkpoint = rs._checkpoint
+
+    def timed_checkpoint(i, tick):
+        n, nbytes, t0 = rs._n_ckpts, rs.cache.ckpt_bytes if rs.cache else 0, time.perf_counter()
+        checkpoint(i, tick)
+        if rs._n_ckpts > n:
+            ckpts.append((i, tick, (time.perf_counter() - t0) * 1e3,
+                          (rs.cache.ckpt_bytes - nbytes) / (rs._n_ckpts - n)))
+    rs._checkpoint = timed_checkpoint
+    torch.cuda.synchronize()
+    zero_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        gids = [rs.submit(p, REPLICA_GEN, sampling=s) for p, s in zip(prompts, samp)]
+        outs, ticks, t_death, t_recovered, victims, prof = {}, 0, None, None, {}, None
+        sync_window, tick_ms = None, []
+        while rs.busy:
+            t_tick = time.perf_counter()
+            if profile and ticks == profile[0]:
+                prof = torch_profile(activities=acts)
+                prof.__enter__()
+                window0 = (sum(rs._ticks), len(ckpts))
+            for o in rs.step():
+                outs[o.rid] = o
+            ticks += 1
+            if prof is None and not (profile and profile[0] <= ticks - 1 < profile[1]):
+                tick_ms.append((time.perf_counter() - t_tick) * 1e3)
+            if prof is not None and ticks == profile[1]:
+                prof.__exit__(None, None, None)
+                calls = {e.key: e.count - base.get(e.key, 0) for e in prof.key_averages()}
+                sync_window = (sum(calls.get(k, 0) for k in SYNC_CALLS),
+                               sum(rs._ticks) - window0[0], len(ckpts) - window0[1])
+                prof = None
+            now = time.perf_counter()
+            if t_death is None and rs._deaths:
+                t_death = now
+                victims = {g.grid: len(g.emitted) for g in rs._live.values() if g.recovered}
+            elif t_death is not None and t_recovered is None and any(
+                    g not in rs._live or len(rs._live[g].emitted) > k
+                    for g, k in victims.items()):
+                t_recovered = now
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counts()
+    st = rs.stats()
+    by_req = {i: outs[g] for i, g in enumerate(gids)}
+    ttft = np.array([o.ttft_s for o in by_req.values()]) * 1e3
+    row = {"run": label, "chaos": chaos or "none", "cache": cache, "wall_ms": wall * 1e3,
+           "coordinator_ticks": ticks, "ms_a_coordinator_tick": wall * 1e3 / ticks,
+           "tick_ms_p50": float(np.median(tick_ms)),
+           "ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "recovery_ms": ((t_recovered - t_death) * 1e3 if t_recovered else None),
+           "launches": launched, "plain_calls": plain.calls,
+           "checkpoint_ticks": [(i, t) for i, t, _, _ in ckpts],
+           "checkpoint_ms": [round(ms, 3) for _, _, ms, _ in ckpts],
+           "checkpoint_bytes": sorted({int(b) for _, _, _, b in ckpts}),
+           "first_checkpoint_tick": {i: min((t for j, t, _, _ in ckpts if j == i),
+                                             default=None) for i in range(2)},
+           "replica_ticks": list(rs._ticks),
+           "slowest_tick_ms": max((max(d.durations, default=0.0) for d in rs._stragglers)) * 1e3,
+           "sync_window": sync_window,
+           **{k: st[k] for k in ("deaths", "unarmed_deaths", "failovers", "checkpoints",
+                                 "checkpoints_dropped", "duplicate_outputs",
+                                 "recovered_installs", "retraces", "alive", "requests")}}
+    log(f"  run {label} ({row['chaos']}, cache {cache}): {wall * 1e3:.1f} ms, {ticks} "
+        f"coordinator ticks, {row['ms_a_coordinator_tick']:.2f} ms a tick (median "
+        f"{row['tick_ms_p50']:.2f} outside a profile), TTFT p50 "
+        f"{row['ttft_p50_ms']:.1f} ms; deaths {st['deaths']}, failovers {st['failovers']}, "
+        f"checkpoints {st['checkpoints']} (+{st['checkpoints_dropped']} dropped), recovered "
+        f"installs {st['recovered_installs']}, duplicates {st['duplicate_outputs']}, "
+        f"retraces {st['retraces']}; recovery {row['recovery_ms']} ms; launches {launched}, "
+        f"plain calls {plain.calls}; checkpoint calls {len(ckpts)} ms "
+        f"{row['checkpoint_ms'][:6]} bytes {row['checkpoint_bytes']}; first checkpoint "
+        f"ticks {row['first_checkpoint_tick']}, replica ticks {row['replica_ticks']}, "
+        f"slowest tick {row['slowest_tick_ms']:.1f} ms"
+        + (f"; profiled window: {sync_window[0]} host syncs over {sync_window[1]} replica "
+           f"ticks and {sync_window[2]} checkpoints" if sync_window else "")
+        + (f"; UNARMED DEATHS {st['unarmed_deaths']}" if st["unarmed_deaths"]
+           else ""))
+    return by_req, rs, row
+
+
+def replica_gates(label, row, base, outs, deaths, kernel, more=()):
+    """A run's tokens and log-probabilities equal run A's request by request,
+    its deaths are exactly the schedule's, nothing is duplicated or lost, no
+    survivor retraced, `kernel` launched with no plain-version call."""
+    for i, o in base.items():
+        got = outs[i]
+        if not (np.array_equal(got.tokens, o.tokens)
+                and np.array_equal(got.logprobs, o.logprobs)):
+            raise AssertionError(f"run {label}, request {i}: tokens or log-probabilities "
+                                 "differ from run A's")
+    bad = [k for k, ok in more if not ok]
+    if (row["deaths"] != deaths or row["unarmed_deaths"] or row["duplicate_outputs"]
+            or row["requests"] != len(base) or row["retraces"] or row["plain_calls"]
+            or not row["launches"][kernel] or bad):
+        raise AssertionError(f"run {label}: deaths {row['deaths']} (armed {deaths}), "
+                             f"unarmed {row['unarmed_deaths']}, duplicates "
+                             f"{row['duplicate_outputs']}, requests {row['requests']}, "
+                             f"retraces {row['retraces']}, plain calls {row['plain_calls']}, "
+                             f"{kernel} launches {row['launches'][kernel]}, failed: {bad}")
+    log(f"  run {label}: the {len(base)} requests' tokens and log-probabilities equal run "
+        "A's bit for bit: True")
+
+
+def phase_replicas(card):
+    """Phase 14: gpt2s-polysketch at full width and depth (13 layers), f32,
+    seed-0 weights drawn on the card, served by a ReplicaSet of 2 replicas x 4
+    slots on cuda:0 (a 512 MiB PrefixCache, log-probabilities, overlap, budget
+    2048): 6 requests (REPLICA_LENS, 24 new tokens, 0-2 greedy, 3-5 sampled)
+    in four runs: A fault-free; B kill@K:r0, K two ticks after replica 0's
+    first checkpoint in A; C drop-snapshot@0:r0 and the same kill (a cold
+    prefill and a full replay); D hang@K':r1:sX with a hang limit of 4 x A's
+    slowest tick, X the limit + 1 s. Then gpt2s-poly4 (a KV state, no
+    snapshot, no cache; no warm-up) in runs A and B; then launch/serve.py at full width
+    with --replicas 2 and --chaos kill@6 against the same flags without chaos
+    (the --tokens-out files equal, the fleet lines' deaths {} and
+    {'kill': 1}), and a SMOKE subprocess under SIGTERM after
+    its `serving:` line (exit 0, one checkpoint file a decoding slot). Gates:
+    B, C, D and poly4's B bit for bit with their A; the deaths exactly the
+    schedule's; failovers; no duplicate; checkpoints in B, dropped ones in C;
+    recovered installs; no retrace on the survivors after the warm-up; B1
+    (B2 for poly4) launched in every run with no plain-version call, and B2
+    more often in poly4's B than its A (the recovery's cold prefill); run
+    A's profiled ticks at one host sync a replica tick and one more a
+    checkpoint. Returns {"rows": ..., "replica_launches": {kernel: {run:
+    launches}}}."""
+    t_phase = time.perf_counter()
+    cfg = get_config("gpt2s-polysketch")
+    log(f"phase 14: replicated serving, {cfg.name} full width and depth ({cfg.n_layers} "
+        f"layers), f32, 2 replicas x {REPLICA_SLOTS} slots on one card, prompts "
+        f"{REPLICA_LENS}, {REPLICA_GEN} new tokens, requests 0-2 greedy, 3-5 sampled "
+        f"{REPLICA_SAMPLED}, budget {REPLICA_BUDGET}, overlap on; card {card}")
+    model = build_model(cfg, device="cuda", seed=0, draw_on_device=True)
+    prompts, warm, samp = replica_workload(cfg.vocab_size)
+    rows, outs = {}, {}
+    outs["A"], rs_a, rows["A"] = replica_run("A", model, prompts, warm, samp, profile=(2, 4))
+    first0 = rows["A"]["first_checkpoint_tick"][0]
+    first1 = rows["A"]["first_checkpoint_tick"][1]
+    if first0 is None or first1 is None:
+        raise AssertionError(f"run A: a replica wrote no checkpoint ({rows['A']})")
+    kill = first0 + REPLICA_KILL_AFTER
+    if kill >= rows["A"]["replica_ticks"][0] - 1:
+        raise AssertionError(f"kill tick {kill} is past replica 0's run")
+    hang_at = first1 + REPLICA_KILL_AFTER
+    limit = max(REPLICA_HANG_FACTOR * rows["A"]["slowest_tick_ms"] / 1e3, 0.5)
+    syncs, rticks, nck = rows["A"]["sync_window"]
+    log(f"  run A's profiled window: {syncs} host syncs over {rticks} replica ticks and "
+        f"{nck} checkpoints (allowed {rticks + nck})")
+    if syncs > rticks + nck:
+        raise AssertionError(f"run A: {syncs} host syncs over {rticks} replica ticks and "
+                             f"{nck} checkpoints")
+    del rs_a
+    specs = {"B": dict(chaos=f"kill@{kill}:r0"),
+             "C": dict(chaos=f"drop-snapshot@0:r0,kill@{kill}:r0"),
+             "D": dict(chaos=f"hang@{hang_at}:r1:s{limit + 1.0:.3f}", hang_timeout=limit)}
+    for run, kw in specs.items():
+        outs[run], rs, rows[run] = replica_run(run, model, prompts, warm, samp, **kw)
+        del rs
+        gc.collect()
+    r = rows
+    replica_gates("B", r["B"], outs["A"], outs["B"], {"kill": 1}, "polysketch_causal", (
+        ("failovers", r["B"]["failovers"] >= 1), ("checkpoints", r["B"]["checkpoints"] >= 1),
+        ("recovered_installs", r["B"]["recovered_installs"] >= 1)))
+    replica_gates("C", r["C"], outs["A"], outs["C"], {"kill": 1}, "polysketch_causal", (
+        ("failovers", r["C"]["failovers"] >= 1),
+        ("checkpoints_dropped", r["C"]["checkpoints_dropped"] >= 1),
+        ("recovered_installs", r["C"]["recovered_installs"] >= 1)))
+    replica_gates("D", r["D"], outs["A"], outs["D"], {"hang": 1}, "polysketch_causal", (
+        ("failovers", r["D"]["failovers"] >= 1),
+        ("recovered_installs", r["D"]["recovered_installs"] >= 1)))
+    if (r["A"]["deaths"] or r["A"]["unarmed_deaths"] or r["A"]["retraces"]
+            or r["A"]["plain_calls"]):
+        raise AssertionError(f"run A: {r['A']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the SIGTERM drain's process starts now and runs beside poly4's runs and
+    # the CLI's (no timing gate of theirs), so its start-up overlaps them
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drain_job = pool.submit(replica_drain)
+        poly = build_model(GPT2_SMALL_POLY4, device="cuda", seed=0, draw_on_device=True)
+        log(f"  {poly.cfg.name}: runs A and B without a prefix cache (a KV state has no "
+            "snapshot: the recovery prefills the whole prompt in one B2 call a layer, then "
+            "replays)")
+        outs["poly4 A"], rs, rows["poly4 A"] = replica_run(
+            "poly4 A", poly, prompts, (), samp, cache=False)
+        del rs
+        outs["poly4 B"], rs, rows["poly4 B"] = replica_run(
+            "poly4 B", poly, prompts, (), samp, chaos=f"kill@{kill}:r0", cache=False)
+        del rs, poly
+        gc.collect()
+        torch.cuda.empty_cache()
+        pa, pb = rows["poly4 A"], rows["poly4 B"]
+        replica_gates("poly4 B", pb, outs["poly4 A"], outs["poly4 B"], {"kill": 1},
+                      "poly_flash", (
+                          ("failovers", pb["failovers"] >= 1),
+                          ("recovery prefill",
+                           pb["launches"]["poly_flash"] > pa["launches"]["poly_flash"])))
+
+        files = []
+        for chaos, deaths in (("none", {}), ("kill@6", {"kill": 1})):
+            files.append(os.path.join(REPLICA_DIR, f"tokens-{chaos}.json"))
+            os.makedirs(REPLICA_DIR, exist_ok=True)
+            t0 = time.perf_counter()
+            # the CLI exits non-zero on a death its schedule did not cause; its
+            # fleet line must also name exactly the death the schedule armed
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                serve_cli.main(REPLICA_CLI + ["--chaos", chaos, "--tokens-out", files[-1]])
+            text = out.getvalue()
+            log("\n".join("    " + line for line in text.splitlines()))
+            log(f"  launch/serve.py --replicas 2 --chaos {chaos}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            if f"deaths={deaths!r} " not in text:
+                raise AssertionError(f"launch/serve.py --chaos {chaos}: its fleet line does not "
+                                     f"say deaths={deaths!r}")
+            gc.collect()
+        same = open(files[0], "rb").read() == open(files[1], "rb").read()
+        log(f"  launch/serve.py --chaos kill@6 --tokens-out equals the fault-free file: {same}")
+        if not same:
+            raise AssertionError("the CLI's --chaos kill@6 tokens differ from the fault-free run's")
+        drain = drain_job.result()
+    shutil.rmtree(REPLICA_DIR, ignore_errors=True)
+    for row in rows.values():
+        row["card"] = card
+    log(json.dumps({"replicas": list(rows.values()), "drain": drain}, default=float))
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "replica_launches": {
+        k: {run: row["launches"][k] for run, row in rows.items()}
+        for k in ("polysketch_causal", "poly_flash")}}
+
+
+def replica_drain():
+    """launch/serve.py (SMOKE, on the card) with a disk tier under build/:
+    SIGTERM a second after its flushed `serving:` line; it must exit 0
+    and leave one checkpoint file a decoding slot. Returns its numbers."""
+    d = os.path.join(REPLICA_DIR, "cache")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
+                             *REPLICA_DRAIN_CLI, "--prefix-cache-dir", d], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving:"):
+                break
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        out = "".join(lines) + proc.stdout.read()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    m = re.search(r"SIGTERM: drained (\d+) decoding slot\(s\), (\d+) requests served, "
+                  r"(\d+) checkpoint file", out)
+    files = [f for _, _, fs in os.walk(d) for f in fs if f.startswith("ckpt-")]
+    row = {"rc": rc, "seconds": time.perf_counter() - t0,
+           "decoding_slots": int(m.group(1)) if m else None,
+           "files": len(files), "line": m.group(0) if m else None}
+    log(f"  SIGTERM drain (SMOKE on the card): exit {rc}, {row['line']}, {len(files)} "
+        f"checkpoint files, {row['seconds']:.1f} s")
+    if rc != 0 or not m or not 0 < row["decoding_slots"] == len(files) == int(m.group(3)):
+        raise AssertionError(f"the SIGTERM drain: exit {rc}, files {files}, output:\n"
+                             + out[-3000:])
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5054,6 +5435,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     train_all = phase_train_all(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    replicas = phase_replicas(card)
     dense_launches = {
         "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
                               "train": dense_train["launches"]["polysketch_causal"]},
@@ -5073,6 +5457,8 @@ def main(argv=None):
                "library_ms": None}
         if name == "polysketch_causal":   # phase 9: the prefix cache's path
             out["prefix_cache_launches"] = b1_prefix
+        if name in replicas["replica_launches"]:   # phase 14: the replicated runs
+            out["replica_launches"] = replicas["replica_launches"][name]
         if name in dense_launches:   # the dense models at h 128, bf16
             key = "fwd" if name == "polysketch_causal" else "bwd"
             h_ms, h_plain, h_bd = h128_times["bfloat16"][key]

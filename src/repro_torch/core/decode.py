@@ -511,3 +511,12 @@ def slot_gather(slot_caches, slot: int):
     with its `pos` as a host int (this reads the position back: one sync)."""
     return [_node_map(lambda x: x[slot:slot + 1].clone(),
                       lambda p: int(p[slot]), node) for node in slot_caches]
+
+
+def slot_view(slot_caches, slot: int, pos: int):
+    """Row `slot` of the slot-stacked cache as a batch-1 model cache of
+    views (no copy, no sync), at the position `pos` the caller knows: for
+    a reader that copies what it keeps (a snapshot, slot_scatter) before
+    the stack is written again."""
+    return [_node_map(lambda x: x[slot:slot + 1], lambda p: int(pos), node)
+            for node in slot_caches]

@@ -3,7 +3,7 @@
 Port of the JAX package's ``core/state.py`` for every decode-state kind:
 ``polysketch``, ``poly_kv``, ``kv_full`` and ``kv_ring`` here, ``ssd``
 and ``rglru`` registered by ``models/ssm.py`` and ``models/rglru.py`` on
-import; the shard axes belong to scale-out and are not ported. The serve
+import. The serve
 engine, ``generate`` and the scheduler speak only this protocol and never
 branch on the family or the mechanism:
 
@@ -161,6 +161,63 @@ def restore_state(fresh_state, snapshot, n_tokens):
 
 
 # ---------------------------------------------------------------------------
+# shard axes: the logical names of each cache leaf's dims
+# ---------------------------------------------------------------------------
+#
+# As the reference's: only the batch (slot) dim and, for attention states,
+# the kv-head dim are named; every reduction runs within one head and one
+# row, so a plan that splits them keeps each row's bits. An int position
+# is a scalar (no names); the slot stack's (slots,) positions are "batch".
+
+def _rank(x) -> int:
+    return x.dim() if torch.is_tensor(x) else 0
+
+
+def heads_shard_axes(node):
+    """("batch", "kv_heads", ...) for the (B, Hkv, ...) leaves of an
+    attention-state node; batch-only for lower-rank leaves; () for a
+    scalar position."""
+    def one(x):
+        nd = _rank(x)
+        if nd == 0:
+            return ()
+        if nd >= 4:
+            return ("batch", "kv_heads") + (None,) * (nd - 2)
+        return ("batch",) + (None,) * (nd - 1)
+    return type(node)(*(one(x) for x in node))
+
+
+def batch_shard_axes(node):
+    """Leading-batch-only axes: the conservative declaration for recurrent
+    states whose channel mixing (the conv over d_inner + 2n channels)
+    crosses what a per-head split would cut."""
+    def one(x):
+        nd = _rank(x)
+        return ("batch",) + (None,) * (nd - 1) if nd else ()
+    return type(node)(*(one(x) for x in node))
+
+
+# node type -> (node -> same-structure node of logical-name tuples);
+# filled by register_state from each StateSpec's shard_axes
+NODE_SHARD_AXES: dict[type, Callable] = {}
+
+
+def state_shard_axes(state) -> list:
+    """The logical axes of a model cache (a list of per-layer nodes): a
+    node of name tuples per layer, through each kind's declaration.
+
+    The engine's slot stack keeps its slots on the batch axis
+    (core.decode.broadcast_slot_caches), so the same call names a
+    slot-stacked cache: its slot dim is "batch", and its per-slot
+    positions are ("batch",). The reference's slot stack has a leading
+    slot axis over batch-1 caches, and its ``slot_stacked=True`` names it
+    "batch" in front of the inner batch-1 dim's; the port has no inner
+    dim, so its names are the reference's without that one."""
+    return [NODE_SHARD_AXES.get(type(node), batch_shard_axes)(node)
+            for node in state]
+
+
+# ---------------------------------------------------------------------------
 # the kind registry
 # ---------------------------------------------------------------------------
 
@@ -172,6 +229,9 @@ class StateSpec:
     granularity: str | None     # see module docstring
     resumable: bool             # prefill can continue from a prior state
     init: Callable              # (cfg, batch, max_len, dtype, device) -> node
+    # (node) -> same-structure node of logical-axis-name tuples naming the
+    # partitionable dims (see state_shard_axes); None = batch-only
+    shard_axes: Callable | None = None
 
 
 REGISTRY: dict[str, StateSpec] = {}
@@ -179,6 +239,8 @@ REGISTRY: dict[str, StateSpec] = {}
 
 def register_state(spec: StateSpec) -> StateSpec:
     REGISTRY[spec.kind] = spec
+    if spec.shard_axes is not None:
+        NODE_SHARD_AXES[spec.node_type] = spec.shard_axes
     return spec
 
 
@@ -197,23 +259,21 @@ def _init_kv(cfg, batch, max_len, dtype, device):
                              max_len, dtype, device)
 
 
-# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
 register_state(StateSpec(
     kind="polysketch", node_type=dec.PolysketchCache,
     granularity="block", resumable=True,
     init=lambda cfg, batch, max_len, dtype, device: dec.init_polysketch_cache(
         batch, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.sketch_size,
-        cfg.lt_block_size, dtype, device)))
+        cfg.lt_block_size, dtype, device),
+    shard_axes=heads_shard_axes))
 
-# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
 register_state(StateSpec(
     kind="kv_full", node_type=dec.KVCache, granularity=None, resumable=False,
-    init=_init_kv))
+    init=_init_kv, shard_axes=heads_shard_axes))
 
-# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
 register_state(StateSpec(
     kind="poly_kv", node_type=dec.KVCache, granularity=None, resumable=False,
-    init=_init_kv))
+    init=_init_kv, shard_axes=heads_shard_axes))
 
 
 def _init_ring(cfg, batch, max_len, dtype, device):
@@ -223,10 +283,9 @@ def _init_ring(cfg, batch, max_len, dtype, device):
                                window, dtype, device)
 
 
-# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
 register_state(StateSpec(
     kind="kv_ring", node_type=dec.RingKVCache, granularity="token",
-    resumable=True, init=_init_ring))
+    resumable=True, init=_init_ring, shard_axes=heads_shard_axes))
 
 
 def mixer_state_kind(cfg, mixer: str = "attn") -> str:
@@ -603,3 +662,7 @@ class DecodeState:
     @staticmethod
     def slot_gather(slot_states, slot: int):
         return dec.slot_gather(slot_states, slot)
+
+    @staticmethod
+    def slot_view(slot_states, slot: int, pos: int):
+        return dec.slot_view(slot_states, slot, pos)

@@ -54,6 +54,22 @@ The registry's dense polysketch models (head width 128, bf16):
 
 (`--layers N` cuts the depth, as yi-34b needs on one 80 GB card.)
 
+Replicated serving (serve/replicas.py): --replicas N engines behind one
+coordinator with checkpointed failover, a seeded --chaos schedule (kill,
+hang, slow-tick, drop-snapshot, disk-flake; serve/chaos.py), load
+shedding (--shed-above), a hang deadline (--hang-timeout) and the
+checkpoint grid (--checkpoint-blocks). The failover gate: a run under
+chaos writes the fault-free run's --tokens-out file exactly:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --replicas 2 --logprobs --tokens-out /tmp/a.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --replicas 2 --chaos kill@6 --logprobs --tokens-out /tmp/b.json
+
+A SIGTERM after the flushed `serving:` line stops admissions, drains
+every decoding slot to a checkpoint (written under --prefix-cache-dir)
+and exits 0.
+
 The recurrent families (mamba2's SSD; recurrentgemma's RG-LRU and
 sliding-window attention, bf16), with or without the prefix cache:
 
@@ -84,44 +100,54 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.fault import PreemptionGuard
 from repro_torch.models.model_zoo import build_model
+from repro_torch.serve.chaos import ChaosInjector
 from repro_torch.serve.engine import ServeEngine, generate
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.serve.replicas import Overloaded, ReplicaSet
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.telemetry import Telemetry, format_event, validate_trace
 
-# flags of the reference's CLI that later slices port, with their ROADMAP item
-UNPORTED_FLAGS = {
-    "--mesh": "A.9 (scale-out)",
-    "--shard-model": "A.9 (scale-out)",
-    "--replicas": "A.9 (scale-out: replicas)",
-    "--chaos": "A.9 (scale-out: chaos)",
-    "--shed-above": "A.9 (scale-out: replicas)",
-    "--hang-timeout": "A.9 (scale-out: replicas)",
-    "--checkpoint-blocks": "A.9 (recovery and failover)",
-}
+# what a serving mesh beyond one device needs: data-sharded slots and
+# tensor-parallel compute over ranks
+MESH_ITEM = "ROADMAP A.9 item 3"
 
 
 def _percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p)) if xs else 0.0
 
 
-def simulate(engine: ServeEngine, arrivals, *, quiet=False):
+def simulate(engine, arrivals, *, quiet=False, guard=None):
     """Drive the engine under timed arrivals.
 
     arrivals: list of (arrival_s, prompt, max_new_tokens, eos_id, sampling)
     sorted by arrival time. A request is submitted when the wall clock
     passes its arrival offset and admitted at the next engine tick; live
-    slots are never re-prefilled or reset by an admission. Returns
-    (outputs in completion order, wall seconds)."""
+    slots are never re-prefilled or reset by an admission. `engine` may be
+    a ReplicaSet (the same surface): a shed submission (Overloaded) is
+    retried shortly later, so every request is served. With a
+    PreemptionGuard, a SIGTERM stops admissions and ends the loop (the
+    caller drains). Returns (outputs in completion order, wall seconds)."""
     pending = list(arrivals)
     outs = []
     t0 = time.perf_counter()
     while pending or engine.busy:
+        if guard is not None and guard.preempted:
+            pending.clear()
+            break
         now = time.perf_counter() - t0
         while pending and pending[0][0] <= now:
-            _, prompt, gen, eos, sampling = pending.pop(0)
-            engine.submit(prompt, gen, eos, sampling=sampling)
+            item = pending[0]
+            _, prompt, gen, eos, sampling = item
+            try:
+                engine.submit(prompt, gen, eos, sampling=sampling)
+            except Overloaded:
+                # load shed: back off and retry this arrival shortly
+                pending[0] = (now + 0.05,) + tuple(item[1:])
+                pending.sort(key=lambda x: x[0])
+                break
+            pending.pop(0)
         if engine.busy:
             for out in engine.step():
                 outs.append(out)
@@ -135,17 +161,8 @@ def simulate(engine: ServeEngine, arrivals, *, quiet=False):
     return outs, time.perf_counter() - t0
 
 
-def _reject_unported(argv):
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in UNPORTED_FLAGS:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP "
-                             f"{UNPORTED_FLAGS[flag]})")
-
-
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    _reject_unported(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="gpt2s-polysketch",
                     help="a registered config: gpt2s-polysketch, deepseek-7b, "
@@ -229,6 +246,33 @@ def main(argv=None):
                     help="exit non-zero if an entry point met a new call "
                          "signature, or a kernel library was built, "
                          "mid-serve (needs --warm)")
+    ap.add_argument("--mesh", default="1x1", metavar="DxM",
+                    help="serving mesh as data x model device counts; only "
+                         f"1x1 is ported (beyond it: {MESH_ITEM})")
+    ap.add_argument("--shard-model", action="store_true",
+                    help=f"tensor-parallel parameters ({MESH_ITEM}: not "
+                         "ported)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve through N replicated engines behind one "
+                         "coordinator with checkpointed bit-exact failover "
+                         "(0 = one engine); each replica on its own card "
+                         "when there are enough")
+    ap.add_argument("--chaos", default="none", metavar="SPEC",
+                    help="fault schedule for --replicas, e.g. kill@12, "
+                         "hang@8:r1:s0.6, slow-tick@5:x8, drop-snapshot@0, "
+                         "disk-flake@0:x2; comma-joined; 'none' disables "
+                         "(see serve/chaos.py)")
+    ap.add_argument("--shed-above", type=int, default=0,
+                    help="refuse submissions past this many outstanding "
+                         "requests a live replica (0 = off); shed arrivals "
+                         "are retried, so every request is still served")
+    ap.add_argument("--hang-timeout", type=float, default=0.0,
+                    help="declare a replica dead when a tick takes longer "
+                         "than this many seconds (0 = off); the tick is "
+                         "dropped and its requests fail over")
+    ap.add_argument("--checkpoint-blocks", type=int, default=1,
+                    help="checkpoint decoding slots every N state blocks "
+                         "(the failover's restore grid)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
@@ -237,6 +281,23 @@ def main(argv=None):
         raise SystemExit("--expect-no-retraces requires --warm (without a "
                          "warm-up every signature is new, so the gate would "
                          "be vacuous)")
+    replica_mode = args.replicas > 0
+    if args.chaos not in ("", "none") and not replica_mode:
+        raise SystemExit("--chaos needs --replicas (faults are injected "
+                         "per replica)")
+    if replica_mode and (args.mesh != "1x1" or args.shard_model):
+        raise SystemExit("--replicas places each replica itself; drop "
+                         "--mesh/--shard-model")
+    try:
+        mesh_d, mesh_m = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DxM (e.g. 1x1), got {args.mesh!r}")
+    if mesh_d * mesh_m != 1 or args.shard_model:
+        raise SystemExit(f"--mesh {args.mesh}"
+                         + (" --shard-model" if args.shard_model else "")
+                         + ": serving over more than one device (data-sharded "
+                         "slots, tensor-parallel compute) is not ported yet "
+                         f"({MESH_ITEM})")
 
     overrides = {"lt_block_size": args.block_size} if args.block_size else {}
     if args.layers:
@@ -256,13 +317,29 @@ def main(argv=None):
         trace=trace_on, memory=bool(trace_on or args.metrics_out),
         on_event=(lambda ev: print(format_event(ev))) if args.log_events
         else None)
-    engine = ServeEngine(model, slots=args.slots,
-                         max_len=args.prompt_len + args.gen,
-                         prefix_cache=prefix_cache,
-                         min_snapshot_blocks=args.min_snapshot_blocks,
-                         logprobs=args.logprobs,
-                         prefill_budget=args.prefill_budget or None,
-                         overlap=args.overlap, telemetry=telemetry)
+    common = dict(slots=args.slots, max_len=args.prompt_len + args.gen,
+                  prefix_cache=prefix_cache,
+                  min_snapshot_blocks=args.min_snapshot_blocks,
+                  logprobs=args.logprobs,
+                  prefill_budget=args.prefill_budget or None,
+                  overlap=args.overlap, telemetry=telemetry)
+    if replica_mode:
+        chaos = (ChaosInjector(args.chaos, seed=args.seed)
+                 if args.chaos not in ("", "none") else None)
+        engine = ReplicaSet(model, n_replicas=args.replicas,
+                            checkpoint_blocks=args.checkpoint_blocks,
+                            hang_timeout_s=args.hang_timeout or None,
+                            shed_above=args.shed_above or None,
+                            chaos=chaos, **common)
+        armed = (", ".join(s.describe() for s in chaos.armed) if chaos
+                 else "none")
+        print(f"replicas: {args.replicas} x {args.slots} slots on "
+              + ", ".join(sorted({str(e.device) for e in engine.engines}))
+              + f" (checkpoint every {args.checkpoint_blocks} block(s), "
+              f"shed_above={args.shed_above or 'off'}, "
+              f"hang_timeout={args.hang_timeout or 'off'}, chaos: {armed})")
+    else:
+        engine = ServeEngine(model, **common)
     rng = np.random.default_rng(args.seed)
     eos = None if args.eos_id < 0 else args.eos_id
     # a few fixed prompt-length buckets (not a continuum): mixed-length
@@ -307,16 +384,23 @@ def main(argv=None):
         # and a restore from the cache run too (the JAX CLI warms with one
         # request there and counts the first restore as a retrace)
         wrng = np.random.default_rng(args.seed + 104729)
-        if args.shared_prefix:
-            wshared = random_prompt(wrng, args.shared_prefix)
-            warm = [np.concatenate([wshared, random_prompt(
-                wrng, args.prompt_len - args.shared_prefix)])
-                for _ in range(3)]
-        else:
-            warm = [random_prompt(wrng, n) for n in buckets]
-        for p in warm:
-            engine.submit(p, min(4, args.gen), None)
-        engine.run()
+
+        def warm_prompts():
+            if args.shared_prefix:
+                wshared = random_prompt(wrng, args.shared_prefix)
+                return [np.concatenate([wshared, random_prompt(
+                    wrng, args.prompt_len - args.shared_prefix)])
+                    for _ in range(3)]
+            return [random_prompt(wrng, n) for n in buckets]
+
+        # each replica warms its own entry points, directly (the
+        # coordinator's chaos tick count does not advance), on prompts of
+        # its own (the replicas share the prefix cache)
+        for eng in (engine.engines if replica_mode else [engine]):
+            warm = warm_prompts()
+            for p in warm:
+                eng.submit(p, min(4, args.gen), None)
+            eng.run()
         engine.reset_stats()
         print(f"warm-up: {len(warm)} requests (lengths "
               f"{sorted({len(p) for p in warm})}), watchdog armed")
@@ -330,9 +414,43 @@ def main(argv=None):
 
     dev = model.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+    def flush_observability():
+        if args.trace_out:
+            trace = telemetry.export_trace()
+            errs = validate_trace(trace)
+            if errs:
+                raise SystemExit("trace schema violations:\n  "
+                                 + "\n  ".join(errs[:10]))
+            with open(args.trace_out, "w") as f:
+                json.dump(trace, f)
+            print(f"trace: {len(trace['traceEvents'])} events -> "
+                  f"{args.trace_out} (schema valid; open at ui.perfetto.dev)")
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                f.write(telemetry.render_prometheus())
+            print(f"metrics: {len(telemetry.registry.names())} series -> "
+                  f"{args.metrics_out}")
+
+    guard = PreemptionGuard().install()
+    # flushed: from this line on a SIGTERM is caught and drains cleanly
     print(f"serving: {cfg.name} on {name}, {args.requests} requests, "
           f"{args.slots} slots, rate={args.rate}/s", flush=True)
-    outs, wall = simulate(engine, arrivals)
+    try:
+        outs, wall = simulate(engine, arrivals, guard=guard)
+    finally:
+        guard.uninstall()
+    if guard.preempted:
+        # admissions stopped inside simulate(); persist every decoding
+        # slot's state to the disk tier and exit 0 (the SIGTERM contract)
+        decoding = engine.n_active
+        paths = engine.drain_checkpoints()
+        print(f"SIGTERM: drained {decoding} decoding slot(s), {len(outs)} "
+              f"requests served, {len(paths)} checkpoint file(s) persisted; "
+              "exiting cleanly", flush=True)
+        flush_observability()
+        return outs
+    # a ReplicaSet's stats carry a single engine's keys for the fleet
     stats = engine.stats()
     ttfts = [o.ttft_s for o in outs]
     lats = [o.latency_s for o in outs]
@@ -340,6 +458,29 @@ def main(argv=None):
           f"{stats['generated_tokens']} tokens in {wall:.2f}s "
           f"({stats['generated_tokens'] / wall:.1f} generated tok/s wall, "
           f"{stats['decode_tok_per_s']:.1f} tok/s decode)")
+    if replica_mode:
+        print(f"fleet: {stats['alive']}/{stats['replicas']} replicas alive, "
+              f"deaths={stats['deaths']} "
+              f"failovers={stats['failovers']} "
+              f"checkpoints={stats['checkpoints']}"
+              f"(+{stats['checkpoints_dropped']} chaos-dropped) "
+              f"shed={stats['shed']} "
+              f"recovered={stats['recovered_installs']} "
+              f"straggler_flags={stats['straggler_flags']}")
+        # a death the schedule did not cause is a real fault that failover
+        # hid: the run fails though every request was served
+        if stats["unarmed_deaths"]:
+            raise SystemExit("replica deaths the chaos schedule did not "
+                             "cause: " + "; ".join(stats["unarmed_deaths"]))
+        # across deaths, failovers and shedding, every arrival is served
+        # exactly once
+        rids = [o.rid for o in outs]
+        if (len(outs) != args.requests or len(set(rids)) != len(rids)
+                or stats["duplicate_outputs"]):
+            raise SystemExit(
+                f"lost/duplicated requests: served {len(outs)} of "
+                f"{args.requests} (duplicate outputs: "
+                f"{stats['duplicate_outputs']})")
     print(f"ttft    p50={_percentile(ttfts, 50) * 1e3:.0f}ms "
           f"p95={_percentile(ttfts, 95) * 1e3:.0f}ms "
           f"p99={_percentile(ttfts, 99) * 1e3:.0f}ms")
@@ -352,8 +493,8 @@ def main(argv=None):
     sch = stats["scheduler"]
     print(f"tick gap median={gap['median']:.1f}ms p95={gap['p95']:.1f}ms "
           f"max={gap['max']:.1f}ms | scheduler: {sch['chunks']} chunks, "
-          f"{sch['coalesced']} coalesced, {sch['promote_splits']} promote "
-          "splits")
+          f"{sch['coalesced']} coalesced, {sch['promote_splits']} "
+          "promote splits")
     if (args.max_tick_gap_ratio > 0 and gap["median"] > 0
             and gap["p95"] > args.max_tick_gap_ratio * gap["median"]):
         raise SystemExit(
@@ -394,11 +535,14 @@ def main(argv=None):
                    if o.logprobs is not None else {}),
             } for o in outs}
         with open(args.tokens_out, "w") as f:
-            json.dump({"arch": args.arch, "outputs": payload}, f,
+            # "mesh" names the placement; the tokens must not depend on it
+            json.dump({"mesh": (f"replicas={args.replicas}" if replica_mode
+                                else args.mesh),
+                       "arch": args.arch, "outputs": payload}, f,
                       sort_keys=True)
         print(f"tokens: {len(payload)} requests -> {args.tokens_out}")
     if prefix_cache is not None:
-        pc = stats["prefix_cache"]
+        pc = prefix_cache.stats()
         print(f"prefix cache: {pc['hits']}/{pc['lookups']} hits, "
               f"{pc['hit_tokens']} prompt tokens restored, "
               f"{pc['entries']} entries / {pc['bytes'] / 2**20:.2f} MiB "
@@ -413,21 +557,7 @@ def main(argv=None):
         if args.expect_disk_hits and pc["disk_loads"] == 0:
             raise SystemExit("prefix cache: expected disk loads from "
                              f"{args.prefix_cache_dir}, got none")
-    if args.trace_out:
-        trace = telemetry.export_trace()
-        errs = validate_trace(trace)
-        if errs:
-            raise SystemExit("trace schema violations:\n  "
-                             + "\n  ".join(errs[:10]))
-        with open(args.trace_out, "w") as f:
-            json.dump(trace, f)
-        print(f"trace: {len(trace['traceEvents'])} events -> "
-              f"{args.trace_out} (schema valid; open at ui.perfetto.dev)")
-    if args.metrics_out:
-        with open(args.metrics_out, "w") as f:
-            f.write(telemetry.render_prometheus())
-        print(f"metrics: {len(telemetry.registry.names())} series -> "
-              f"{args.metrics_out}")
+    flush_observability()
     if telemetry.memory is not None:
         reg = telemetry.registry
         rss = reg.get("serve_host_rss_peak_bytes").value / 2**20
@@ -436,10 +566,12 @@ def main(argv=None):
               + (f", device peak {dev_mb:.0f} MiB" if dev.type == "cuda"
                  else " (no device allocator on the CPU)"))
     if args.warm:
-        retr = telemetry.watchdog.retraces
+        # a fleet's: its survivors' (a recovery re-arms its engine's
+        # baseline, so what counts here is a hot-path retrace)
+        retr = stats["retraces"]
         print(f"retraces: {retr} mid-serve (call signatures: "
               + ", ".join(f"{k}={v}" for k, v in
-                          telemetry.watchdog.cache_sizes().items()) + ")")
+                          stats["signatures"].items()) + ")")
         if args.expect_no_retraces and retr > 0:
             raise SystemExit(
                 f"{retr} entry-point signatures (or kernel builds) appeared "

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.decode import RecurrentCache, recurrent_update
-from repro_torch.core.state import StateSpec, register_state
+from repro_torch.core.state import StateSpec, batch_shard_axes, register_state
 from repro_torch.models.layers import causal_conv, dense_init, softplus
 from repro_torch.utils import const_param, normal_param, tensor_param
 
@@ -137,12 +137,12 @@ def rglru_init_cache(cfg, batch, dtype=torch.float32, device="cpu") -> Recurrent
         conv=torch.zeros((batch, 3, w), dtype=dtype, device=device))
 
 
-# jaxlint: disable=sharding-rule-coverage -- shard axes are scale-out (ROADMAP A.9)
 register_state(StateSpec(
     kind="rglru", node_type=RecurrentCache, granularity="token",
     resumable=True,
     init=lambda cfg, batch, max_len, dtype, device: rglru_init_cache(
-        cfg, batch, dtype, device)))
+        cfg, batch, dtype, device),
+    shard_axes=batch_shard_axes))
 
 
 def rglru_sequential_ref(block: RGLRU, x):

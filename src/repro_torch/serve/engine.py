@@ -48,11 +48,23 @@ Observability (serve/telemetry.py): the registry is the accounting; with
 request timelines and cache events; the retrace watchdog counts new call
 signatures of the engine's entry points and kernel builds after warm-up.
 
-Not ported: failover recovery and the serving plan / mesh (ROADMAP A.9).
-Passing a plan raises.
+Failover (serve/replicas.py drives it): ``slot_covered`` and
+``snapshot_slot`` export a decoding slot's state at block boundaries,
+``live_requests`` is the host view a coordinator mirrors, and
+``admit_recovered`` re-homes a request whose replica died so that its
+remaining tokens are the bits the dead replica would have emitted: the
+deepest usable checkpoint is restored, the prompt tokens past it are
+prefilled on the block grid, and the emitted tokens are replayed through
+the live tick's own decode step at the engine's slot width (cuBLAS picks
+its kernel, and so its reduction order, by shape, so a batch-1 replay
+could round otherwise). ``drain_checkpoints`` is the SIGTERM path.
+
+An engine runs under a ``ServePlan`` (serve/plan.py) on its device; a
+plan of more than one device is ROADMAP A.9 item 3 and raises.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -61,12 +73,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.state import bucket_chunks
 from repro_torch.kernels import build
+from repro_torch.serve.plan import ServePlan
 from repro_torch.serve.prefix_cache import PrefixCache
-from repro_torch.serve.sampling import (SamplingParams, device_scalars,
-                                        init_slot_keys, init_slot_sampling,
-                                        request_key, sample_first,
-                                        sample_step, set_slot, token_logprobs)
+from repro_torch.serve.sampling import (SamplingParams, advance_key,
+                                        device_scalars, init_slot_keys,
+                                        init_slot_sampling, request_key,
+                                        sample_first, sample_step, set_slot,
+                                        token_logprobs)
 from repro_torch.serve.scheduler import PrefillScheduler, to_device
 from repro_torch.serve.telemetry import CallSignatures, Telemetry
 
@@ -210,6 +225,26 @@ class RequestOutput:
 
 
 @dataclass
+class RecoveredRequest:
+    """Host record of an in-flight request re-homed after its replica died
+    (serve/replicas.py builds it from its mirror: the stream a client has
+    already seen). `snapshot` is the deepest usable checkpoint, taken at
+    `snap_tokens` stream tokens; recovery is right without one too (a
+    cold prompt prefill and a full replay), a checkpoint only shortens the
+    replay."""
+    prompt: np.ndarray
+    emitted: list[int]
+    lps: list[float]
+    max_new_tokens: int
+    eos_id: int | None
+    sampling: SamplingParams
+    submit_time: float
+    ttft_s: float = 0.0
+    snapshot: object = None
+    snap_tokens: int = 0
+
+
+@dataclass
 class _Slot:
     request: Request | None = None
     prefilling: bool = False     # reserved: prefill in flight, not decoding
@@ -217,6 +252,9 @@ class _Slot:
     lps: list[float] = field(default_factory=list)
     ttft_s: float = 0.0
     last_tok_s: float | None = None  # inter-token latency tracking
+    pos0: int = 0                # the slot's position at install (the prompt
+                                 # length, or the rebuilt one after failover)
+    ticks: int = 0               # decode ticks dispatched since install
 
     @property
     def free(self) -> bool:
@@ -291,18 +329,28 @@ class ServeEngine:
     least that many blocks are snapshotted or promoted. `telemetry`
     carries the registry, tracer, watchdog and memory sampler; the default
     `Telemetry()` keeps tracing and memory sampling off. One Telemetry
-    per engine.
+    per engine. `plan` (serve/plan.py, default the model's device) names
+    the device the engine serves on; a model elsewhere is copied there.
     """
 
     def __init__(self, model, *, slots: int = 4, max_len: int = 4096,
                  prefix_cache: PrefixCache | None = None,
                  min_snapshot_blocks: int = 1, logprobs: bool = False,
                  prefill_budget: int | None = None, overlap: bool = False,
-                 telemetry: Telemetry | None = None, plan=None):
-        if plan is not None:
+                 telemetry: Telemetry | None = None,
+                 plan: ServePlan | None = None):
+        _decode_state(model, "ServeEngine")
+        self.plan = plan if plan is not None else ServePlan.single_device(
+            model.device)
+        if self.plan.n_devices > 1:
             raise NotImplementedError(
-                "a serving plan / mesh is not ported yet (ROADMAP A.9)")
-        state = _decode_state(model, "ServeEngine")
+                f"a {self.plan.describe()} serving plan spans "
+                f"{self.plan.n_devices} devices: data-sharded slots and "
+                "tensor-parallel compute are not ported yet (ROADMAP A.9 "
+                "item 3); serve on one device, or replicate with "
+                "serve.replicas.ReplicaSet")
+        model = self.plan.place(model)
+        state = model.state
         if slots < 1:
             raise ValueError("need at least one decode slot")
         if min_snapshot_blocks < 1:
@@ -317,6 +365,10 @@ class ServeEngine:
         self.logprobs = logprobs
         self.overlap = overlap
         self.queue: deque[Request] = deque()
+        # failover re-admissions waiting for a free slot, served ahead of
+        # the queue (a recovered request already carries latency)
+        self._recover_pending: deque[tuple[Request, RecoveredRequest]] = \
+            deque()
         self.finished: list[RequestOutput] = []
         self._next_rid = 0
         self._slots = [_Slot() for _ in range(slots)]
@@ -386,12 +438,16 @@ class ServeEngine:
         self._restore = CallSignatures(restore)
         self._install_slot = CallSignatures(self._install_impl)
         self._decode = CallSignatures(decode)
+        self._replay = CallSignatures(self._replay_impl)
+        self._install_restored = CallSignatures(self._install_restored_impl)
         for name, fn in (("prefill", self._prefill),
                          ("prefill_resume", self._prefill_resume),
                          ("fresh_slot", self._fresh_slot),
                          ("restore", self._restore),
                          ("install_slot", self._install_slot),
                          ("decode", self._decode),
+                         ("replay", self._replay),
+                         ("install_restored", self._install_restored),
                          ("kernel_libraries", build.LOADED)):
             self.telemetry.watchdog.register(name, fn)
 
@@ -415,6 +471,9 @@ class ServeEngine:
         self._m_finished = reg.counter(
             "serve_requests_finished_total",
             "retired requests by finish reason", labels=("reason",))
+        self._m_recovered = reg.counter(
+            "serve_recovered_slots_total",
+            "requests re-installed mid-stream after a replica failover")
         self._m_prefill_s = reg.counter(
             "serve_prefill_seconds_total",
             "admission dispatch + lockstep first-token sync wall time")
@@ -516,7 +575,8 @@ class ServeEngine:
 
     @property
     def busy(self) -> bool:
-        return (bool(self.queue) or self.scheduler.active
+        return (bool(self.queue) or bool(self._recover_pending)
+                or self.scheduler.active
                 or self.n_active > 0 or self._pending is not None)
 
     def _clear_slot(self, slot: _Slot):
@@ -525,6 +585,8 @@ class ServeEngine:
         slot.emitted = []
         slot.lps = []
         slot.last_tok_s = None
+        slot.pos0 = 0
+        slot.ticks = 0
 
     def _retire(self, si: int, reason: str) -> RequestOutput:
         slot = self._slots[si]
@@ -556,12 +618,16 @@ class ServeEngine:
         return None
 
     def _start_admissions(self):
-        """Reserve free slots for queued requests (FIFO) and hand their
-        prefills to the scheduler; chunks flow from scheduler.tick()."""
+        """Reserve free slots for pending recoveries, then queued requests
+        (FIFO), and hand their prefills to the scheduler; chunks flow from
+        scheduler.tick()."""
         for si, slot in enumerate(self._slots):
-            if not self.queue:
+            if not (self.queue or self._recover_pending):
                 break
             if not slot.free:
+                continue
+            if self._recover_pending:
+                self._install_recovery(si, *self._recover_pending.popleft())
                 continue
             req = self.queue.popleft()
             slot.request = req
@@ -575,6 +641,8 @@ class ServeEngine:
         req, si = job.req, job.slot
         tok, lp = self._install_slot(job.part.state, job.part.logits, si, req)
         self._slots[si].prefilling = False
+        self._slots[si].pos0 = int(req.prompt.shape[0])
+        self._slots[si].ticks = 0
         self._m_prefills.inc()
         if not req.sampling.is_greedy:
             self._m_sampled.inc()
@@ -606,16 +674,21 @@ class ServeEngine:
         return tok, lp
 
     def cancel(self, rid: int):
-        """Withdraw a request that has not yet produced a token: queued or
-        mid-prefill (its slot is freed and its in-flight chunk work
-        dropped). A request that has emitted tokens is not cancellable here.
-        Returns the withdrawn Request, or None if rid is unknown/decoding."""
-        for i, req in enumerate(self.queue):
-            if req.rid == rid:
-                del self.queue[i]
-                if self.telemetry.tracer:
-                    self.telemetry.tracer.instant("queue", "drop", rid=rid)
-                return req
+        """Withdraw a request that has not yet produced a token: queued,
+        pending recovery, or mid-prefill (its slot is freed and its
+        in-flight chunk work dropped). A request that has emitted tokens is
+        not cancellable here. Returns the withdrawn Request, or None if rid
+        is unknown/decoding."""
+        pending = [req for req, _ in self._recover_pending]
+        for where, reqs in ((self.queue, list(self.queue)),
+                            (self._recover_pending, pending)):
+            for i, req in enumerate(reqs):
+                if req.rid == rid:
+                    del where[i]
+                    if self.telemetry.tracer:
+                        self.telemetry.tracer.instant("queue", "drop",
+                                                      rid=rid)
+                    return req
         for si, slot in enumerate(self._slots):
             if (slot.request is not None and slot.request.rid == rid
                     and slot.prefilling):
@@ -627,6 +700,215 @@ class ServeEngine:
                 self._clear_slot(slot)
                 return req
         return None
+
+    # ------------------------------------------------------------------
+    # failover: checkpoint export, recovered admission, drain
+    # ------------------------------------------------------------------
+
+    def slot_covered(self, si: int) -> int:
+        """Stream tokens (prompt + absorbed emitted ones) that slot si's
+        device state covers once its dispatched ticks have run. Host
+        arithmetic, no sync."""
+        slot = self._slots[si]
+        return slot.pos0 + slot.ticks
+
+    @torch.inference_mode()
+    def snapshot_slot(self, si: int):
+        """Slot si's decode state as ``(snapshot, n_tokens)``, or None when
+        it cannot be checkpointed now (free, mid-prefill, a kind with no
+        constant-size snapshot, or off the block grid). The snapshot's
+        copies are enqueued on the device behind every dispatched tick and
+        ahead of the next one, which writes the slot stack in place."""
+        slot = self._slots[si]
+        state = self.state
+        if not slot.decoding or state.snapshot_granularity is None:
+            return None
+        covered = self.slot_covered(si)
+        if covered <= 0 or covered % state.block_size:
+            return None
+        return (state.snapshot(state.slot_view(self._caches, si, covered)),
+                covered)
+
+    def live_requests(self) -> list[dict]:
+        """Host view of every request the engine still owes tokens: queued,
+        pending recovery, mid-prefill and decoding, with the tokens (and
+        log-probabilities) read so far as plain host lists. What a
+        coordinator mirrors and a SIGTERM drain persists."""
+        out = [dict(rid=req.rid, phase="queued", request=req, emitted=[],
+                    lps=[], ttft_s=0.0) for req in self.queue]
+        out += [dict(rid=req.rid, phase="queued", request=req,
+                     emitted=list(rec.emitted), lps=list(rec.lps),
+                     ttft_s=rec.ttft_s) for req, rec in self._recover_pending]
+        out += [dict(rid=slot.request.rid,
+                     phase="prefill" if slot.prefilling else "decode",
+                     request=slot.request, emitted=list(slot.emitted),
+                     lps=list(slot.lps), ttft_s=slot.ttft_s)
+                for slot in self._slots if not slot.free]
+        return out
+
+    @torch.inference_mode()
+    def admit_recovered(self, rec: RecoveredRequest) -> int:
+        """Re-home a request recovered from a dead replica: installed in a
+        free slot at once when there is one, else parked ahead of the
+        queue. Returns its NEW request id on this engine."""
+        prompt = np.asarray(rec.prompt, np.int64).reshape(-1)
+        if prompt.shape[0] + rec.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"recovered prompt({prompt.shape[0]}) + "
+                f"max_new({rec.max_new_tokens}) exceeds engine "
+                f"max_len={self.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, prompt, rec.max_new_tokens, rec.eos_id,
+                      rec.submit_time, rec.sampling)
+        for si, slot in enumerate(self._slots):
+            if slot.free:
+                self._install_recovery(si, req, rec)
+                return rid
+        self._recover_pending.append((req, rec))
+        return rid
+
+    def _install_recovery(self, si: int, req: Request,
+                          rec: RecoveredRequest):
+        """Rebuild a recovered request's state in slot si so that its
+        remaining tokens are the bits of the fault-free run.
+
+        The dead replica had absorbed prompt ++ emitted[:-1]; the last
+        emitted token was sampled but not yet fed. So the rebuilt cache
+        covers ``target = prompt_len + k - 1`` tokens (k = len(emitted)):
+        the deepest usable checkpoint (on the block grid, <= target) is
+        restored, the prompt tokens past it are prefilled on the block grid
+        (the whole prompt in one call for a kind that is not resumable, as
+        its admission does), and the emitted tokens are replayed through
+        the live tick's decode step at the slot width (`_replay`). The
+        slot is then installed with feed emitted[-1] at position target
+        and the request's key advanced past its k tokens."""
+        slot = self._slots[si]
+        self._m_recovered.inc()
+        k = len(rec.emitted)
+        if k == 0:
+            # nothing emitted yet: an ordinary admission
+            slot.request = req
+            slot.prefilling = True
+            self.scheduler.start(req, si)
+            return
+        state = self.state
+        prompt = req.prompt
+        s0 = int(prompt.shape[0])
+        target = s0 + k - 1
+        ctx = np.concatenate([prompt, np.asarray(rec.emitted[:-1], np.int64)])
+        blk = state.block_size
+        pos, cache = 0, None
+        if (rec.snapshot is not None and state.resumable
+                and 0 < rec.snap_tokens <= target
+                and rec.snap_tokens % blk == 0):
+            cache = self._restore(rec.snapshot, rec.snap_tokens)
+            pos = rec.snap_tokens
+        if pos < s0:
+            if pos == 0 or not state.resumable:
+                _, cache = self._prefill(prompt[None])
+                pos = s0
+            else:
+                for cut in bucket_chunks(pos, s0, blk,
+                                         self.scheduler.max_chunk_blocks):
+                    self._resume_lens.add(cut - pos)
+                    _, cache = self._prefill_resume(ctx[None, pos:cut], cache,
+                                                    pos)
+                    pos = cut
+        if pos < target:
+            cache = self._replay(ctx[pos:target], pos, cache, si)
+        key = advance_key(request_key(req.sampling.seed), k)
+        self._install_restored(cache, si, rec.emitted[-1], target, key, req)
+        slot.request = req
+        slot.prefilling = False
+        slot.emitted = list(rec.emitted)
+        slot.lps = list(rec.lps)
+        slot.ttft_s = rec.ttft_s
+        slot.last_tok_s = None
+        slot.pos0 = target
+        slot.ticks = 0
+        if not req.sampling.is_greedy:
+            self._m_sampled.inc()
+        tr = self.telemetry.tracer
+        if tr:
+            tr.begin(f"slot{si}", "decode", rid=req.rid, recovered=True,
+                     prompt_len=s0, replayed=k - 1,
+                     from_ckpt=int(rec.snap_tokens))
+        # recovery meets new signatures (a restore, resumed chunks, the
+        # install): re-arm the steady baseline so that only a later growth
+        # on the hot path counts as a mid-serve retrace
+        wd = self.telemetry.watchdog
+        if wd.steady:
+            wd.mark_steady()
+
+    def _replay_impl(self, tokens: np.ndarray, pos0: int, cache, si: int):
+        """Absorb already-emitted `tokens` from position pos0 into the
+        batch-1 `cache` through the decode step the live tick runs, at the
+        live tick's shapes: a scratch slot stack holding `cache` in every
+        row decodes them one at a time (a row's bits do not depend on the
+        other rows at a fixed shape, but a batch-1 product may round
+        otherwise than the slot-wide one). Returns row si as a batch-1
+        cache of views into the scratch (slot_scatter copies it)."""
+        state, dev = self.state, self.device
+        scratch = state.broadcast_slots(cache, self.slots)
+        pos = torch.full((self.slots,), pos0, dtype=torch.long, device=dev)
+        tok = torch.empty((self.slots, 1), dtype=torch.long, device=dev)
+        for t in tokens.tolist():
+            tok.fill_(t)
+            _, scratch = self._decode(tok, pos, scratch)
+            pos += 1
+        return state.slot_view(scratch, si, pos0 + len(tokens))
+
+    def _install_restored_impl(self, cache, si: int, feed: int, pos: int,
+                               key: torch.Tensor, req: Request):
+        """A recovery's install, by fills: `cache` into slot si, the feed
+        token and position given, and the request's stream key (on the
+        CPU, advanced past its emitted tokens) and sampling params."""
+        k0, k1 = key.tolist()
+        self._keys[si, 0].fill_(k0)
+        self._keys[si, 1].fill_(k1)
+        set_slot(self._samp, si, req.sampling)
+        self.state.slot_scatter(self._caches, cache, si, inplace=True)
+        self._tokens[si].fill_(int(feed))
+        self._pos[si].fill_(int(pos))
+
+    @torch.inference_mode()
+    def drain_checkpoints(self, *, tag_ns: bytes = b"psk-drain",
+                          flush: bool = True) -> list[str]:
+        """Graceful-shutdown persistence (the SIGTERM path): admissions
+        stop, then at most one block of extra decode ticks runs so that
+        every decoding slot reaches a snapshot boundary, each checkpointed
+        into the prefix cache's side store as it aligns; the store is then
+        flushed to the disk tier. Returns the paths written ([] without a
+        cache or save_dir)."""
+        pc = self.prefix_cache
+        if pc is None or self.state.snapshot_granularity is None:
+            return []
+        self.queue.clear()
+        done: set[int] = set()
+
+        def sweep():
+            for si, slot in enumerate(self._slots):
+                if not slot.decoding or slot.request.rid in done:
+                    continue
+                got = self.snapshot_slot(si)
+                if got is None:
+                    continue
+                tag = hashlib.sha256(
+                    tag_ns + b":%d" % slot.request.rid).digest()
+                pc.put_ckpt(tag, got[1], got[0])
+                done.add(slot.request.rid)
+
+        sweep()
+        for _ in range(self.state.block_size):
+            if all(not s.decoding or s.request.rid in done
+                   for s in self._slots):
+                break
+            self.step()
+            sweep()
+        if flush and pc.save_dir is not None:
+            return pc.flush_ckpts_to_disk()
+        return []
 
     def _note_token(self, slot: _Slot, now: float) -> float | None:
         """Returns this token's inter-token latency in ms (None for a
@@ -710,6 +992,11 @@ class ServeEngine:
                                            for _, _, tok, lp in firsts], dim=1)
         copy = _HostCopy(packed)
         self._m_ticks.inc()
+        # ticks counts DISPATCHED decode steps: the tick absorbs each
+        # slot's feed token on the device at dispatch, so pos0 + ticks is
+        # what the slot's state covers now (snapshot_slot's depth)
+        for si in np.flatnonzero(active):
+            self._slots[si].ticks += 1
         meta = [(si, rid, self.slots + i)
                 for i, (si, rid, _, _) in enumerate(firsts)]
         return _TickRecord(copy, active, rids, meta, t0)
@@ -870,6 +1157,7 @@ class ServeEngine:
             "generated_tokens": gen_tokens,
             "prefills": int(self._m_prefills.value),
             "sampled_requests": int(self._m_sampled.value),
+            "recovered": int(self._m_recovered.value),
             "decode_steps": int(self._m_ticks.value),
             "prefill_s": self._m_prefill_s.value,
             "decode_s": decode_s,
@@ -882,6 +1170,7 @@ class ServeEngine:
             "tick_gap_ms": {**gap_p, "median": gap_p["p50"],
                             "max": self._m_tick_gap.max},
             "retraces": self.telemetry.watchdog.retraces,
+            "signatures": self.telemetry.watchdog.cache_sizes(),
             "scheduler": self.scheduler.stats(),
         }
         if self.prefix_cache is not None:

@@ -321,8 +321,8 @@ class MetricsRegistry:
 # track; instants ("i") are points; counters ("C") are sampled series.
 # validate_trace rejects any event outside this vocabulary, so the schema
 # below IS the compatibility contract for trace consumers. The port emits
-# no mesh or replica events (ROADMAP A.9); their names stay in the schema
-# so one validator reads both packages' traces.
+# no "collective" span (no multi-device plan is ported: ROADMAP A.9 item
+# 3); the name stays so one validator reads both packages' traces.
 SPAN_NAMES = frozenset({
     # engine tick phases (track "tick")
     "tick", "plan", "chunk_dispatch", "decode_dispatch", "host_sync",
@@ -344,7 +344,7 @@ INSTANT_NAMES = frozenset({
     "recompile",                    # track "tick": entry point grew mid-serve
     "evict", "disk_load",           # track "cache": store internals
     "disk_corrupt",                 # cache: quarantined unreadable file
-    "replica_dead", "failover", "checkpoint", "shed",   # replicas (A.9)
+    "replica_dead", "failover", "checkpoint", "shed",   # serve/replicas.py
 })
 COUNTER_NAMES = frozenset({"memory"})
 

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -266,11 +267,11 @@ def test_moe_depth(chip_smoke, monkeypatch, arch, per, reserve, gib, layers):
 
 
 @pytest.mark.parametrize("arch,gib,layers", [
-    ("deepseek-7b", 79.19, 12), ("yi-34b", 79.19, 12), ("yi-34b", 30.0, 6),
-    ("starcoder2-3b", 79.19, 12), ("llava-next-mistral-7b", 79.19, 12)])
+    ("deepseek-7b", 79.19, 8), ("yi-34b", 79.19, 8), ("yi-34b", 30.0, 6),
+    ("starcoder2-3b", 79.19, 8), ("llava-next-mistral-7b", 79.19, 8)])
 def test_dense_serve_depth(chip_smoke, monkeypatch, arch, gib, layers):
     """Phase 7 serves each dense model at the most layers whose f32 weights
-    fit beside its reserve, at most DENSE_SERVE_LAYERS (12)."""
+    fit beside its reserve, at most DENSE_SERVE_LAYERS (8)."""
     from repro_torch.configs import get_config
     monkeypatch.setattr(chip_smoke, "card_gib", lambda: gib)
     assert chip_smoke.serve_depth(get_config(arch)) == layers
@@ -318,3 +319,16 @@ def test_xm_served_logprobs_match_train_mode(chip_smoke, monkeypatch, arch):
     assert err <= 1e-4 < chip_smoke.ENGINE_LP_TOL
     forced, forced_lps, _, _ = chip_smoke.xm_serve(model, batch, 8, force=toks)
     assert np.array_equal(forced, toks) and np.array_equal(forced_lps, lps)
+
+
+def test_replica_workload_crosses_block_boundaries(chip_smoke):
+    """Phase 14's traffic: four of its six prompts reach a 1024-token
+    block boundary within their first 8 decode ticks, so replicas write
+    checkpoints early; the warm-up prompts have the same lengths and other
+    tokens; requests 0-2 are greedy and 3-5 sampled."""
+    prompts, warm, samp = chip_smoke.replica_workload(50304)
+    assert [len(p) for p in prompts] == [len(p) for p in warm] == list(
+        chip_smoke.REPLICA_LENS)
+    assert sum(-len(p) % 1024 <= 8 for p in prompts) == 4
+    assert not any(np.array_equal(p, w) for p, w in zip(prompts, warm))
+    assert [s.is_greedy for s in samp] == [True] * 3 + [False] * 3

@@ -26,6 +26,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 import torch.distributed as dist  # noqa: E402

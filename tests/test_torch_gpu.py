@@ -1129,3 +1129,39 @@ def test_vlm_and_whisper_smoke_serving_on_card_matches_cpu(card, arch):
         runs.append((torch.stack(toks, 1), last.float().cpu()))
     assert torch.equal(runs[0][0], runs[1][0])
     torch.testing.assert_close(runs[0][1], runs[1][1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("attention", ["polysketch", "polynomial"])
+def test_replica_failover_is_bit_identical_on_card(card, attention):
+    """A SMOKE fleet of two replicas on the card: a kill (after a
+    checkpoint for polysketch; a cold prefill and a full replay for the
+    KV state of exact polynomial attention) gives the fault-free run's
+    tokens and log-probabilities bit for bit. The recovery replays at the
+    engine's slot width, the shape of the live tick's cuBLAS products."""
+    from repro_torch.serve import ChaosInjector, PrefixCache, ReplicaSet
+    from repro_torch.serve.sampling import SamplingParams
+    cfg = get_config("gpt2s-polysketch", smoke=True, attention=attention)
+    model = build_model(cfg, device=card, seed=0)
+    blk = cfg.lt_block_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (2 * blk + 5, 7, blk + 3)]
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=40, seed=7),
+           SamplingParams(temperature=1.0, top_p=0.9, seed=11)]
+
+    def run(chaos=None):
+        pc = PrefixCache(1 << 28) if attention == "polysketch" else None
+        rs = ReplicaSet(model, n_replicas=2, slots=4, max_len=256, prefix_cache=pc,
+                        logprobs=True, overlap=True, chaos=chaos)
+        gids = [rs.submit(p, 24, sampling=sp) for p, sp in zip(prompts, sps)]
+        return gids, {o.rid: o for o in rs.run()}, rs
+
+    gids0, outs0, _ = run()
+    gids, outs, rs = run(ChaosInjector("kill@9:r0"))
+    st = rs.stats()
+    assert st["deaths"] == {"kill": 1} and st["recovered_installs"] >= 1
+    assert not rs.unarmed_deaths
+    if attention == "polysketch":
+        assert st["checkpoints"] >= 1
+    for g, g0 in zip(gids, gids0):
+        assert np.array_equal(outs[g].tokens, outs0[g0].tokens)
+        assert np.array_equal(outs[g].logprobs, outs0[g0].logprobs)

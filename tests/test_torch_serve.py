@@ -10,6 +10,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -26,6 +27,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine, generate  # noqa: E402
+from repro_torch.serve.plan import ServePlan  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams  # noqa: E402
 
 ARCH = "gpt2s-polysketch"
@@ -189,8 +191,9 @@ def test_submit_rejects_invalid_requests_and_unported_options(smoke_model):
         eng.submit(np.zeros(3, np.int64), 0)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.zeros(10, np.int64), 7)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ServeEngine(smoke_model, plan=object())
+    with pytest.raises(NotImplementedError, match="A.9 item 3"):
+        ServeEngine(smoke_model, plan=ServePlan(
+            {"data": 2, "model": 1}, torch.device("cpu")))
     with pytest.raises(ValueError, match="slot"):
         ServeEngine(smoke_model, slots=0)
     with pytest.raises(ValueError, match="min_snapshot_blocks"):
@@ -253,11 +256,51 @@ def test_serve_cli_sampled_run_and_logprobs(capsys):
         main(["--smoke", "--device", "cpu", "--top-k", "5"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x1"], ["--replicas", "2"],
-                                  ["--checkpoint-blocks", "2"],
-                                  ["--chaos=kill@3"]])
-def test_serve_cli_rejects_unported_flags(flag):
+@pytest.mark.parametrize("flag,says", [
+    (["--mesh", "2x1"], "ROADMAP A.9 item 3"),
+    (["--shard-model"], "ROADMAP A.9 item 3"),
+    (["--chaos=kill@3"], "--chaos needs --replicas"),
+    (["--replicas", "2", "--shard-model"], "drop --mesh/--shard-model")])
+def test_serve_cli_rejects_unported_flags(flag, says):
+    """Serving beyond one device names its ROADMAP item; chaos without
+    replicas and replicas with a mesh are the reference's own refusals."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
         main(["--smoke", "--device", "cpu"] + flag)
-    assert e.value.code not in (0, None) and "ROADMAP" in str(e.value.code)
+    assert e.value.code not in (0, None) and says in str(e.value.code)
+
+
+def test_serve_cli_replicas_chaos_gate(tmp_path, capsys):
+    """The reference's CI chaos gate: two replicas under kill@6 write the
+    fault-free run's --tokens-out file exactly (tokens and log-probabilities
+    bit for bit), and every request is served once."""
+    from repro_torch.launch.serve import main
+    files = []
+    for chaos in ("none", "kill@6"):
+        files.append(tmp_path / f"{chaos}.json")
+        main(CLI + ["--replicas", "2", "--mesh", "1x1", "--chaos", chaos,
+                    "--logprobs", "--tokens-out", str(files[-1])])
+        out = capsys.readouterr().out
+        assert ("deaths={}" if chaos == "none"
+                else "deaths={'kill': 1}") in out
+    assert files[0].read_text() == files[1].read_text()
+
+
+def test_serve_cli_replicas_fail_on_a_death_the_schedule_did_not_cause(
+        monkeypatch):
+    """A replica whose tick raises fails over, every request is served, and
+    the run still exits non-zero: the fault was real, not injected."""
+    from repro_torch.launch.serve import main
+    from repro_torch.serve.engine import ServeEngine
+    step, n = ServeEngine.step, [0]
+
+    def failing(self):
+        n[0] += 1
+        if n[0] == 9:
+            raise RuntimeError("device fault")
+        return step(self)
+    monkeypatch.setattr(ServeEngine, "step", failing)
+    with pytest.raises(SystemExit) as e:
+        main(CLI + ["--replicas", "2", "--logprobs"])
+    assert "did not cause" in str(e.value.code)
+    assert "device fault" in str(e.value.code)

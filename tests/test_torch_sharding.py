@@ -7,6 +7,7 @@ refusals."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

@@ -11,6 +11,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -253,7 +254,8 @@ def test_watchdog_counts_a_new_shape_after_warm_up(smoke_model):
     assert any(e[1] == "recompile" for e in tel.tracer._events)
     assert set(tel.watchdog.cache_sizes()) == {
         "prefill", "prefill_resume", "fresh_slot", "restore",
-        "install_slot", "decode", "kernel_libraries"}
+        "install_slot", "decode", "replay", "install_restored",
+        "kernel_libraries"}
 
 
 def test_metric_names_cover_the_jax_engines(smoke_model):

@@ -12,7 +12,9 @@ and the encoder-decoder (whisper-large-v3) in bf16, train exact
 polynomial attention in bf16 (gpt2s-poly4, and starcoder2-3b at h 128),
 run the data-parallel training steps at world 1 on NCCL, serve
 gpt2s-polysketch and gpt2s-poly4 through two replicas with seeded faults
-and bit-exact failover, and check the port against itself.
+and bit-exact failover, serve and train them over a "model" (and "data")
+mesh axis as two ranks sharing the card, and check the port against
+itself.
 
     python3 chip_smoke.py
 
@@ -178,7 +180,7 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      drops), the sort-based dispatch against the dense oracle in f32
      (1e-4 of max|y|) and bf16 (5e-2) in 1, 2 and 4 dispatch groups, and
      twice bit for bit; dbrx-132b (16 experts top-4, every layer) at the
-     most layers whose f32 weights fit, at most MOE_SERVE_LAYERS (3 of 40) and
+     most layers whose f32 weights fit, at most MOE_SERVE_LAYERS (2 of 40) and
      llama4-maverick-400b-a17b (128 experts top-1, every second layer) at
      its first (GLU, MoE) cycle, bf16, seeded weights drawn on the card,
      served through ServeEngine at the published capacity factor 1.25 (4
@@ -198,7 +200,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      line's B1 row under `moe_bf16`.
  12. the VLM and the encoder-decoder (after phase 11): llava-next-mistral-7b
      (32 layers, GQA 4:1 at h 128) and whisper-large-v3 (32 encoder + 32
-     decoder layers, h 64) at their published widths and depths, bf16,
+     decoder layers, h 64) at their published widths, served at 16 layers
+     (Whisper 16 encoder + 16 decoder; XM_SERVE_LAYERS), bf16,
      seeded weights drawn on the card, served greedily through the
      batch-dict make_serve_fns (llava 4 x (576 image rows + 1472 text
      tokens), 16 new; Whisper 4 x (1500 frames, a 228-token prompt), 32
@@ -269,6 +272,29 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      SIGTERM after its `serving:` line exits 0 with one checkpoint file a
      decoding slot. The JSON line's B1 and B2 rows carry these runs'
      launches under `replica_launches`.
+ 15. compute over the "model" mesh axis (after phase 14): two ranks
+     share the card over gloo (launch.mesh.init_ranks(share_card=True);
+     collectives staged through the host, so its times are no multi-card
+     speed), gpt2s-polysketch at full width and depth in f32. B1 and B2
+     at one rank's share of the heads (6 of 12) against their plain
+     versions (F32_TOL): B1 at the prefill's call and, with its backward
+     (gradients within F32_TOL of their max), at the 1x2 training step's
+     (bh 2 x 6, n 1024, block 1024); each kernel's error goes into the
+     JSON line's `tp_max_abs_err`. launch/serve.py (4 greedy requests of 1024-2048
+     prompt tokens + 16 on 4 slots, --logprobs) at --mesh 1x2
+     --shard-model and at --mesh 2x1 against the 1x1 run's --tokens-out:
+     tokens equal, log-probabilities within F32_TOL (the bit-equal ones
+     counted); each rank launches B1 as often as 1x1 at 1x2, and the two
+     data ranks split 1x1's launches at 2x1. gpt2s-poly4 through
+     ServeEngine on ServePlan.build(1, 2, shard_model=True): tokens equal
+     to 1x1's, log-probabilities within F32_TOL, B2 launched on each rank
+     as often as at 1x1. launch/train.py --mesh 1x2:data,model (3 steps of
+     2 x 1024) against the run without --mesh: losses within F32_TOL, each
+     rank launching B1 and its backward as often as 1x1, and holding wq
+     as 768 x 6 x 64; a checkpoint of the sharded state timed. No plain
+     version is called. Logged: ms a tick, ms a step, a checkpoint call's
+     ms; the JSON line's B1, B1 backward and B2 rows carry each rank's
+     launches under `tp_launches_a_rank`.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -3163,8 +3189,9 @@ MOE_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b")
 # train-mode forward
 MOE_SERVE_RESERVE_GIB = 8
 # dbrx serves at most this many of the 5 layers that fit, to make room for
-# phase 14 (in whole cycles: maverick keeps its first (GLU, MoE) pair)
-MOE_SERVE_LAYERS = 3
+# phases 14 and 15 (3 from phase 14 to phase 15: 27.2 s; in whole cycles:
+# maverick keeps its first (GLU, MoE) pair)
+MOE_SERVE_LAYERS = 2
 # beside 16 B a parameter: the layer's bf16 expert casts kept for its
 # recomputed backward (6 GiB for dbrx), their gradients, logits
 MOE_TRAIN_RESERVE_GIB = 12
@@ -3655,6 +3682,10 @@ VLM_TRAIN_LAYERS = 7
 # phase 14 (full depth, 32 + 32: 54.8 s of the phase against 23.2 s at 16
 # + 16, NVIDIA H100 80GB HBM3, 700 W)
 AUDIO_TRAIN_LAYERS = 16
+# phase 12's serving depth (llava's layers; Whisper's encoder and decoder
+# layers each), cut to make room for phase 15 (full depth, 32 and 32 + 32:
+# llava 22.9 s, Whisper 29.7 s of the phase, NVIDIA H100 80GB HBM3, 700 W)
+XM_SERVE_LAYERS = 16
 # Whisper's bf16 serving gate. Phase 7's (served log-probabilities within
 # DENSE_LP_TOL of a blocked plain bf16 forward) does not hold for it
 # (4.674e-2 nats; ROADMAP.md §C): its greedy tokens keep log-probabilities
@@ -3760,8 +3791,9 @@ def xm_train_logprobs(model, batch, toks):
 
 
 def phase_xm_serve(arch, card):
-    """llava-next-mistral-7b or whisper-large-v3 at its published width and
-    depth, bf16, seeded weights drawn on the card, served greedily through
+    """llava-next-mistral-7b or whisper-large-v3 at its published width,
+    XM_SERVE_LAYERS deep (Whisper's encoder and decoder each), bf16,
+    seeded weights drawn on the card, served greedily through
     the batch-dict make_serve_fns: llava 4 x (576 image rows + 1472 text
     tokens) and 16 new tokens, Whisper 4 x (1500 frames, a 228-token
     prompt) and 32 new. Gates: B1 once a layer per prefill block and
@@ -3776,8 +3808,10 @@ def phase_xm_serve(arch, card):
     image_embeds + 1; ServeEngine and generate refuse Whisper. Returns a
     row."""
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
-    vlm = cfg.family == "vlm"
+    full = get_config(arch)
+    vlm = full.family == "vlm"
+    cfg = (full.replace(n_layers=XM_SERVE_LAYERS) if vlm else
+           full.replace(n_layers=XM_SERVE_LAYERS, encoder_layers=XM_SERVE_LAYERS))
     rows, n, gen = (VLM_BATCH, VLM_PROMPT, VLM_GEN) if vlm else \
         (AUDIO_BATCH, AUDIO_PROMPT, AUDIO_GEN)
     gc.collect()
@@ -3787,9 +3821,11 @@ def phase_xm_serve(arch, card):
     weights = sum(p.numel() for p in model.lm.parameters())
     what = (f"{rows} x ({cfg.n_image_tokens} image rows + {n - cfg.n_image_tokens} text "
             f"tokens)" if vlm else f"{rows} x ({cfg.encoder_len} frames, a {n}-token prompt)")
-    depth = (f"{cfg.n_layers} layers" if vlm
-             else f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers")
-    log(f"phase 12: {arch} serving, bf16, published width and depth ({depth}), d_model "
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers" if vlm
+             else f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers of "
+                  f"{full.encoder_layers} + {full.n_layers}")
+    log(f"phase 12: {arch} serving, bf16, published width, depth cut to XM_SERVE_LAYERS "
+        f"({depth}), d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim} ({cfg.n_kv_heads} kv), "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {weights / 1e9:.3f}B parameters, "
         f"{4 * weights / 2**30:.2f} GiB f32 weights drawn on the card (seed 0) in "
@@ -4654,6 +4690,271 @@ def replica_drain():
 
 
 # ---------------------------------------------------------------------------
+# phase 15: compute over the "model" mesh axis, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# launch/serve.py's workload of the phase: 4 greedy requests of 1024-2048
+# prompt tokens (the CLI's buckets of --prompt-len 2048) and 16 new tokens
+# on 4 slots, log-probabilities on
+TP_SERVE_CLI = ["--arch", "gpt2s-polysketch", "--draw-on-device", "--requests", "4",
+                "--slots", "4", "--prompt-len", "2048", "--gen", "16", "--logprobs",
+                "--overlap", "--prefill-budget", "2048"]
+TP_TRAIN_CLI = ["--arch", "gpt2s-polysketch", "--draw-on-device", "--steps", "3",
+                "--batch", "2", "--seq", "1024", "--log-every", "1"]
+TP_POLY_LENS = (2048, 1024, 1536, 600)   # gpt2s-poly4 through ServeEngine at 1x2
+TP_GEN, TP_SLOTS = 16, 4
+TP_LP_TOL = F32_TOL                      # the log-probabilities against 1x1
+TP_LOSS_TOL = F32_TOL                    # the training losses against the run without --mesh
+TP_DIR = os.path.join(ROOT, "build", "tp")   # git-ignored
+
+
+def tp_poly_prompts(vocab):
+    rng = np.random.default_rng(15)
+    return [rng.integers(0, vocab, size=n) for n in TP_POLY_LENS]
+
+
+def tp_poly_serve(plan=None):
+    """gpt2s-poly4 (B2) through ServeEngine on `plan` (None: one device):
+    the TP_POLY_LENS prompts, greedy, TP_GEN new tokens each. Returns
+    (tokens, log-probabilities, ms a decode tick, launches)."""
+    model = build_model(GPT2_SMALL_POLY4, device="cuda", seed=0, draw_on_device=True)
+    eng = ServeEngine(model, slots=TP_SLOTS, max_len=max(TP_POLY_LENS) + TP_GEN,
+                      logprobs=True, plan=plan)
+    zero_counts()
+    with PlainCalls() as plain:
+        for p in tp_poly_prompts(model.cfg.vocab_size):
+            eng.submit(p, TP_GEN)
+        outs = sorted(eng.run(), key=lambda o: o.rid)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    out = ([o.tokens.tolist() for o in outs], [o.logprobs.tolist() for o in outs],
+           st["decode_s"] * 1e3 / max(st["decode_steps"], 1), counts(), plain.calls)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_cli(fn, args):
+    """One CLI run with the kernels' launches and the plain versions'
+    calls counted and its standard output kept. Returns (its result,
+    launches, plain calls, output, wall s)."""
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with PlainCalls() as plain, contextlib.redirect_stdout(buf):
+        got = fn(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, counts(), plain.calls, buf.getvalue(), wall
+
+
+def tick_ms(out: str) -> float:
+    m = re.search(r"tick gap median=([0-9.]+)ms", out)
+    return float(m.group(1)) if m else float("nan")
+
+
+def tp_rank(rank, world, port):
+    """One of the two ranks that share the card over gloo (spawned by
+    phase_tp): the serving CLI at --mesh 1x2 --shard-model and --mesh 2x1,
+    gpt2s-poly4 through ServeEngine at 1x2, the training CLI at --mesh
+    1x2:data,model, and a checkpoint of that run's sharded state, each
+    with its launches counted; writes its readings to TP_DIR."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.serve.plan import ServePlan
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    os.environ.pop("LOCAL_RANK", None)
+    device, _ = init_ranks("cuda", share_card=True)
+    row = {"rank": rank, "backend": dist.get_backend(), "device": str(device)}
+    for label, mesh in (("serve_1x2", ["--mesh", "1x2", "--shard-model"]),
+                        ("serve_2x1", ["--mesh", "2x1"])):
+        path = os.path.join(TP_DIR, f"{label}.json")
+        _, launched, plain, out, wall = tp_cli(
+            serve_cli.main, TP_SERVE_CLI + mesh + ["--share-card", "--tokens-out", path])
+        row[label] = {"launches": launched, "plain_calls": plain, "tick_ms": tick_ms(out),
+                      "wall_s": wall}
+    plan = ServePlan.build(1, 2, shard_model=True, device=device)
+    toks, lps, ms, launched, plain = tp_poly_serve(plan)
+    row["poly4_1x2"] = {"tokens": toks, "logprobs": lps, "tick_ms": ms,
+                        "launches": launched, "plain_calls": plain}
+    (state, losses), launched, plain, _, wall = tp_cli(
+        train_cli.run, TP_TRAIN_CLI + ["--mesh", "1x2:data,model", "--share-card"])
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(TP_DIR, "ckpt")).save(state.step, state, block=True)
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    row["train_1x2"] = {"losses": losses, "launches": launched, "plain_calls": plain,
+                        "step_ms": wall * 1e3 / len(losses), "ckpt_ms": ckpt_ms,
+                        "wq_block": list(state.params["layers.0.mixer.wq"].shape)}
+    del state
+    with open(os.path.join(TP_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+def tp_kernel_checks():
+    """B1 and B2 at one rank's share of the heads (6 of gpt2s's 12) against
+    their plain versions: B1 at the prefill's call (n 2048, block 1024)
+    and, with its backward, at the 1x2 training step's (batch 2, n 1024,
+    block 1024: bh 12), B2 at the poly4 prefill's (n 2048). Not counted as
+    launches. Returns {kernel: max|err|}."""
+    rnd = seeded(15)
+    qm, km = rnd(1, 6, 2048, 32, scale=0.5), rnd(1, 6, 2048, 32, scale=0.5)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (64,), eps=1e-6)  # noqa: E731
+    q, k, v = ln(rnd(1, 6, 2048, 64)), ln(rnd(1, 6, 2048, 64)), rnd(1, 6, 2048, 64)
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    e1 = err(ops.polysketch_attention(qm, km, q, k, v, **kw),
+             ops.polysketch_attention(qm, km, q, k, v, impl="torch", **kw))
+    check("B1 at a rank's heads: bh 1 x 6, n 2048, r 32, h 64, b 1024", e1, F32_TOL)
+    kw = dict(degree=4, scale=1.0 / 64)
+    e2 = err(ops.poly_attention(q, k, v, **kw),
+             ops.poly_attention(q, k, v, impl="torch", **kw))
+    check("B2 at a rank's heads: bh 1 x 6, n 2048, h 64, p 4", e2, F32_TOL)
+    # the training step's call at 1x2: TP_TRAIN_CLI's batch 2 x 6 heads, n 1024
+    rnd = seeded(16)
+    xs = (rnd(2, 6, 1024, 32, scale=0.5), rnd(2, 6, 1024, 32, scale=0.5),
+          rnd(2, 6, 1024, 64), rnd(2, 6, 1024, 64), rnd(2, 6, 1024, 64))
+    kw = dict(degree=4, scale=1.0 / 64, block_size=1024)
+    e3 = err(ops.polysketch_attention(*xs, **kw),
+             ops.polysketch_attention(*xs, impl="torch", **kw))
+    check("B1 at a rank's training call: bh 2 x 6, n 1024, b 1024", e3, F32_TOL)
+    _, e4, _, _ = check_grads("B1 backward at a rank's training call: bh 2 x 6, n 1024",
+                              ops.polysketch_attention, xs, rnd(2, 6, 1024, 64), **kw)
+    torch.cuda.synchronize()
+    return {"polysketch_causal": max(e1, e3), "poly_flash": e2,
+            "polysketch_causal_backward": e4}
+
+
+def tp_tokens(path):
+    with open(path) as f:
+        return json.load(f)["outputs"]
+
+
+def tp_compare(label, got, base):
+    """Tokens equal, log-probabilities within TP_LP_TOL; returns (max|diff|,
+    the number of bit-equal log-probabilities, their count)."""
+    worst, same, n = 0.0, 0, 0
+    for rid, want in base.items():
+        mine = got[rid]
+        if mine["tokens"] != want["tokens"]:
+            raise AssertionError(f"{label}: request {rid}'s tokens differ from 1x1's")
+        for a, b in zip(mine["logprobs"], want["logprobs"]):
+            worst = max(worst, abs(a - b))
+            same += a == b
+            n += 1
+    check(f"{label}: log-probabilities against 1x1 (tokens equal)", worst, TP_LP_TOL)
+    return worst, same, n
+
+
+def phase_tp(card):
+    """Phase 15 (see the module docstring). Returns its row."""
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    log(f"phase 15: compute over the 'model' mesh axis, gpt2s-polysketch (and gpt2s-poly4) "
+        f"at full width and depth, f32, two ranks sharing one card over gloo (collectives "
+        f"staged through the host: not a multi-card speed); {card}")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    kernel_err = tp_kernel_checks()
+    base_path = os.path.join(TP_DIR, "serve_1x1.json")
+    _, serve_base, plain, out, wall = tp_cli(
+        serve_cli.main, TP_SERVE_CLI + ["--tokens-out", base_path])
+    base_tick = tick_ms(out)
+    log(f"  1x1 serving CLI: {wall:.1f} s, tick gap median {base_tick} ms, launches "
+        f"{serve_base}, plain calls {plain}")
+    ptoks, plps, pms, poly_base, pplain = tp_poly_serve()
+    (_, base_losses), train_base, tplain, _, twall = tp_cli(train_cli.run, TP_TRAIN_CLI)
+    log(f"  1x1: gpt2s-poly4 engine {pms:.2f} ms a tick, launches {poly_base}; training "
+        f"losses {base_losses}, {twall * 1e3 / len(base_losses):.1f} ms a step (3 steps, "
+        f"the first included), launches {train_base}")
+    if plain or pplain or tplain:
+        raise AssertionError("a 1x1 run of phase 15 called a plain version")
+    t0 = time.perf_counter()
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import _free_port
+    mp.spawn(tp_rank, args=(2, _free_port()), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(TP_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"  two ranks ({ranks[0]['backend']} on {ranks[0]['device']} and "
+        f"{ranks[1]['device']}): {spawn_s:.1f} s with their start-up")
+    base = tp_tokens(base_path)
+    cfg = get_config("gpt2s-polysketch")
+    wq_block = [cfg.d_model, cfg.n_heads // 2, cfg.resolved_head_dim]
+    row = {"kernel_err": kernel_err, "ranks": ranks,
+           "base": {"serve_launches": serve_base, "serve_tick_ms": base_tick,
+                    "poly4_launches": poly_base, "poly4_tick_ms": pms,
+                    "train_launches": train_base, "losses": base_losses,
+                    "train_step_ms": twall * 1e3 / len(base_losses)}}
+    for label in ("serve_1x2", "serve_2x1"):
+        worst, same, n = tp_compare(f"launch/serve.py --mesh {label[6:]}",
+                                    tp_tokens(os.path.join(TP_DIR, f"{label}.json")), base)
+        launched = [r[label]["launches"]["polysketch_causal"] for r in ranks]
+        log(f"  {label}: {same}/{n} log-probabilities bit for bit, max|diff| {worst:.3e}; "
+            f"B1 launches a rank {launched} (1x1: {serve_base['polysketch_causal']}); ms a "
+            f"tick (tick gap median, rank 0) {ranks[0][label]['tick_ms']} against 1x1's "
+            f"{base_tick}; wall {[round(r[label]['wall_s'], 1) for r in ranks]} s")
+        row[label] = {"max_lp_diff": worst, "bit_equal": same, "count": n,
+                      "b1_launches": launched}
+        want = ([serve_base["polysketch_causal"]] * 2 if label == "serve_1x2" else None)
+        if want is not None and launched != want:
+            raise AssertionError(f"{label}: B1 launches {launched}, want {want} (each rank "
+                                 "runs every prefill on its heads)")
+        if label == "serve_2x1" and (sum(launched) != serve_base["polysketch_causal"]
+                                     or min(launched) == 0):
+            raise AssertionError(f"{label}: B1 launches {launched} do not split the 1x1 "
+                                 f"run's {serve_base['polysketch_causal']} over the data ranks")
+        if any(r[label]["plain_calls"] for r in ranks):
+            raise AssertionError(f"{label}: a rank called a plain version")
+    for r in ranks:
+        p = r["poly4_1x2"]
+        if p["tokens"] != ptoks:
+            raise AssertionError("gpt2s-poly4 at 1x2: tokens differ from 1x1's")
+        worst = max(abs(a - b) for x, y in zip(p["logprobs"], plps) for a, b in zip(x, y))
+        check(f"gpt2s-poly4 ServeEngine 1x2 rank {r['rank']}: log-probabilities against "
+              f"1x1", worst, TP_LP_TOL)
+        if p["launches"]["poly_flash"] != poly_base["poly_flash"] or p["plain_calls"]:
+            raise AssertionError(f"gpt2s-poly4 at 1x2: B2 launches {p['launches']} against "
+                                 f"1x1's {poly_base}, or a plain call")
+        t = r["train_1x2"]
+        diff = max(abs(a - b) for a, b in zip(t["losses"], base_losses))
+        check(f"launch/train.py --mesh 1x2:data,model rank {r['rank']}: losses against "
+              f"the run without --mesh", diff, TP_LOSS_TOL)
+        for k in ("polysketch_causal", "polysketch_causal_backward"):
+            if t["launches"][k] != train_base[k]:
+                raise AssertionError(f"training at 1x2: rank {r['rank']} launched {k} "
+                                     f"{t['launches'][k]} times, 1x1 {train_base[k]}")
+        if t["plain_calls"] or t["wq_block"] != wq_block:
+            raise AssertionError(f"training at 1x2: wq block {t['wq_block']} (want "
+                                 f"{wq_block}) or a plain call")
+    log(f"  gpt2s-poly4 1x2: B2 launches a rank "
+        f"{[r['poly4_1x2']['launches']['poly_flash'] for r in ranks]} (1x1 "
+        f"{poly_base['poly_flash']}), ms a tick {[round(r['poly4_1x2']['tick_ms'], 2) for r in ranks]}"
+        f" against 1x1's {pms:.2f}")
+    log(f"  training 1x2: losses {ranks[0]['train_1x2']['losses']} against {base_losses}; "
+        f"B1 / B1 backward launches a rank "
+        f"{[(r['train_1x2']['launches']['polysketch_causal'], r['train_1x2']['launches']['polysketch_causal_backward']) for r in ranks]}"
+        f" (1x1 {train_base['polysketch_causal']} / "
+        f"{train_base['polysketch_causal_backward']}); ms a step (3 steps, the first "
+        f"included) {[round(r['train_1x2']['step_ms'], 1) for r in ranks]} against 1x1's "
+        f"{twall * 1e3 / len(base_losses):.1f}; a checkpoint call (gather + rank 0 writes + "
+        f"barrier) {[round(r['train_1x2']['ckpt_ms'], 1) for r in ranks]} ms")
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s ({card}; two ranks sharing one "
+        f"card over host-staged gloo collectives, not a multi-card speed)")
+    for r in ranks:
+        for k in ("tokens", "logprobs"):
+            r["poly4_1x2"].pop(k)
+    log(json.dumps({"tensor_parallel": row}, default=float))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -5438,6 +5739,20 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     replicas = phase_replicas(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_tp(card)
+    tp_launches = {
+        "polysketch_causal": {
+            "serve_1x2": tp["serve_1x2"]["b1_launches"],
+            "serve_2x1": tp["serve_2x1"]["b1_launches"],
+            "train_1x2": [r["train_1x2"]["launches"]["polysketch_causal"]
+                          for r in tp["ranks"]]},
+        "polysketch_causal_backward": {
+            "train_1x2": [r["train_1x2"]["launches"]["polysketch_causal_backward"]
+                          for r in tp["ranks"]]},
+        "poly_flash": {"serve_1x2": [r["poly4_1x2"]["launches"]["poly_flash"]
+                                     for r in tp["ranks"]]}}
     dense_launches = {
         "polysketch_causal": {"serve": sum(r["b1_launches"] for r in dense_rows),
                               "train": dense_train["launches"]["polysketch_causal"]},
@@ -5459,6 +5774,10 @@ def main(argv=None):
             out["prefix_cache_launches"] = b1_prefix
         if name in replicas["replica_launches"]:   # phase 14: the replicated runs
             out["replica_launches"] = replicas["replica_launches"][name]
+        if name in tp_launches:   # phase 15: each of the two ranks' launches
+            out["tp_launches_a_rank"] = tp_launches[name]
+        if name in tp["kernel_err"]:   # phase 15: at a rank's share of the heads
+            out["tp_max_abs_err"] = tp["kernel_err"][name]
         if name in dense_launches:   # the dense models at h 128, bf16
             key = "fwd" if name == "polysketch_causal" else "bwd"
             h_ms, h_plain, h_bd = h128_times["bfloat16"][key]

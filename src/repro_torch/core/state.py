@@ -217,6 +217,21 @@ def state_shard_axes(state) -> list:
             for node in state]
 
 
+def snapshot_map_heads(snapshot, fn):
+    """`snapshot` (a list of per-layer snapshots) with fn applied to every
+    tensor that an attention state splits over its kv heads (dim 1: a
+    polysketch's z, a ring's k and v); a recurrent layer's snapshot, which
+    no head split cuts, as it is. What moves a snapshot between a rank's
+    heads and all of them (serve.plan)."""
+    def one(snap):
+        if torch.is_tensor(snap):                       # polysketch: z
+            return fn(snap)
+        if isinstance(snap, dec.RingKVCache):
+            return snap._replace(k=fn(snap.k), v=fn(snap.v))
+        return snap
+    return [one(s) for s in snapshot]
+
+
 # ---------------------------------------------------------------------------
 # the kind registry
 # ---------------------------------------------------------------------------
@@ -523,9 +538,11 @@ class DecodeState:
     def init(self, batch: int, max_len: int | None = None):
         return self.lm.init_cache(batch, max_len)
 
-    def init_slot(self, max_len: int | None = None):
-        """Batch-1 cache for one serve slot."""
-        return self.lm.init_slot_cache(max_len)
+    def init_slot(self, max_len: int | None = None, *, whole: bool = False,
+                  device=None):
+        """Batch-1 cache for one serve slot: this rank's kv heads on a
+        serving plan that splits them, all of them with `whole`."""
+        return self.lm.init_slot_cache(max_len, whole=whole, device=device)
 
     def prefill(self, tokens, state=None, *, max_len=None, image_embeds=None):
         """tokens (B, S) -> (last-position logits (B, V), state).
@@ -608,8 +625,8 @@ class DecodeState:
         """(shape, dtype) of each snapshot tensor, read from a fresh slot's
         state (no prefill runs): what a prefix cache binds to. A ring's
         window, min(sliding_window, max_len), is in it."""
-        return [(tuple(x.shape), str(x.dtype)) for x in
-                snapshot_tensors(self.snapshot(self.init_slot(max_len)))]
+        return [(tuple(x.shape), str(x.dtype)) for x in snapshot_tensors(
+            self.snapshot(self.init_slot(max_len, whole=True, device="meta")))]
 
     def serialize(self, snapshot, n_tokens: int) -> bytes:
         return serialize_snapshot(snapshot, n_tokens, self.layout)
@@ -618,7 +635,7 @@ class DecodeState:
         """(snapshot, n_tokens) from serialize's bytes, checked leaf by leaf
         against a fresh slot's snapshot at `max_len` (ValueError if a leaf
         does not fit)."""
-        template = self.snapshot(self.init_slot(max_len))
+        template = self.snapshot(self.init_slot(max_len, whole=True))
         return deserialize_snapshot(data, template, self.layout, self.device)
 
     # -- partial prefill (chunked admission) -------------------------------

@@ -19,13 +19,18 @@ equals the reference's ``PartitionSpec`` entry for entry. A mesh is a
 ``axis_names`` and ``devices.shape`` (the reference's duck type), or a
 plain ``{axis: size}``.
 
-The port computes replicated: every rank runs the whole model on its
-rows of the batch. What the specs place is storage, as DTensor
-placements (``placements``): ``shard`` keeps a rank's block of a tensor,
-``gather`` rebuilds the whole tensor from every rank's block, and
-``reduce_grad`` turns each rank's gradient of its own rows into its block
-of the mean gradient. Splitting the compute itself over "model" (the
-reference's Megatron contraction) is not ported.
+The port runs one process a rank. What the specs place is storage:
+``shard`` keeps a rank's block of a tensor, ``gather`` rebuilds the
+whole tensor (or its block of the axes not named) from every rank's
+block, and ``reduce_grad`` turns each rank's gradient of its own rows
+into its block of the mean gradient. The compute splits over "model"
+(``distributed/tensor_parallel.py``): under ``activation_sharding`` each
+"model" rank computes its own heads, mlp columns and (in training) vocab
+rows, and ``shard_act`` gathers the reference's gather points whole when
+the active rules map them to () (serving), or leaves them split for the
+Megatron partial sum (training). The collectives are plain
+``torch.distributed`` calls on each mesh axis's group (gloo moves CUDA
+tensors through the host, so ranks that share one card can run them).
 """
 from __future__ import annotations
 
@@ -34,7 +39,10 @@ import math
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed import tensor_parallel as tp
 
 DEFAULT_RULES: dict[str | None, tuple[str, ...]] = {
     None: (),
@@ -147,60 +155,116 @@ def placements(spec: Spec, mesh) -> list:
 
 
 # ---------------------------------------------------------------------------
-# FSDP storage over a DeviceMesh, through DTensor: a rank keeps the local
-# block of a DTensor placed by its spec
+# FSDP storage over a DeviceMesh: a rank keeps the block of each tensor
+# that its spec names, major axis first where one dim carries several
 # ---------------------------------------------------------------------------
 
-def shard(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def _axis(mesh, a):
+    return mesh.size(mesh.mesh_dim_names.index(a)), mesh.get_local_rank(a)
+
+
+def shard(full: torch.Tensor, spec: Spec, mesh, axes=None) -> torch.Tensor:
     """This rank's block of `full`, which holds the same values on every
-    rank (a copy: the whole tensor's storage can be freed)."""
-    local = distribute_tensor(full, mesh, placements(spec, mesh),
-                              src_data_rank=None).to_local()
-    return local.clone(memory_format=torch.contiguous_format)
+    rank, over the spec's axes (only `axes` when given); a copy, so the
+    whole tensor's storage can be freed."""
+    x = full
+    for d, entry in enumerate(spec):
+        for a in spec_axes(entry):
+            if axes is not None and a not in axes:
+                continue
+            n, r = _axis(mesh, a)
+            step = x.shape[d] // n
+            x = x.narrow(d, r * step, step)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
-def gather(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The whole tensor from every rank's block."""
-    return DTensor.from_local(local, mesh, placements(spec, mesh)).full_tensor()
+def gather(local: torch.Tensor, spec: Spec, mesh, axes=None) -> torch.Tensor:
+    """The tensor from every rank's block: whole, or gathered over `axes`
+    only (the others stay this rank's block)."""
+    x = local
+    for d, entry in reversed(list(enumerate(spec))):
+        for a in reversed(spec_axes(entry)):          # minor axis first
+            if axes is not None and a not in axes:
+                continue
+            n, _ = _axis(mesh, a)
+            if n == 1:
+                continue
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x.contiguous(), group=mesh.get_group(a))
+            x = torch.cat(parts, dim=d)
+    return x
 
 
-def reduce_grad(full: torch.Tensor, spec: Spec, mesh, dp_axes: tuple[str, ...]
-                ) -> torch.Tensor:
+def reduce_grad(full: torch.Tensor, spec: Spec, mesh, dp_axes: tuple[str, ...],
+                local_axes: tuple[str, ...] = ()) -> torch.Tensor:
     """This rank's block of the mean over the data-parallel ranks of each
-    rank's whole gradient `full` (of its own rows): partial sums over the
-    data axes, the same values over any other (its ranks computed the same
-    rows), redistributed to the spec's placements (a reduce-scatter or an
-    all-reduce over a data axis, a slice over another) and divided by the
-    number of data ranks."""
-    src = [Partial() if a in dp_axes else Replicate() for a in mesh.mesh_dim_names]
-    block = DTensor.from_local(full, mesh, src).redistribute(
-        mesh, placements(spec, mesh)).to_local()
-    ranks = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in dp_axes)
-    return block / ranks if ranks > 1 else block.contiguous()
+    rank's gradient `full` of its own rows: summed over the data axes
+    (the same values over any other: its ranks computed the same rows),
+    divided by their number, and cut to the spec's block. `full` is
+    already this rank's block over `local_axes` (the "model" axis whose
+    compute it split)."""
+    g = full.contiguous()
+    ranks = 1
+    for a in dp_axes:
+        n, _ = _axis(mesh, a)
+        if n > 1:
+            g = g.clone() if g is full else g
+            dist.all_reduce(g, group=mesh.get_group(a))
+        ranks *= n
+    block = shard(g, spec, mesh, axes=[a for a in mesh.mesh_dim_names
+                                        if a not in local_axes])
+    return block / ranks if ranks > 1 else block
 
 
 def global_sumsq(blocks: dict[str, torch.Tensor], specs: dict[str, Spec], mesh
                  ) -> torch.Tensor:
     """The sum of squares (f32) of the whole tensors whose blocks this rank
-    holds: each block's sum, summed over the ranks that shard it."""
-    return sum(torch.sum(torch.square(DTensor.from_local(
-        g.to(torch.float32), mesh, placements(specs[n], mesh)))).full_tensor()
-        for n, g in blocks.items())
+    holds: each block's sum over the ranks that hold distinct blocks of it
+    (a block held by several ranks counted once)."""
+    world = math.prod(mesh.size(i) for i in range(len(mesh.mesh_dim_names)))
+    total = torch.zeros((), dtype=torch.float32,
+                        device=next(iter(blocks.values())).device)
+    for n, g in blocks.items():
+        held = math.prod(_axis(mesh, a)[0] for e in specs[n] for a in spec_axes(e))
+        total = total + torch.sum(torch.square(g.to(torch.float32))) / (world // held)
+    if world > 1:
+        dist.all_reduce(total)
+    return total
 
 
 # ---------------------------------------------------------------------------
 # Activation sharding constraints. The reference constrains activations at
-# block boundaries (XLA's propagation gives up inside layer scans); the
-# port computes replicated, so a constraint has nothing to place: shard_act
-# returns its input, inside the context or not.
+# block boundaries (XLA's propagation gives up inside layer scans); in the
+# port the context makes the mesh, the rules and the "model" group known to
+# the model code (distributed/tensor_parallel.py), and shard_act gathers a
+# gather point whole where the rules map it to ().
 # ---------------------------------------------------------------------------
 
+# the reference's gather points: a dim that holds this rank's block of the
+# heads (mlp columns) right before the contraction over them
+GATHER_POINTS = ("act_heads", "act_mlp")
+
+
 @contextlib.contextmanager
-def activation_sharding(mesh, rules: dict | None = None):
-    yield
+def activation_sharding(mesh, rules: dict | None = None, *, vocab_head: bool = False):
+    """Make `mesh` and `rules` (default DEFAULT_RULES) active for the model
+    code on this thread; `vocab_head`: an untied lm_head holds this rank's
+    vocab columns (a serving placement's), so the logits are gathered."""
+    with tp.activate(mesh, rules or DEFAULT_RULES, vocab_head=vocab_head):
+        yield
 
 
 def shard_act(x, *logical_names):
-    """The reference's activation constraint: x itself (compute is
-    replicated in the port)."""
+    """The reference's activation constraint. The port's compute holds
+    this rank's block of the heads and mlp columns already, so the only
+    move is at a gather point whose logical name the active rules map to
+    () (serving): its dim is gathered whole over "model". Elsewhere (no
+    context, one "model" rank, training's partial sums, other names) it is
+    x itself."""
+    ctx = tp.active()
+    if ctx is None or ctx.size == 1:
+        return x
+    for dim, name in enumerate(logical_names):
+        if name in GATHER_POINTS and not tp.keeps(name):
+            x = tp.gather(x, dim)
     return x

@@ -5,19 +5,78 @@ The port of the JAX package's ``launch/mesh.py``: a mesh is a
 process a device (``torchrun --nproc-per-node N``, or one process at world
 1). Single pod: 16x16 = 256 ranks ("data", "model"); multi-pod: 2x16x16 =
 512 ("pod", "data", "model"). Building one needs an initialised process
-group whose world size is the mesh's size; nothing here touches device
-state on import.
+group whose world size is the mesh's size (``init_ranks``); nothing here
+touches device state on import. The device type is the port's rule
+(``utils.resolve_device``): CUDA unless the caller names another, and an
+error without a card.
+
+``init_ranks(device, share_card=True)`` is the explicit opt-in for ranks
+that share one card: every rank on ``cuda:0`` and gloo, whose
+collectives move CUDA tensors through the host. It is never chosen on
+its own (NCCL refuses two ranks on one GPU); it exists so that a
+multi-rank path can run on a one-card machine, as the reference forces
+host devices on the CPU (``--xla_force_host_platform_device_count``).
 """
 from __future__ import annotations
+
+import logging
+import os
+import socket
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.utils import resolve_device
+
+log = logging.getLogger("repro_torch.mesh")
+
 
 def _device_type(device_type):
-    if device_type is not None:
-        return device_type
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve_device(device_type).type
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_ranks(device, *, share_card: bool = False):
+    """This process's device for a mesh run, the process group joined if
+    the caller has not: from torchrun's environment (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), or alone at world 1 on a free loopback
+    port. NCCL on CUDA (one card a rank: LOCAL_RANK's), gloo on the CPU;
+    with `share_card` every rank runs on cuda:0 over gloo. Returns
+    (device, whether this call joined the group)."""
+    dev = resolve_device(device)
+    if share_card and dev.type != "cuda":
+        raise SystemExit("--share-card shares a CUDA card; drop it with --device cpu")
+    owned = not dist.is_initialized()
+    if owned:
+        backend = "nccl" if dev.type == "cuda" and not share_card else "gloo"
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                    rank=0, world_size=1)
+    if dev.type == "cuda":
+        world, cards = dist.get_world_size(), torch.cuda.device_count()
+        if share_card:
+            dev = torch.device("cuda", 0)
+            log.info("--share-card: %d ranks share %s over gloo (collectives staged "
+                     "through the host; not a multi-card speed)", world, dev)
+        elif world > cards:
+            if owned:
+                dist.destroy_process_group()
+            raise SystemExit(f"--mesh with --device cuda runs one rank a card: {world} "
+                             f"ranks but {cards} visible cards (NCCL cannot put two "
+                             "ranks on one GPU); pass --share-card to run them on one "
+                             "card over gloo, or run on the CPU")
+        else:
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+        torch.cuda.set_device(dev)
+        torch.cuda.init()
+    return dev, owned
 
 
 def _ranks_running() -> int:

@@ -88,34 +88,65 @@ cycle of its 48 that an 80 GB card holds:
         --draw-on-device --layers 5 --prompt-len 4096 --gen 16 --slots 2 --requests 4
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama4-maverick-400b-a17b --draw-on-device --layers 2
+
+Serving over a D x M mesh (--mesh DxM, one process a rank started by
+torchrun, which sets the ranks): the slots split over "data", the heads
+over "model", with --shard-model the weights PARAM_RULES names too
+(serve/plan.py). Every rank runs the same loop over the same arrivals
+(rank 0 decides when each arrives); rank 0 prints and writes
+--tokens-out, whose tokens and log-probabilities a 1x1 run's file should
+match. On a one-card machine --share-card runs the ranks on that card
+over gloo (a test harness, never chosen on its own):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \
+        --device cpu --mesh 2x2 --shard-model --logprobs --tokens-out /tmp/m.json
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 \
+        --shard-model --share-card --prompt-len 2048 --gen 16
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.fault import PreemptionGuard
+from repro_torch.launch.mesh import init_ranks, make_serving_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.serve.chaos import ChaosInjector
 from repro_torch.serve.engine import ServeEngine, generate
+from repro_torch.serve.plan import ServePlan
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.replicas import Overloaded, ReplicaSet
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.telemetry import Telemetry, format_event, validate_trace
 
-# what a serving mesh beyond one device needs: data-sharded slots and
-# tensor-parallel compute over ranks
-MESH_ITEM = "ROADMAP A.9 item 3"
-
-
 def _percentile(xs, p):
     return float(np.percentile(np.asarray(xs), p)) if xs else 0.0
+
+
+def control_group():
+    """A gloo group over every rank for the host loop's agreements: the
+    default group when it is gloo already (the CPU, ranks sharing a card),
+    else a new one beside NCCL. Every rank calls it at the same point."""
+    return None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+
+
+def agree(values: list[int], group) -> list[int]:
+    """The largest of each of `values` over every rank: one all-reduce of
+    host integers (no device sync)."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t.tolist()
 
 
 def simulate(engine, arrivals, *, quiet=False, guard=None):
@@ -128,16 +159,37 @@ def simulate(engine, arrivals, *, quiet=False, guard=None):
     a ReplicaSet (the same surface): a shed submission (Overloaded) is
     retried shortly later, so every request is served. With a
     PreemptionGuard, a SIGTERM stops admissions and ends the loop (the
-    caller drains). Returns (outputs in completion order, wall seconds)."""
+    caller drains). On a multi-device plan every rank runs this loop:
+    while arrivals remain, the ranks agree each tick on how many to
+    submit (the most any rank's clock has passed) and on whether any rank
+    was preempted, in one all-reduce of host integers (`agree`), so every
+    rank submits the same requests at the same tick and stops at the same
+    tick. After the last admission the loop takes no collective of its
+    own and the guard is left to the caller (`agree` again), which keeps
+    the engine's one host sync a tick. Returns (outputs in completion
+    order, wall seconds)."""
     pending = list(arrivals)
     outs = []
+    plan = getattr(engine, "plan", None)
+    spmd = plan is not None and plan.n_devices > 1
+    group = control_group() if spmd else None
     t0 = time.perf_counter()
     while pending or engine.busy:
-        if guard is not None and guard.preempted:
+        now = time.perf_counter() - t0
+        stop = guard is not None and guard.preempted
+        if spmd and pending:
+            due, stop = agree([sum(1 for a in pending if a[0] <= now), stop], group)
+            if not stop:
+                for _ in range(due):
+                    _, prompt, gen, eos, sampling = pending.pop(0)
+                    engine.submit(prompt, gen, eos, sampling=sampling)
+        elif spmd:
+            stop = False
+        if stop:
+            guard.preempted = True   # agreed: a rank that saw no SIGTERM drains too
             pending.clear()
             break
-        now = time.perf_counter() - t0
-        while pending and pending[0][0] <= now:
+        while not spmd and pending and pending[0][0] <= now:
             item = pending[0]
             _, prompt, gen, eos, sampling = item
             try:
@@ -247,11 +299,14 @@ def main(argv=None):
                          "signature, or a kernel library was built, "
                          "mid-serve (needs --warm)")
     ap.add_argument("--mesh", default="1x1", metavar="DxM",
-                    help="serving mesh as data x model device counts; only "
-                         f"1x1 is ported (beyond it: {MESH_ITEM})")
+                    help="serving mesh as data x model device counts, one "
+                         "process a rank (torchrun sets the ranks)")
     ap.add_argument("--shard-model", action="store_true",
-                    help=f"tensor-parallel parameters ({MESH_ITEM}: not "
-                         "ported)")
+                    help="tensor-parallel parameters over the mesh's 'model' "
+                         "axis (the weights PARAM_RULES names)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --mesh beyond 1x1 on CUDA: every rank on one card "
+                         "over gloo (a test harness; never chosen on its own)")
     ap.add_argument("--replicas", type=int, default=0,
                     help="serve through N replicated engines behind one "
                          "coordinator with checkpointed bit-exact failover "
@@ -287,26 +342,48 @@ def main(argv=None):
                          "per replica)")
     if replica_mode and (args.mesh != "1x1" or args.shard_model):
         raise SystemExit("--replicas places each replica itself; drop "
-                         "--mesh/--shard-model")
+                         f"--mesh/--shard-model (replicas on a multi-device "
+                         f"plan: {tp.REFUSALS_ITEM})")
     try:
         mesh_d, mesh_m = (int(x) for x in args.mesh.lower().split("x"))
     except ValueError:
         raise SystemExit(f"--mesh wants DxM (e.g. 1x1), got {args.mesh!r}")
-    if mesh_d * mesh_m != 1 or args.shard_model:
-        raise SystemExit(f"--mesh {args.mesh}"
-                         + (" --shard-model" if args.shard_model else "")
-                         + ": serving over more than one device (data-sharded "
-                         "slots, tensor-parallel compute) is not ported yet "
-                         f"({MESH_ITEM})")
+    if mesh_d * mesh_m == 1:
+        if args.share_card:
+            raise SystemExit("--share-card goes with --mesh beyond 1x1")
+        return _serve(args, argv, None, args.device)
+    device, owned = init_ranks(args.device, share_card=args.share_card)
+    try:
+        try:
+            mesh = make_serving_mesh(mesh_d * mesh_m, mesh_m, device.type)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+        plan = ServePlan.from_mesh(mesh, shard_model=args.shard_model, device=device)
+        # rank 0 prints; the others run silent
+        quiet = (contextlib.redirect_stdout(io.StringIO()) if dist.get_rank()
+                 else contextlib.nullcontext())
+        with quiet:
+            return _serve(args, argv, plan, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _serve(args, argv, plan, device):
+    """main's run on `plan` (None: one device) on `device`."""
+    replica_mode = args.replicas > 0
     overrides = {"lt_block_size": args.block_size} if args.block_size else {}
     if args.layers:
         overrides["n_layers"] = args.layers
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
-    model = build_model(cfg, device=args.device, seed=args.seed,
+    model = build_model(cfg, device=device, seed=args.seed,
                         draw_on_device=args.draw_on_device)
+    cache_dir = args.prefix_cache_dir
+    if cache_dir and plan is not None:
+        # every rank holds the same whole snapshots: a directory each
+        cache_dir = os.path.join(cache_dir, f"rank{dist.get_rank()}")
     prefix_cache = (PrefixCache(int(args.prefix_cache_mb * 2 ** 20),
-                                save_dir=args.prefix_cache_dir)
+                                save_dir=cache_dir)
                     if args.prefix_cache_mb > 0 else None)
     if args.expect_disk_hits and (prefix_cache is None
                                   or args.prefix_cache_dir is None):
@@ -339,7 +416,11 @@ def main(argv=None):
               f"shed_above={args.shed_above or 'off'}, "
               f"hang_timeout={args.hang_timeout or 'off'}, chaos: {armed})")
     else:
-        engine = ServeEngine(model, **common)
+        engine = ServeEngine(model, plan=plan, **common)
+        if plan is not None:
+            print(f"mesh: {plan.describe()} ({plan.n_devices} ranks, params "
+                  f"{'sharded' if args.shard_model else 'replicated'} over 'model'"
+                  + (", sharing one card over gloo" if args.share_card else "") + ")")
     rng = np.random.default_rng(args.seed)
     eos = None if args.eos_id < 0 else args.eos_id
     # a few fixed prompt-length buckets (not a continuum): mixed-length
@@ -440,6 +521,8 @@ def main(argv=None):
         outs, wall = simulate(engine, arrivals, guard=guard)
     finally:
         guard.uninstall()
+    if plan is not None and plan.n_devices > 1:   # every rank drains, or none
+        guard.preempted = bool(agree([guard.preempted], control_group())[0])
     if guard.preempted:
         # admissions stopped inside simulate(); persist every decoding
         # slot's state to the disk tier and exit 0 (the SIGTERM contract)
@@ -523,7 +606,7 @@ def main(argv=None):
               f"({lps.size} tokens)")
         if not (np.all(np.isfinite(lps)) and np.all(lps <= 0.0)):
             raise SystemExit("logprobs outside (-inf, 0]")
-    if args.tokens_out:
+    if args.tokens_out and (plan is None or dist.get_rank() == 0):
         # float(np.float32) goes through float64, which JSON round-trips
         # exactly: diffing two files compares tokens and logprobs bit for bit
         payload = {

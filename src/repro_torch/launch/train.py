@@ -12,16 +12,19 @@ the reference's flags, plus ``--device`` (default cuda; raises when there
 is no card). ``--mesh "AxB:data,model"`` trains over a device mesh of one
 process a rank (``torchrun``, which sets the ranks; one process alone is
 world 1): parameters and AdamW moments stored sharded by the sharding
-rules (FSDP), gathered whole for each step, each rank on its rows of the
-batch, gradients reduced to each rank's blocks (``train.step.
-make_sharded_train_step``). The world size must be the mesh's size; with
-``--device cuda`` each rank takes its own card, so a mesh larger than the
-visible cards raises. The compute is replicated over "model" (the
-reference's tensor-parallel contraction is not ported), and
-``--ckpt-dir`` does not combine with ``--mesh``:
+rules, gathered over "data" for each step (FSDP), the compute split over
+"model" (each rank's heads, mlp columns and vocab rows, Megatron's partial
+sums), each data rank on its rows of the batch, gradients reduced to each
+rank's blocks (``train.step.make_sharded_train_step``). The world size
+must be the mesh's size; with ``--device cuda`` each rank takes its own
+card, so a mesh larger than the visible cards raises unless
+``--share-card`` puts every rank on one card over gloo (a test harness,
+never chosen on its own). ``--ckpt-dir`` with ``--mesh`` writes the
+reference's mesh-agnostic layout (whole arrays, rank 0 writes) and
+restores onto any mesh or none:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --smoke \
-        --device cpu --mesh 2x1:data,model --steps 3 --batch 4 --seq 64
+        --device cpu --mesh 1x2:data,model --steps 3 --batch 4 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --mesh 1x1:data,model
 
 ``--set remat=full`` (or
@@ -66,8 +69,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
-import socket
 import time
 
 import torch
@@ -77,7 +78,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data import DataIterator, make_markov_lm
 from repro_torch.distributed.fault import PreemptionGuard, StragglerDetector
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import init_ranks, make_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train import init_train_state, make_train_step
 from repro_torch.train.step import init_sharded_train_state, make_sharded_train_step
@@ -114,6 +115,10 @@ def run(argv=None):
     ap.add_argument("--mesh", default="",
                     help='e.g. "2x4:data,model", one process a rank (default: '
                          'one device)')
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --mesh on CUDA: every rank on one card over gloo "
+                         "(a test harness for multi-rank paths on a one-card "
+                         "machine; never chosen on its own)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--device", default=None,
@@ -134,12 +139,11 @@ def run(argv=None):
                          "train it through train.make_train_step with batches "
                          "of tokens and frames")
     if not args.mesh:
+        if args.share_card:
+            raise SystemExit("--share-card goes with --mesh")
         return _train(args, cfg, args.device, None)
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir does not combine with --mesh in the port "
-                         "(a sharded checkpoint is not ported)")
     mesh_shape = parse_mesh(args.mesh)
-    device, owned = init_ranks(args.device)
+    device, owned = init_ranks(args.device, share_card=args.share_card)
     try:
         return _train(args, cfg, device, mesh_shape)
     finally:
@@ -176,7 +180,8 @@ def _train(args, cfg, device, mesh_shape):
         if latest is not None:
             state, start_step = restored, latest
             it.restore(extras["data"])
-            log.info("resumed from step %d", start_step)
+            if chatty:
+                log.info("resumed from step %d", start_step)
 
     guard = PreemptionGuard().install()
     straggler = StragglerDetector()
@@ -227,41 +232,6 @@ def parse_mesh(text: str):
     if len(axes) != len(shape):
         raise SystemExit(f"--mesh {text!r}: {len(shape)} sizes but {len(axes)} axis names")
     return shape, axes
-
-
-def init_ranks(device):
-    """This process's device for a mesh run, the process group joined if
-    the caller has not: from torchrun's environment (RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT), or alone at world 1 on a free loopback
-    port. NCCL on CUDA (one card a rank: LOCAL_RANK's), gloo on the CPU.
-    Returns (device, whether this call joined the group)."""
-    dev = resolve_device(device)
-    owned = not dist.is_initialized()
-    if owned:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            dist.init_process_group(backend, init_method="env://")
-        else:
-            dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
-                                    rank=0, world_size=1)
-    if dev.type == "cuda":
-        world, cards = dist.get_world_size(), torch.cuda.device_count()
-        if world > cards:
-            if owned:
-                dist.destroy_process_group()
-            raise SystemExit(f"--mesh with --device cuda runs one rank a card: {world} "
-                             f"ranks but {cards} visible cards (NCCL cannot put two "
-                             "ranks on one GPU); train on the CPU with gloo instead")
-        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        dev = torch.device("cuda", local)
-        torch.cuda.set_device(dev)
-    return dev, owned
-
-
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _peak_memory(dev) -> str:

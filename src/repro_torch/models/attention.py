@@ -16,6 +16,15 @@ d), with ``cfg.qk_norm`` the per-head q/k RMS norms' q_norm and k_norm
 pln_*, and for polysketch only the learned sketch. The encoder and cross
 kinds are multi-head (Hkv = Hq, as published) and apply no RoPE;
 ``noncausal_polysketch``, which no model calls, is not ported.
+
+Over a "model" mesh axis of M ranks (``distributed.tensor_parallel``)
+each rank projects and attends over its own Hq/M query and Hkv/M kv
+heads (wq/wk/wv hold its block: the training state and a serving plan
+place them so), and the heads meet at
+the reference's gather point "act_heads" before ``_out``: gathered whole
+under the serving rules, then contracted with the whole wo; kept split
+under the training rules, contracted with this rank's rows of wo and
+summed over "model" (the input's gradient summed in the backward).
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from repro_torch.core.poly_attention import (qk_layernorm,
                                               sliding_attention_blocked,
                                               softmax_attention_full)
 from repro_torch.core.sketches import init_sketch, sketch_half
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms, rope
 from repro_torch.utils import const_param, normal_param
@@ -84,13 +95,19 @@ class Attention(nn.Module):
 
     def _project(self, x, positions):
         """x: (B, S, D) -> q (B,Hq,S,h), k,v (B,Hkv,S,h): q/k RMS-normed per
-        head when cfg.qk_norm, then RoPE applied (attn and local_attn)."""
+        head when cfg.qk_norm, then RoPE applied (attn and local_attn).
+        Over "model": this rank's heads."""
+        if tp.keeps("act_heads"):
+            x = tp.enter(x)
         q, k, v = (self._proj(x, w) for w in (self.wq, self.wk, self.wv))
         if self.cfg.qk_norm:
             q, k = rms(q, self.q_norm), rms(k, self.k_norm)
         if self.cfg.use_rope and self.kind in ("attn", "local_attn"):
             q = rope(q, positions, self.cfg.rope_theta)
             k = rope(k, positions, self.cfg.rope_theta)
+        q = shard_act(q, "batch", "q_heads", "seq", "head_dim")
+        k = shard_act(k, "batch", "kv_heads", "seq", "head_dim")
+        v = shard_act(v, "batch", "kv_heads", "seq", "head_dim")
         return q, k, v
 
     def _poly_ln(self, q, k):
@@ -104,10 +121,14 @@ class Attention(nn.Module):
                            cfg.poly_degree, cfg.learned_sketch)
 
     def _out(self, y):
-        """y: (B, Hq, S, h) -> (B, S, D)."""
+        """y: (B, Hq, S, h) -> (B, S, D). The heads contract at the gather
+        point "act_heads": whole under the serving rules, this rank's
+        rows of wo and a sum over "model" under the training rules."""
+        y = shard_act(y, "batch", "act_heads")
         bsz, hq, s, hd = y.shape
         y = y.transpose(1, 2).reshape(bsz, s, hq * hd)
-        return y @ self.wo.to(y.dtype).reshape(hq * hd, -1)
+        out = y @ self.wo.to(y.dtype).reshape(hq * hd, -1)
+        return tp.reduce(out) if tp.keeps("act_heads") else out
 
     def forward(self, x, *, positions, mode: str, cache=None,
                 inplace: bool = False, memory=None):

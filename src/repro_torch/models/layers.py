@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.utils import const_param, normal_param
 
 
@@ -107,6 +109,7 @@ class GLUFFN(nn.Module):
     def __init__(self, d_model, d_ff, *, generator=None, device="cpu"):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.d_ff = d_ff
         self.wi = dense_init(d_model, (d_ff,), **kw)
         self.wg = dense_init(d_model, (d_ff,), **kw)
         self.wo = dense_init(d_ff, (d_model,), **kw)
@@ -116,9 +119,22 @@ class GLUFFN(nn.Module):
 
 
 def glu_ffn_apply(ffn: GLUFFN, x):
+    """Over a "model" axis that divides d_ff, each rank computes its own
+    mlp columns (wi/wg hold its block, as placed), which meet at the
+    reference's gather point "act_mlp": gathered whole under the serving
+    rules and contracted with the whole wo, or kept split under the
+    training rules, contracted with this rank's rows of wo and summed over
+    "model"."""
     dt = x.dtype
+    split = tp.local_count(ffn.d_ff) != ffn.d_ff
+    partial = split and tp.keeps("act_mlp")
+    if partial:
+        x = tp.enter(x)
     h = F.gelu(x @ ffn.wg.to(dt), approximate="tanh") * (x @ ffn.wi.to(dt))
-    return h @ ffn.wo.to(dt)
+    if split:
+        h = shard_act(h, "batch", "seq", "act_mlp")
+    y = h @ ffn.wo.to(dt)
+    return tp.reduce(y) if partial else y
 
 
 def softplus(x):

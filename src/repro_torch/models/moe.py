@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.layers import dense_init
 from repro_torch.utils import normal_param
 
@@ -201,11 +202,12 @@ def moe_apply(moe: MoE, cfg, x, *, with_aux: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux losses: {} without with_aux)."""
     bsz, s, d = x.shape
     t = bsz * s
-    xf = x.reshape(t, d)
+    xf = shard_act(x.reshape(t, d), "batch")
     logits, probs, gate, ids = route(moe, cfg, xf)
     aux = aux_losses(cfg, logits, probs, ids) if with_aux else {}
     plan = dispatch_plan(cfg, ids)
-    buf = dispatch(cfg, plan, xf.reshape(plan.order.shape[0], -1, d))
+    buf = shard_act(dispatch(cfg, plan, xf.reshape(plan.order.shape[0], -1, d)),
+                    "experts", "batch")
     y = combine(cfg, plan, expert_glu(moe, buf), gate, ids)
     return y.reshape(bsz, s, d), aux
 
@@ -219,7 +221,8 @@ def moe_apply_dense_oracle(moe: MoE, cfg, x):
     _, _, gate, ids = route(moe, cfg, xf)
     hgate = F.gelu(torch.einsum("td,edf->etf", xf, moe.wg.to(dt)), approximate="tanh")
     hin = torch.einsum("td,edf->etf", xf, moe.wi.to(dt))
-    hout = torch.einsum("etf,efd->etd", hgate * hin, moe.wo.to(dt))
+    hout = shard_act(torch.einsum("etf,efd->etd", hgate * hin, moe.wo.to(dt)),
+                     "experts", "batch")
     mask = torch.zeros(xf.shape[0], e, dtype=torch.float32, device=x.device)
     for j in range(k):
         mask = mask + F.one_hot(ids[:, j], e).float() * gate[:, j:j + 1]

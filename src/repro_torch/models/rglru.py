@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.core.decode import RecurrentCache, recurrent_update
 from repro_torch.core.state import StateSpec, batch_shard_axes, register_state
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.layers import causal_conv, dense_init, softplus
 from repro_torch.utils import const_param, normal_param, tensor_param
 
@@ -105,8 +106,9 @@ class RGLRU(nn.Module):
         state into `cache`'s buffers."""
         del positions                       # position-free: no RoPE
         dt = x.dtype
-        gate = F.gelu(x @ self.w_gate.to(dt), approximate="tanh")
-        xin = x @ self.w_in.to(dt)
+        gate = F.gelu(shard_act(x @ self.w_gate.to(dt), "batch", "seq", "rnn"),
+                      approximate="tanh")
+        xin = shard_act(x @ self.w_in.to(dt), "batch", "seq", "rnn")
         state = cache.conv if mode in ("decode", "prefill") else None
         xc, conv_state = causal_conv(self.conv_w, self.conv_b, xin, state)
         if mode == "decode":

@@ -25,6 +25,7 @@ from torch import nn
 
 from repro_torch.core.decode import RecurrentCache, recurrent_update
 from repro_torch.core.state import StateSpec, batch_shard_axes, register_state
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.layers import causal_conv, dense_init, softplus
 from repro_torch.utils import (const_param, normal_param, pad_to_multiple,
                                tensor_param)
@@ -153,7 +154,7 @@ class SSM(nn.Module):
         n, p = cfg.ssm_state, cfg.ssm_head_dim
         heads = d_inner // p
         f32 = torch.float32
-        proj = x @ self.in_proj.to(x.dtype)
+        proj = shard_act(x @ self.in_proj.to(x.dtype), "batch", "seq", "rnn")
         z = proj[..., :d_inner]
         xbc = proj[..., d_inner:2 * d_inner + 2 * n]
         dt_raw = proj[..., -heads:]

@@ -21,7 +21,10 @@ The embedding: the table's rows times sqrt(d_model); with
 n_img rows are the image embeddings instead, unscaled (the anyres
 frontend is a stub in the reference too). The logits: h against the
 table (tied), or h @ ``lm_head`` (d_model, vocab) with
-``tie_embeddings=False``.
+``tie_embeddings=False``. Trained over a "model" axis (the rows of the
+table and of an untied lm_head split by vocab), the lookup and the logits
+are vocab-parallel (``distributed.tensor_parallel``); served with an
+lm_head placed by vocab, the logits are gathered whole.
 
 Each block: pre-norm -> mixer -> residual; pre-norm -> FFN -> residual.
 The mixer is attn (the paper's knob), local_attn (a sliding window),
@@ -54,6 +57,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import effective_pattern
 from repro_torch.core.state import get_spec, mixer_state_kind
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.attention import MECHANISMS, Attention
 from repro_torch.models.layers import GLUFFN, Embedding, Norm
 from repro_torch.models.moe import MoE
@@ -155,6 +160,7 @@ class Block(nn.Module):
     def forward(self, h, *, positions, mode, cache=None, inplace=False):
         """Returns (h, the mixer's new cache, the MoE's aux losses: {}
         for a GLU or no FFN, and outside train mode)."""
+        h = shard_act(h, "batch", "seq", "embed")
         y, new_cache = self.mixer(self.norm1(h), positions=positions,
                                   mode=mode, cache=cache, inplace=inplace)
         h = h + y
@@ -178,6 +184,14 @@ def _add_aux(acc, aux):
     for k, v in aux.items():
         acc[k] = acc[k] + v
     return acc
+
+
+def _held_heads(cfg, mixer):
+    """`cfg` cut to the q and kv heads an attention mixer's weights hold."""
+    if not isinstance(mixer, Attention) or mixer.wq.shape[1] == cfg.n_heads:
+        return cfg
+    return cfg.replace(n_heads=mixer.wq.shape[1], n_kv_heads=mixer.wk.shape[1],
+                       head_dim=cfg.resolved_head_dim)
 
 
 class LM(nn.Module):
@@ -217,7 +231,12 @@ class LM(nn.Module):
         cfg = self.cfg
         dt = getattr(torch, cfg.compute_dtype)
         table = self.embed.table.to(dt)
-        h = table[tokens] * math.sqrt(cfg.d_model)
+        vocab_split = tp.splits("vocab", cfg.vocab_size)
+        if vocab_split:
+            # this rank's vocab rows (training over "model")
+            h = tp.vocab_parallel_lookup(table, tokens) * math.sqrt(cfg.d_model)
+        else:
+            h = table[tokens] * math.sqrt(cfg.d_model)
         if image_embeds is not None and cfg.n_image_tokens:
             n_img = image_embeds.shape[1]
             if n_img > h.shape[1]:
@@ -239,28 +258,39 @@ class LM(nn.Module):
             if new_cache is not None:
                 new_cache.append(nc)
         h = self.final_norm(h)
-        if cfg.tie_embeddings:
-            logits = h @ table.t()
+        w = table.t() if cfg.tie_embeddings else self.lm_head.to(dt)
+        if vocab_split:
+            # training: this rank's vocab columns, the loss vocab-parallel
+            logits = tp.enter(h) @ w
+        elif not cfg.tie_embeddings and tp.gathers_vocab(cfg.vocab_size):
+            # serving: an lm_head placed by vocab, gathered (the
+            # reference's constrain_logits)
+            logits = tp.gather(h @ w, -1)
         else:
-            logits = h @ self.lm_head.to(dt)
+            logits = h @ w
         if return_aux:
             return logits, new_cache, aux_total
         return logits, new_cache
 
-    def init_cache(self, batch: int, max_len: int | None = None):
+    def init_cache(self, batch: int, max_len: int | None = None, *,
+                   whole: bool = False, device=None):
         """Decode cache, one node per layer, each built by its mixer's state
         kind's registry entry (core.state): a constant-size PolysketchCache
         or RecurrentCache (`max_len` sizes nothing), a RingKVCache of
         min(sliding_window, max_len) slots, or a KVCache of `max_len`
-        positions for polynomial and softmax attention (required then)."""
-        dt = getattr(torch, self.cfg.compute_dtype)
-        dev = self.embed.table.device
-        return [get_spec(mixer_state_kind(self.cfg, block.kind)).init(
-                    self.cfg, batch, max_len, dt, dev)
+        positions for polynomial and softmax attention (required then).
+        An attention state holds the heads its mixer's wq/wk hold (a
+        rank's block once a serving plan placed them), all of them with
+        `whole`."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.compute_dtype)
+        dev = self.embed.table.device if device is None else device
+        return [get_spec(mixer_state_kind(cfg, block.kind)).init(
+                    cfg if whole else _held_heads(cfg, block.mixer), batch, max_len, dt, dev)
                 for block in self.layers]
 
-    def init_slot_cache(self, max_len: int | None = None):
+    def init_slot_cache(self, max_len: int | None = None, **kw):
         """Decode cache for one serve slot: batch 1 with a host-int `pos`
         (core.decode.broadcast_slot_caches stacks slots on the batch axis
         and gives each its own position)."""
-        return self.init_cache(1, max_len)
+        return self.init_cache(1, max_len, **kw)

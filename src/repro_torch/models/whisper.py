@@ -44,6 +44,7 @@ from torch import nn
 
 from repro_torch.core import decode as dec
 from repro_torch.core.state import get_spec, mixer_state_kind
+from repro_torch.distributed.sharding import shard_act
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import (GLUFFN, Embedding, Norm,
                                        sinusoidal_positions)
@@ -60,6 +61,7 @@ class EncoderBlock(nn.Module):
         self.ffn = GLUFFN(cfg.d_model, cfg.d_ff, **kw)
 
     def forward(self, h, *, positions):
+        h = shard_act(h, "batch", "seq", "embed")
         y, _ = self.attn(self.norm1(h), positions=positions, mode="train")
         h = h + y
         return h + self.ffn(self.norm2(h))
@@ -79,6 +81,7 @@ class DecoderBlock(nn.Module):
     def forward(self, h, *, positions, mode, cache=None, memory=None,
                 inplace=False):
         """Returns (h, the layer's new cache node: None in train mode)."""
+        h = shard_act(h, "batch", "seq", "embed")
         self_cache = None if cache is None else cache["self"]
         cross_cache = None if cache is None else cache["cross"]
         y, new_self = self.self_attn(self.norm1(h), positions=positions,

@@ -59,8 +59,22 @@ the live tick's own decode step at the engine's slot width (cuBLAS picks
 its kernel, and so its reduction order, by shape, so a batch-1 replay
 could round otherwise). ``drain_checkpoints`` is the SIGTERM path.
 
-An engine runs under a ``ServePlan`` (serve/plan.py) on its device; a
-plan of more than one device is ROADMAP A.9 item 3 and raises.
+An engine runs under a ``ServePlan`` (serve/plan.py) on its device. On a
+plan over a D x M mesh the engine runs SPMD: every rank runs this loop
+over the same submissions, and every host decision (admission, the
+scheduler's plans, the prefix cache's index, the slots' host mirror and
+the stats) is the same on every rank. Data rank d holds its share of the
+slot stack (``plan.slot_range``) and runs the prefill chunks and decode
+ticks of its own slots only, with its "model" peers, each on its own
+heads. A snapshot a prefill makes is gathered whole over "model" and
+broadcast over "data" from the slot's data rank, so every rank's prefix
+cache stores the same whole snapshot (restored to each rank's heads). At
+the host sync each tick's tokens and log-probabilities (and its
+admissions' first tokens) are all-gathered over "data"
+(``_GatheredCopy``: the "collective" span inside host_sync,
+``serve_collective_ms``). ``decision_digest`` hashes the host state that
+must agree across ranks. Failover (``admit_recovered``) stays on
+single-device plans: a ReplicaSet places each replica itself.
 """
 from __future__ import annotations
 
@@ -73,7 +87,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import decode as dec
 from repro_torch.core.state import bucket_chunks
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import build
 from repro_torch.serve.plan import ServePlan
 from repro_torch.serve.prefix_cache import PrefixCache
@@ -287,6 +303,36 @@ class _HostCopy:
         return self.host.numpy()
 
 
+class _GatheredCopy:
+    """The host copy of a tick on a data-sharded plan: each data rank's
+    (2, n_local + F) packing (its slots' tokens, then the admissions'
+    first tokens, zeros where another data rank owns the slot),
+    all-gathered over "data" when read, and merged into the one-device
+    layout (2, slots + F): every slot's column from its data rank, each
+    first token from its owner's. `read` is the tick's collective: it is
+    timed into the engine's collective histogram and traced as the
+    "collective" span."""
+
+    def __init__(self, packed: torch.Tensor, engine, n_local: int, owners: list):
+        self.packed, self.engine = packed, engine
+        self.n_local, self.owners = n_local, owners
+
+    def read(self) -> np.ndarray:
+        eng = self.engine
+        tr = eng.telemetry.tracer
+        t0 = time.perf_counter()
+        if tr:
+            tr.begin("tick", "collective", mesh=eng.plan.describe())
+        got = eng.plan.gather_data(self.packed).cpu().numpy()  # jaxlint: disable=host-sync-in-jit-path -- the tick's one host sync, read one tick late under overlap
+        if tr:
+            tr.end("tick")
+        eng._m_collective.observe((time.perf_counter() - t0) * 1e3)
+        n = self.n_local
+        cols = [got[d][:, :n] for d in range(got.shape[0])]
+        cols += [got[o][:, n + i:n + i + 1] for i, o in enumerate(self.owners)]
+        return np.concatenate(cols, axis=1)
+
+
 @dataclass
 class _TickRecord:
     """One dispatched decode tick, not yet read (the overlap pipeline's
@@ -342,13 +388,9 @@ class ServeEngine:
         _decode_state(model, "ServeEngine")
         self.plan = plan if plan is not None else ServePlan.single_device(
             model.device)
-        if self.plan.n_devices > 1:
-            raise NotImplementedError(
-                f"a {self.plan.describe()} serving plan spans "
-                f"{self.plan.n_devices} devices: data-sharded slots and "
-                "tensor-parallel compute are not ported yet (ROADMAP A.9 "
-                "item 3); serve on one device, or replicate with "
-                "serve.replicas.ReplicaSet")
+        whole = model
+        self._mesh = self.plan.n_devices > 1
+        self._lo, self._hi = self.plan.slot_range(slots)
         model = self.plan.place(model)
         state = model.state
         if slots < 1:
@@ -380,16 +422,18 @@ class ServeEngine:
         # position each), the next token to feed each slot, each slot's
         # position for RoPE, its PRNG key and sampling params, and the
         # dispatch-time mask of decoding slots (kept by fills).
+        # On a data-sharded plan they hold this data rank's slots only.
+        local = self._hi - self._lo
         with torch.inference_mode():
             self._caches = state.broadcast_slots(state.init_slot(max_len),
-                                                 slots)
-            self._tokens = torch.zeros((slots, 1), dtype=torch.long,
+                                                 local)
+            self._tokens = torch.zeros((local, 1), dtype=torch.long,
                                        device=dev)
-            self._pos = torch.zeros(slots, dtype=torch.long, device=dev)
-            self._keys = init_slot_keys(slots, dev)
-            self._samp = init_slot_sampling(slots, dev)
-            self._active = torch.zeros(slots, dtype=torch.bool, device=dev)
-        self._active_host = np.zeros(slots, dtype=bool)
+            self._pos = torch.zeros(local, dtype=torch.long, device=dev)
+            self._keys = init_slot_keys(local, dev)
+            self._samp = init_slot_sampling(local, dev)
+            self._active = torch.zeros(local, dtype=torch.bool, device=dev)
+        self._active_host = np.zeros(local, dtype=bool)
 
         self.prefix_cache = prefix_cache
         if prefix_cache is not None:
@@ -405,7 +449,8 @@ class ServeEngine:
             # slot's state (a ring's window is min(sliding_window,
             # max_len), so engines that differ in max_len may not share)
             sig = repr(state.snapshot_signature(max_len)).encode()
-            prefix_cache.bind_params(model.lm, state_sig=sig)
+            # the whole weights: the same fingerprint on every mesh
+            prefix_cache.bind_params(whole.lm, state_sig=sig)
             prefix_cache.bind_codec(
                 state.serialize,
                 lambda data: state.deserialize(data, max_len=max_len))
@@ -414,19 +459,24 @@ class ServeEngine:
         # power-of-two bucketing)
         self._resume_lens: set[int] = set()
 
+        act = self.plan.activation_context
+
         def prefill(tokens):
-            return state.prefill(to_device(tokens, dev),
-                                 state.init_slot(self.max_len))
+            with act():
+                return state.prefill(to_device(tokens, dev),
+                                     state.init_slot(self.max_len))
 
         def resume(tokens, cache, pos0):
-            return state.resume(to_device(tokens, dev), cache, pos0)
+            with act():
+                return state.resume(to_device(tokens, dev), cache, pos0)
 
         def restore(snapshot, n_tokens):
-            return state.restore(state.init_slot(self.max_len), snapshot,
-                                 n_tokens)
+            return state.restore(state.init_slot(self.max_len),
+                                 self.plan.local_snapshot(snapshot), n_tokens)
 
         def decode(tokens, pos, caches):
-            return state.decode_step(tokens, pos, caches, inplace=True)
+            with act():
+                return state.decode_step(tokens, pos, caches, inplace=True)
 
         # the entry points count their call signatures, the port's jit
         # caches: the retrace watchdog reads growth after reset_stats()
@@ -456,7 +506,8 @@ class ServeEngine:
             fresh_fn=self._fresh_slot, restore_fn=self._restore,
             prefix_cache=prefix_cache,
             min_snapshot_blocks=min_snapshot_blocks, budget=prefill_budget,
-            resume_lens=self._resume_lens, tracer=tr)
+            resume_lens=self._resume_lens, tracer=tr, owns=self._owns,
+            share=self._share_snapshot)
 
         reg = self.telemetry.registry
         self._m_prefills = reg.counter(
@@ -490,6 +541,18 @@ class ServeEngine:
             "host-observed gap between consecutive decode-tick "
             "completions within a busy streak",
             edges=self.TICK_GAP_EDGES_MS, window=16384)
+        self._m_collective = reg.histogram(
+            "serve_collective_ms",
+            "host-sync wait of a data-sharded tick (the all-gather of its "
+            "tokens over 'data')", edges=self.ITL_EDGES_MS)
+        # mesh topology exported as set-gauges (reset() zeroes them, so
+        # reset_stats re-sets; see _set_mesh_gauges)
+        self._g_mesh_devices = reg.gauge(
+            "serve_mesh_devices", "devices per mesh axis", labels=("axis",))
+        self._g_mesh_info = reg.gauge(
+            "serve_mesh_info", "serving mesh shape (constant 1, the shape "
+            "in the label)", labels=("shape",))
+        self._set_mesh_gauges()
         reg.gauge("serve_slots", "decode slots", fn=lambda: float(slots))
         reg.gauge("serve_active_requests",
                   "slots with an installed decoding request",
@@ -634,12 +697,71 @@ class ServeEngine:
             slot.prefilling = True
             self.scheduler.start(req, si)
 
+    # -- the data-sharded plan's slot ownership --------------------------
+
+    def _owns(self, si: int) -> bool:
+        """Whether this data rank holds slot si's state."""
+        return self._lo <= si < self._hi
+
+    def _share_snapshot(self, snapshot, si: int, n_tokens: int):
+        """A snapshot of slot si's state (None on a data rank that does not
+        hold it) made whole and the same on every rank: gathered over
+        "model" on the slot's data rank, broadcast over "data" from it.
+        Every rank calls it at the same point of its loop."""
+        if not self._mesh:
+            return snapshot
+        if snapshot is not None:
+            snapshot = self.plan.gather_snapshot(snapshot)
+        owner = self.plan.owner(si, self.slots)
+        template = None
+        if not self._owns(si):
+            state = self.state
+            template = [x._replace(pos=int(n_tokens))
+                        if isinstance(x, dec.RingKVCache) else x
+                        for x in state.snapshot(state.init_slot(self.max_len, whole=True))]
+        return self.plan.share(snapshot, owner, template)
+
+    def _set_mesh_gauges(self):
+        for axis, n in self.plan.axis_sizes.items():
+            self._g_mesh_devices.labels(axis=axis).set(float(n))
+        self._g_mesh_info.labels(shape=self.plan.describe()).set(1.0)
+
+    def decision_digest(self) -> str:
+        """A hash of the host state every rank of a mesh must hold alike:
+        each slot's request, phase and stream, the queue, the scheduler's
+        jobs, announcements and stats, and the prefix cache's index and
+        stats. Two ranks that took a different decision differ here."""
+        h = hashlib.sha256()
+
+        def put(*xs):
+            h.update(repr(xs).encode())
+        for slot in self._slots:
+            req = slot.request
+            put(None if req is None else req.rid, slot.prefilling, slot.emitted,
+                slot.pos0, slot.ticks)
+        put([r.rid for r in self.queue])
+        sch = self.scheduler
+        put(sorted(sch.stats().items()), sorted(sch.pending.items()))
+        for job in sch.jobs:
+            put(job.req.rid, job.slot, list(job.cuts), job.wait_key,
+                None if job.part is None else job.part.n_tokens)
+        if self.prefix_cache is not None:
+            put(sorted(self.prefix_cache.stats().items()))
+        return h.hexdigest()
+
     def _install(self, job):
         """Completed prefill -> slot device state (_install_impl, through
         its signature counter). Returns (slot, rid, first token, its
-        log-probability), the last two device tensors of shape (1,)."""
+        log-probability), the last two device tensors of shape (1,); zeros
+        on a data rank that does not hold the slot (its owner's ride the
+        tick's gather)."""
         req, si = job.req, job.slot
-        tok, lp = self._install_slot(job.part.state, job.part.logits, si, req)
+        if self._owns(si):
+            tok, lp = self._install_slot(job.part.state, job.part.logits,
+                                         si - self._lo, req)
+        else:
+            tok = torch.zeros(1, dtype=torch.long, device=self.device)
+            lp = torch.zeros(1, dtype=torch.float32, device=self.device)
         self._slots[si].prefilling = False
         self._slots[si].pos0 = int(req.prompt.shape[0])
         self._slots[si].ticks = 0
@@ -657,8 +779,8 @@ class ServeEngine:
         """All on the device: the first token sampled off the final chunk's
         `logits` with the request's stream key (made on the host from its
         seed and written by fills, so placement never changes the tokens),
-        `cache` written into slot `si`, and the slot's token, position, key
-        and params."""
+        `cache` written into slot `si` (of this rank's slot stack), and the
+        slot's token, position, key and params."""
         sp = req.sampling
         k0, k1 = request_key(sp.seed).tolist()
         key = self._keys[si:si + 1]
@@ -726,8 +848,9 @@ class ServeEngine:
         covered = self.slot_covered(si)
         if covered <= 0 or covered % state.block_size:
             return None
-        return (state.snapshot(state.slot_view(self._caches, si, covered)),
-                covered)
+        snap = (state.snapshot(state.slot_view(self._caches, si - self._lo, covered))
+                if self._owns(si) else None)
+        return self._share_snapshot(snap, si, covered), covered
 
     def live_requests(self) -> list[dict]:
         """Host view of every request the engine still owes tokens: queued,
@@ -750,7 +873,13 @@ class ServeEngine:
     def admit_recovered(self, rec: RecoveredRequest) -> int:
         """Re-home a request recovered from a dead replica: installed in a
         free slot at once when there is one, else parked ahead of the
-        queue. Returns its NEW request id on this engine."""
+        queue. Returns its NEW request id on this engine. Single-device
+        plans only (a ReplicaSet places each replica itself)."""
+        if self._mesh:
+            raise NotImplementedError(
+                f"failover re-admission on a {self.plan.describe()} plan is not "
+                f"ported ({tp.REFUSALS_ITEM}); a ReplicaSet places each replica on "
+                "its own single-device plan")
         prompt = np.asarray(rec.prompt, np.int64).reshape(-1)
         if prompt.shape[0] + rec.max_new_tokens > self.max_len:
             raise ValueError(
@@ -943,13 +1072,22 @@ class ServeEngine:
             if fin is not None:
                 done.append(fin)
 
+    def _host_copy(self, packed, n_local: int, first_slots: list):
+        """The host copy of `packed`: on a data-sharded plan gathered over
+        "data" when read (_GatheredCopy)."""
+        if not self._mesh:
+            return _HostCopy(packed)
+        return _GatheredCopy(packed, self, n_local,
+                             [self.plan.owner(si, self.slots) for si in first_slots])
+
     @staticmethod
     def _pack(toks, lps) -> torch.Tensor:
         """(2, n) float64: token ids and log-probabilities, one copy."""
         return torch.stack([toks.to(torch.float64), lps.to(torch.float64)])
 
     def _set_active(self, active: np.ndarray):
-        """Bring the device's active mask to `active` by fills."""
+        """Bring the device's active mask (this rank's slots) to `active`
+        by fills."""
         for si in np.flatnonzero(active != self._active_host):
             self._active[si].fill_(bool(active[si]))
         self._active_host = active.copy()
@@ -968,7 +1106,7 @@ class ServeEngine:
         all_greedy = all(not a or s.request.sampling.is_greedy
                          for a, s in zip(active, self._slots))
         t0 = time.perf_counter()
-        self._set_active(active)
+        self._set_active(active[self._lo:self._hi])
         logits, self._caches = self._decode(self._tokens, self._pos,
                                             self._caches)
         keys = self._keys
@@ -990,7 +1128,7 @@ class ServeEngine:
         if firsts:
             packed = torch.cat([packed] + [self._pack(tok, lp)
                                            for _, _, tok, lp in firsts], dim=1)
-        copy = _HostCopy(packed)
+        copy = self._host_copy(packed, out.shape[0], [si for si, _, _, _ in firsts])
         self._m_ticks.inc()
         # ticks counts DISPATCHED decode steps: the tick absorbs each
         # slot's feed token on the device at dispatch, so pos0 + ticks is
@@ -1075,8 +1213,9 @@ class ServeEngine:
         firsts = [self._install(job) for job in self.scheduler.tick()]
         if not self.overlap and firsts:
             # lockstep: all admissions' first tokens in one copy
-            copy = _HostCopy(torch.cat(
-                [self._pack(tok, lp) for _, _, tok, lp in firsts], dim=1))
+            copy = self._host_copy(torch.cat(
+                [self._pack(tok, lp) for _, _, tok, lp in firsts], dim=1), 0,
+                [si for si, _, _, _ in firsts])
             values = copy.read()
         if tr:
             tr.end("tick", installs=len(firsts))
@@ -1127,6 +1266,7 @@ class ServeEngine:
         self._gap_anchor = None
         self._last_sync = None
         self.telemetry.reset()
+        self._set_mesh_gauges()  # reset() zeroes set-gauges
         self.scheduler.reset_stats()
         if self.prefix_cache is not None:
             self.prefix_cache.reset_stats()
@@ -1172,6 +1312,11 @@ class ServeEngine:
             "retraces": self.telemetry.watchdog.retraces,
             "signatures": self.telemetry.watchdog.cache_sizes(),
             "scheduler": self.scheduler.stats(),
+            "mesh": {
+                "shape": self.plan.describe(),
+                "devices": dict(self.plan.axis_sizes),
+                "collective_ms": self._m_collective.percentiles(),
+            },
         }
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()

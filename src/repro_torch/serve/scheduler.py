@@ -32,6 +32,12 @@ take no prefix cache.
 
 Each chunk's tokens go to the device from pinned memory without blocking
 the host, so dispatching a chunk never waits for the device.
+
+On a data-sharded serving plan every rank runs the same scheduler over
+the same jobs and takes the same decisions; ``owns(slot)`` says whether
+this rank holds a job's slot and so computes its chunks (elsewhere a
+job's carry is None), and ``share(snapshot, slot, n_tokens)`` turns the
+owner's snapshot into the whole one every rank's prefix cache stores.
 """
 from __future__ import annotations
 
@@ -94,7 +100,8 @@ class PrefillScheduler:
                  fresh_fn: Callable, restore_fn: Callable,
                  prefix_cache=None, min_snapshot_blocks: int = 1,
                  budget: int | None = None, resume_lens: set | None = None,
-                 tracer=None):
+                 tracer=None, owns: Callable | None = None,
+                 share: Callable | None = None):
         if budget is not None and budget < 1:
             raise ValueError("prefill_budget must be >= 1 (or None)")
         self.state = state
@@ -103,6 +110,8 @@ class PrefillScheduler:
         self.resume_fn = resume_fn
         self.fresh_fn = fresh_fn
         self.restore_fn = restore_fn
+        self.owns = owns or (lambda slot: True)
+        self.share = share or (lambda snapshot, slot, n_tokens: snapshot)
         self.pc = prefix_cache
         self.min_blocks = min_snapshot_blocks
         self.budget = budget
@@ -222,8 +231,9 @@ class PrefillScheduler:
             job.whole = True
             job.cuts = deque([plen])
             return
+        mine = self.owns(job.slot)
         if self.pc is None:
-            job.part = PartialPrefill(self.fresh_fn(), 0)
+            job.part = PartialPrefill(self.fresh_fn() if mine else None, 0)
             job.cuts = deque(bucket_chunks(0, plen, blk,
                                            self.max_chunk_blocks))
             return
@@ -280,7 +290,9 @@ class PrefillScheduler:
         if job.final_key:
             self._announce(job, job.final_key, job.final_pos)
 
-        if plan.n_restore:
+        if not mine:
+            job.part = PartialPrefill(None, plan.n_restore)
+        elif plan.n_restore:
             job.part = PartialPrefill(
                 self.restore_fn(plan.snapshot, plan.n_restore),
                 plan.n_restore)
@@ -301,10 +313,13 @@ class PrefillScheduler:
         prompt = job.req.prompt
         tr = self.tracer
         pos = 0 if job.whole else job.part.n_tokens
-        if job.whole:
+        if not job.whole:
+            self.resume_lens.add(cut - pos)
+        if not self.owns(job.slot):
+            logits, state = None, None
+        elif job.whole:
             logits, state = self.prefill_fn(prompt[None])
         else:
-            self.resume_lens.add(cut - pos)
             logits, state = self.resume_fn(prompt[None, pos:cut],
                                            job.part.state, pos)
         job.part = PartialPrefill(state, cut, logits)
@@ -315,17 +330,23 @@ class PrefillScheduler:
                        pos=int(pos), end=int(cut))
         key = job.snap_at.get(cut)
         if key:
-            self.pc.insert(key, cut, self.state.snapshot(state))
+            self.pc.insert(key, cut, self._snapshot(state, job.slot, cut))
             self._materialized(job, key)
             if tr:
                 tr.instant(f"slot{job.slot}", "snapshot", rid=job.req.rid,
                            pos=int(cut))
         return cut - pos
 
+    def _snapshot(self, state, slot: int, n_tokens: int):
+        """The whole snapshot of a job's state (None where this rank does
+        not hold the slot), the same on every rank."""
+        snap = None if state is None else self.state.snapshot(state)
+        return self.share(snap, slot, n_tokens)
+
     def _finish(self, job: PrefillJob):
         if job.final_key and self.pc is not None:
             self.pc.insert(job.final_key, job.final_pos,
-                           self.state.snapshot(job.part.state))
+                           self._snapshot(job.part.state, job.slot, job.final_pos))
             self._materialized(job, job.final_key)
             if self.tracer:
                 self.tracer.instant(f"slot{job.slot}", "snapshot",

@@ -320,9 +320,9 @@ class MetricsRegistry:
 # The documented event schema (the reference's). Spans ("X") nest within a
 # track; instants ("i") are points; counters ("C") are sampled series.
 # validate_trace rejects any event outside this vocabulary, so the schema
-# below IS the compatibility contract for trace consumers. The port emits
-# no "collective" span (no multi-device plan is ported: ROADMAP A.9 item
-# 3); the name stays so one validator reads both packages' traces.
+# below IS the compatibility contract for trace consumers. A data-sharded
+# engine's "collective" span (the all-gather of a tick's tokens over
+# "data") nests in its host_sync span.
 SPAN_NAMES = frozenset({
     # engine tick phases (track "tick")
     "tick", "plan", "chunk_dispatch", "decode_dispatch", "host_sync",

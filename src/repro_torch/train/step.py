@@ -8,8 +8,9 @@ state to a new one; here the parameters live in the LM module and the
 step updates them and the AdamW moments in place, returning the new
 state. ``make_sharded_train_step`` is the port's counterpart of the
 reference's jit over sharded parameters (``launch/train.py --mesh``):
-parameters and moments stored by ``distributed.sharding``'s specs (FSDP),
-the compute replicated.
+parameters and moments stored by ``distributed.sharding``'s specs (FSDP
+over "data"), the compute split over "model" (Megatron's, the
+reference's GSPMD under the training rules).
 
 Gradients come from autograd; in train mode the attention runs
 ``ops.polysketch_attention``, whose gradient on the card is B1's backward
@@ -31,6 +32,7 @@ import torch.distributed as dist
 from repro_torch.bridge import is_stacked, jax_path
 from repro_torch.distributed import compression
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_linear_decay)
 
@@ -62,8 +64,12 @@ def make_loss_fn(cfg):
         extra = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
         logits, _, aux = lm(tokens[:, :-1], mode="train", return_aux=True,
                             **extra)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if tp.splits("vocab", cfg.vocab_size):
+            # this rank's vocab rows (training over "model")
+            nll = tp.vocab_parallel_nll(logits, targets)
+        else:
+            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is None:
             loss = nll.mean()
@@ -234,7 +240,9 @@ def init_sharded_train_state(lm, mesh, axes: dict[str, tuple]) -> ShardedTrainSt
     """Shard `lm`'s parameters (the same values on every rank, e.g. from
     one seed) by shardings_for(axes) over `mesh`: each rank keeps its
     blocks and AdamW moments of their size, and the LM's parameters give
-    up their storage until a step gathers them."""
+    up their storage until a step gathers them. Raises for a model the
+    mesh's "model" axis cannot split (tensor_parallel.check_trainable)."""
+    tp.check_trainable(lm.cfg, tp.model_axis(mesh)[1])
     named = dict(lm.named_parameters())
     specs = shd.shardings_for(axes, named, mesh)
     params = {n: shd.shard(p.detach(), specs[n], mesh) for n, p in named.items()}
@@ -252,14 +260,44 @@ def dp_axes(mesh, batch_size: int) -> tuple[str, ...]:
     return shd.spec_axes(shd.batch_spec(mesh, batch_size)[0])
 
 
+def whole_train_state(state: ShardedTrainState) -> dict[str, dict]:
+    """{"params", "m", "v"}: every parameter and moment gathered whole
+    from the ranks' blocks (a collective: every rank calls it)."""
+    def whole(blocks):
+        return {n: shd.gather(x, state.specs[n], state.mesh) for n, x in blocks.items()}
+    return {"params": whole(state.params), "m": whole(state.opt.m),
+            "v": whole(state.opt.v)}
+
+
+def shard_train_state(state: ShardedTrainState, params, m, v, count,
+                      step: int) -> ShardedTrainState:
+    """`state` holding this rank's blocks of the whole `params`, `m` and
+    `v` (by its specs, on its mesh), the AdamW count and the step."""
+    def blocks(named):
+        dev = next(iter(state.params.values())).device
+        return {n: shd.shard(named[n].to(dev), state.specs[n], state.mesh)
+                for n in state.params}
+    opt = AdamWState(blocks(m), blocks(v), count.to(state.opt.count.device))
+    return ShardedTrainState(state.lm, blocks(params), opt, step, state.mesh,
+                             state.specs)
+
+
 def make_sharded_train_step(cfg, tcfg):
     """train_step(state, batch) -> (state, metrics) over a
     ShardedTrainState: the reference's train step under jit with sharded
-    parameters (its GSPMD FSDP), computed replicated. Every parameter is
-    gathered whole into the LM, each rank takes its rows of the global
-    batch (batch_spec over the mesh's batch axes) and computes the
-    gradient of their mean loss (microbatches as make_train_step), the
-    gradients are reduced to each rank's blocks of their mean
+    parameters and its training rules. Each parameter is gathered over
+    "data" only (FSDP) into the LM, so a "model" block stays this rank's:
+    wq/wk/wv and the GLU's wi/wg hold its output columns (heads, mlp), wo
+    and the GLU's wo its input rows, the embedding table (and an untied
+    lm_head) its vocab rows. Under ``activation_sharding`` with
+    DEFAULT_RULES the model computes on those blocks (Megatron's: each
+    block's output summed over "model", the lookup and the cross-entropy
+    vocab-parallel; distributed/tensor_parallel.py). Each rank takes its
+    rows of the global batch (batch_spec over the mesh's batch axes) and
+    computes the gradient of their mean loss (microbatches as
+    make_train_step); the attention's head-shared parameters' gradients
+    are summed over "model" (each rank saw its own heads), the gradients
+    are reduced over the batch axes to each rank's blocks of their mean
     (sharding.reduce_grad), clipped by the global norm of the whole
     gradients (sharding.global_sumsq) and stepped by AdamW on the blocks;
     the LM gives up the gathered storage again. The metrics are averaged over the
@@ -272,9 +310,11 @@ def make_sharded_train_step(cfg, tcfg):
     def train_step(state: ShardedTrainState, batch):
         mesh, specs = state.mesh, state.specs
         named = dict(state.lm.named_parameters())
+        compute = ("model",) if "model" in mesh.mesh_dim_names else ()
+        fsdp = [a for a in mesh.mesh_dim_names if a not in compute]
         with torch.no_grad():
             for n, p in named.items():
-                p.data = shd.gather(state.params[n], specs[n], mesh)
+                p.data = shd.gather(state.params[n], specs[n], mesh, axes=fsdp)
         rows = next(iter(batch.values())).shape[0]
         axes = dp_axes(mesh, rows)
         index, parts = 0, 1
@@ -282,9 +322,16 @@ def make_sharded_train_step(cfg, tcfg):
             dim = mesh.mesh_dim_names.index(a)
             index = index * mesh.size(dim) + mesh.get_local_rank(dim)
             parts *= mesh.size(dim)
-        grads, metrics = _grads(state.lm, named, loss_fn, _rows(batch, index, parts), mb)
+        with shd.activation_sharding(mesh, shd.DEFAULT_RULES):
+            grads, metrics = _grads(state.lm, named, loss_fn,
+                                    _rows(batch, index, parts), mb)
+            group, size, _ = tp.model_axis(mesh)
+            if size > 1:
+                tp.sum_over_model([grads[n] for n in tp.head_shared_params(state.lm)],
+                                  group)
         _release(named)
-        grads = {n: shd.reduce_grad(g, specs[n], mesh, axes) for n, g in grads.items()}
+        grads = {n: shd.reduce_grad(g, specs[n], mesh, axes, compute)
+                 for n, g in grads.items()}
         gnorm = torch.sqrt(shd.global_sumsq(grads, specs, mesh))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=gnorm)
         lr = schedule(state.step)

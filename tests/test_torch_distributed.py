@@ -426,8 +426,8 @@ def test_mesh_training_follows_one_device_holding_only_blocks(dp_run, mesh):
 def test_mesh_refusals():
     with pytest.raises(SystemExit, match="sizes but"):
         train_cli.run(CLI + ["--mesh", "2x1:data"])
-    with pytest.raises(SystemExit, match="ckpt-dir"):
-        train_cli.run(CLI + ["--mesh", "1x1:data,model", "--ckpt-dir", "unused"])
+    with pytest.raises(SystemExit, match="--share-card shares a CUDA card"):
+        train_cli.run(CLI + ["--mesh", "1x1:data,model", "--share-card"])
     with pytest.raises(ValueError, match="wants 2 ranks but 1 are running"):
         train_cli.run(CLI + ["--mesh", "2x1:data,model"])
     assert not dist.is_initialized()

@@ -191,7 +191,8 @@ def test_submit_rejects_invalid_requests_and_unported_options(smoke_model):
         eng.submit(np.zeros(3, np.int64), 0)
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.zeros(10, np.int64), 7)
-    with pytest.raises(NotImplementedError, match="A.9 item 3"):
+    # a plan over more than one device needs a mesh of running ranks
+    with pytest.raises(ValueError, match="needs a DeviceMesh over its running ranks"):
         ServeEngine(smoke_model, plan=ServePlan(
             {"data": 2, "model": 1}, torch.device("cpu")))
     with pytest.raises(ValueError, match="slot"):
@@ -257,13 +258,14 @@ def test_serve_cli_sampled_run_and_logprobs(capsys):
 
 
 @pytest.mark.parametrize("flag,says", [
-    (["--mesh", "2x1"], "ROADMAP A.9 item 3"),
-    (["--shard-model"], "ROADMAP A.9 item 3"),
+    (["--mesh", "2x1"], "wants 2 devices but only 1 ranks are running"),
+    (["--share-card"], "--share-card goes with --mesh"),
     (["--chaos=kill@3"], "--chaos needs --replicas"),
     (["--replicas", "2", "--shard-model"], "drop --mesh/--shard-model")])
 def test_serve_cli_rejects_unported_flags(flag, says):
-    """Serving beyond one device names its ROADMAP item; chaos without
-    replicas and replicas with a mesh are the reference's own refusals."""
+    """A mesh beyond one device needs its ranks running (torchrun), and
+    --share-card a mesh; chaos without replicas and replicas with a mesh
+    are the reference's own refusals."""
     from repro_torch.launch.serve import main
     with pytest.raises(SystemExit) as e:
         main(["--smoke", "--device", "cpu"] + flag)

@@ -13,8 +13,8 @@ polynomial attention in bf16 (gpt2s-poly4, and starcoder2-3b at h 128),
 run the data-parallel training steps at world 1 on NCCL, serve
 gpt2s-polysketch and gpt2s-poly4 through two replicas with seeded faults
 and bit-exact failover, serve and train them over a "model" (and "data")
-mesh axis as two ranks sharing the card, and check the port against
-itself.
+mesh axis as two ranks sharing the card, train dbrx with its experts
+split over two such ranks, and check the port against itself.
 
     python3 chip_smoke.py
 
@@ -127,7 +127,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      forward (1e-2 nats) and the train-mode logits through B1 against it
      (2e-2 of max|logit|), and a profile of starcoder2-3b's decode ticks;
   8. starcoder2-3b trained at its published width in bf16 with remat
-     "dots", 1 x 4096 tokens a step, at the depth that fits (train_depth):
+     "dots", 1 x 4096 tokens a step, at the depth that fits (train_depth),
+     at most DENSE_TRAIN_LAYERS (16 of 30):
      one step's gradients through B1 and its backward against the plain
      path's leaf by leaf (twice the reference's bf16 distance from float64
      in scripts/bf16_grad_study.py: worst leaf 0.38, median 0.095), step time,
@@ -170,9 +171,9 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      MiB memory tier after a warm-up): bit for bit, hits, snapshots of
      76,455,936 / 26,230,784 B, a resume at 2048 equal to the cold
      prefill; SMOKE greedy tokens card = CPU (f32); training at 1 x 4096
-     Markov tokens, bf16 (mamba2 at 12 of 48 layers, remat "dots", 1 + 3
-     steps; recurrentgemma at the most whole groups that fit, remat
-     "full", 1 + 2): step ms, tokens/s, peak GiB, no port kernel, two
+     Markov tokens, bf16 (mamba2 at 6 of 48 layers, remat "dots", 1 + 3
+     steps; recurrentgemma at the most whole groups that fit, at most 2
+     (REC_TRAIN_LAYERS), remat "full", 1 + 2): step ms, tokens/s, peak GiB, no port kernel, two
      runs bit for bit, and at one group one step's gradients and two
      steps' losses under "dots" and "full" equal "none"'s bit for bit.
  11. the mixture-of-experts family (after phase 10): one dbrx MoE layer at
@@ -200,8 +201,8 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      line's B1 row under `moe_bf16`.
  12. the VLM and the encoder-decoder (after phase 11): llava-next-mistral-7b
      (32 layers, GQA 4:1 at h 128) and whisper-large-v3 (32 encoder + 32
-     decoder layers, h 64) at their published widths, served at 16 layers
-     (Whisper 16 encoder + 16 decoder; XM_SERVE_LAYERS), bf16,
+     decoder layers, h 64) at their published widths, served at 12 layers
+     (Whisper 12 encoder + 12 decoder; XM_SERVE_LAYERS), bf16,
      seeded weights drawn on the card, served greedily through the
      batch-dict make_serve_fns (llava 4 x (576 image rows + 1472 text
      tokens), 16 new; Whisper 4 x (1500 frames, a 228-token prompt), 32
@@ -219,9 +220,9 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      train-mode forward with the image rows or frames (1e-3 nats);
      llava's logits move with image_embeds + 1; ServeEngine and generate
      refuse Whisper. Training: llava 1 x 4096 tokens (576 image rows),
-     remat "full", at the depth that fits (train_depth), at most 7 layers
-     (VLM_TRAIN_LAYERS); Whisper 4 x 448 tokens over 1500 frames at 16
-     encoder + 16 decoder layers (AUDIO_TRAIN_LAYERS), remat "dots" (a full
+     remat "full", at the depth that fits (train_depth), at most 4 layers
+     (VLM_TRAIN_LAYERS); Whisper 4 x 448 tokens over 1500 frames at 8
+     encoder + 8 decoder layers (AUDIO_TRAIN_LAYERS), remat "dots" (a full
      rematerialisation, as the reference's plain jax.checkpoint): one
      step's f32 gradients through B1 and its backward against the plain
      path's (1e-4 of each leaf's max), 1 + 3 timed bf16 steps (step ms,
@@ -295,6 +296,21 @@ Needs one CUDA card (exits non-zero without one, or without the repo's
      version is called. Logged: ms a tick, ms a step, a checkpoint call's
      ms; the JSON line's B1, B1 backward and B2 rows carry each rank's
      launches under `tp_launches_a_rank`.
+ 16. the MoE family over a device mesh (after phase 15): dbrx-132b at its
+     published width, 1 of 40 layers, f32 (ep_cfg says why), remat
+     "full", 3 steps of 2 x 1024 Markov tokens through
+     make_sharded_train_step on a (1, 2) mesh, two ranks sharing the card
+     over gloo, each holding and running 8 of the 16 experts (wi block 8 x
+     6144 x 10752), against make_train_step at 1x1 on the same weights
+     (drawn on the card from seed 0) and batches: losses and both aux
+     metrics within F32_TOL of 1x1's, the dispatch plans' digests equal on
+     both ranks, B1 twice and its backward once a layer a step on each
+     rank as at 1x1, no plain version. B1 and its backward held against
+     their plain versions at a rank's call (bh 2 x 24, n 1024, h 128, f32);
+     the JSON line's B1 rows carry each rank's launches
+     (`ep_launches_a_rank`) and that error (`ep_max_abs_err`). Logged: ms a
+     step, each rank's peak GiB and expert bytes, and the bytes gathered
+     over "model" a step.
 
 Prints the card's name and power limit, one `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -2217,6 +2233,9 @@ DENSE_SERVE_LAYERS = 8
 DENSE_SERVE_RESERVE_GIB = 12   # beside the f32 weights: casts, states, logits, the check
 DENSE_TRAIN_RESERVE_GIB = 14   # beside 16 B a parameter: logits, casts, the gradient check
 DENSE_TRAIN_ACT_GIB = 0.5      # a layer's kept activations at 1 x 4096 under remat "dots"
+# phase 8's training depth, cut to make room for phase 16 (train_depth's 22
+# of 30 before: 35.4 s of the phase, NVIDIA H100 80GB HBM3, 700.00 W)
+DENSE_TRAIN_LAYERS = 16
 DENSE_TRAIN_SEQ, DENSE_TRAIN_STEPS = 4096, 3
 # bf16 gradient gates (scripts/bf16_grad_study.py on SMOKE, CPU): the
 # reference's own bf16 gradients lie up to 0.189 of a leaf's max|.| from
@@ -2418,9 +2437,9 @@ def leaf_errors(got, want):
 def phase_dense_train(card, arch="starcoder2-3b"):
     """starcoder2-3b trained at its published width, bf16, remat "dots" as
     published, 1 x 4096 tokens a step, its depth the most that trains
-    (train_depth), seeded weights drawn on the card: (1) one step's
-    gradients through B1 and its backward against the plain path's, leaf by
-    leaf, within the bf16 gates; (2) a warm-up and DENSE_TRAIN_STEPS timed
+    (train_depth), at most DENSE_TRAIN_LAYERS, seeded weights drawn on the
+    card: (1) one step's gradients through B1 and its backward against the
+    plain path's, leaf by leaf, within the bf16 gates; (2) a warm-up and DENSE_TRAIN_STEPS timed
     steps (step ms, tokens/s, peak GiB), B1 launched twice a layer a step
     (remat runs the forward again) and its backward once, no plain
     version; (3) two runs of 2 steps from the seed give the same
@@ -2428,12 +2447,13 @@ def phase_dense_train(card, arch="starcoder2-3b"):
     with the launches."""
     t_phase = time.perf_counter()
     full = get_config(arch)
-    depth = train_depth(full)
+    depth = min(train_depth(full), DENSE_TRAIN_LAYERS)
     cfg = full.replace(n_layers=depth)
     block, rest = param_split(full)
     log(f"phase 8: {arch} training, bf16, remat {cfg.remat!r}, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.resolved_head_dim} ({cfg.n_kv_heads} kv), 1 x "
-        f"{DENSE_TRAIN_SEQ} tokens a step, {depth} of {full.n_layers} layers (reckoned: "
+        f"{DENSE_TRAIN_SEQ} tokens a step, {depth} of {full.n_layers} layers (at most "
+        f"DENSE_TRAIN_LAYERS; reckoned: "
         f"{16 * block / 2**30:.2f} GiB a layer at 16 B a parameter + "
         f"{DENSE_TRAIN_ACT_GIB} GiB of activations, {16 * rest / 2**30:.2f} GiB for the "
         f"embedding, {DENSE_TRAIN_RESERVE_GIB} GiB reserve, in {DENSE_SHARE:.0%} of "
@@ -2551,7 +2571,10 @@ REC_SLOTS, REC_GEN, REC_BUDGET = 2, 16, 2048
 # (request 0's rows 1.64e-2 of max|logit| against 1.55e-2, the same
 # next-token log-probabilities; PERF.md §6)
 REC_SERVE_LAYERS = {"recurrentgemma-9b": 20}
-REC_TRAIN_LAYERS = {"mamba2-780m": 12}
+# and, to make room for phase 16, mamba2 trains at 6 of 48 (10.4 s at 12)
+# and recurrentgemma at 2 of its 3 fitting groups (21.1 s at 3; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+REC_TRAIN_LAYERS = {"mamba2-780m": 6, "recurrentgemma-9b": 6}
 # The served path against a train-mode forward of the same weights, as
 # phases 5 and 7 hold theirs: the engine's log-probabilities of the emitted
 # tokens (nats), and (rec_rows) whole logit rows of the 4096-token request
@@ -3082,7 +3105,8 @@ def phase_rec_train(arch, card):
     """One recurrent model trained at its published width, bf16, with its
     published remat (mamba2 "dots", recurrentgemma "full"), 1 x 4096
     Markov tokens a step, at the most whole pattern groups that fit
-    (rec_train_groups), at most REC_TRAIN_LAYERS (mamba2 at 12 of 48),
+    (rec_train_groups), at most REC_TRAIN_LAYERS (mamba2 at 6 of 48,
+    recurrentgemma at 2 groups),
     seeded weights drawn on the
     card: a warm-up and REC_TRAIN_STEPS timed steps (step ms, tokens/s,
     peak GiB) with no port kernel and no plain version; two runs of 2 steps
@@ -3676,16 +3700,19 @@ AUDIO_TRAIN = (4, 448)         # rows x tokens a step, each row over 1500 frames
 XM_TRAIN_STEPS = 3
 # llava's training depth, cut to make room for phase 13 (before it llava
 # trained at train_depth's 14 of 32 layers: 35.0 s of the phase against
-# 19.3 s at 7, NVIDIA H100 80GB HBM3, 700 W)
-VLM_TRAIN_LAYERS = 7
+# 19.3 s at 7, NVIDIA H100 80GB HBM3, 700 W) and to 4 for phase 16 (13.0 s
+# at 7)
+VLM_TRAIN_LAYERS = 4
 # Whisper's training depth (encoder and decoder), cut to make room for
 # phase 14 (full depth, 32 + 32: 54.8 s of the phase against 23.2 s at 16
-# + 16, NVIDIA H100 80GB HBM3, 700 W)
-AUDIO_TRAIN_LAYERS = 16
+# + 16, NVIDIA H100 80GB HBM3, 700 W) and to 8 + 8 for phase 16 (20.0 s at
+# 16 + 16)
+AUDIO_TRAIN_LAYERS = 8
 # phase 12's serving depth (llava's layers; Whisper's encoder and decoder
 # layers each), cut to make room for phase 15 (full depth, 32 and 32 + 32:
 # llava 22.9 s, Whisper 29.7 s of the phase, NVIDIA H100 80GB HBM3, 700 W)
-XM_SERVE_LAYERS = 16
+# and to 12 for phase 16 (llava 9.7 s, Whisper 14.4 s at 16)
+XM_SERVE_LAYERS = 12
 # Whisper's bf16 serving gate. Phase 7's (served log-probabilities within
 # DENSE_LP_TOL of a blocked plain bf16 forward) does not hold for it
 # (4.674e-2 nats; ROADMAP.md §C): its greedy tokens keep log-probabilities
@@ -3961,7 +3988,7 @@ def phase_xm_train(arch, card):
     """llava-next-mistral-7b (1 x 4096 tokens, 576 image rows, remat "full",
     at the depth that trains, train_depth, at most VLM_TRAIN_LAYERS) or
     whisper-large-v3 (4 x 448
-    tokens over 1500 frames, 16 encoder + 16 decoder layers
+    tokens over 1500 frames, 8 encoder + 8 decoder layers
     (AUDIO_TRAIN_LAYERS), remat "dots", which is full
     rematerialisation as in the reference) trained at its published width,
     seeded weights drawn on the card: (1) one step's f32 gradients (the
@@ -4955,6 +4982,209 @@ def phase_tp(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the MoE family over a device mesh, two ranks sharing the card:
+# dbrx trained with its experts split over "model" (expert parallelism)
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "dbrx-132b"
+EP_LAYERS = 1                  # of 40: 16 B a parameter, a rank holds 8 of 16 experts
+EP_SHAPE = (1, 2)              # (data, model)
+EP_ROWS, EP_SEQ, EP_STEPS = 2, 1024, 3   # phase 15's --mesh traffic: 2 x 1024 a step
+EP_TOL = F32_TOL               # losses and both aux metrics against 1x1, f32 compute
+EP_DIR = os.path.join(ROOT, "build", "ep")   # git-ignored
+
+
+def ep_cfg():
+    """dbrx at its published width, EP_LAYERS of its 40 layers, in f32:
+    against 1x1 the mesh changes only the order of float sums (the
+    Megatron partial sums, the gradients' sums), which f32 holds to 1e-4;
+    in bf16 those sums round each partial and may flip a near-tie of the
+    top-4, which would need a gate set from readings."""
+    return get_config(EP_ARCH).replace(n_layers=EP_LAYERS, compute_dtype="float32")
+
+
+def ep_train(mesh=None):
+    """EP_STEPS steps of ep_cfg's dbrx (seed-0 weights drawn on the card) on
+    EP_ROWS x EP_SEQ Markov tokens a step: make_train_step on one device,
+    or make_sharded_train_step with init_sharded_train_state over `mesh`.
+    Counts the kernels' launches and the plain versions' calls, logs each
+    dispatch plan's digest and the bytes gather_model returns (the router
+    logits and the expert outputs gathered whole over "model"). Returns a
+    row."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.train.step import init_sharded_train_state, make_sharded_train_step
+    cfg = ep_cfg()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", seed=0, trainable=True, draw_on_device=True)
+    tcfg = TrainConfig(seq_len=EP_SEQ, global_batch=EP_ROWS, steps=100, peak_lr=3e-4)
+    if mesh is None:
+        state, step = init_train_state(model.lm), make_train_step(cfg, tcfg)
+        held = dict(model.lm.named_parameters())
+    else:
+        state = init_sharded_train_state(model.lm, mesh, model.axes())
+        step = make_sharded_train_step(cfg, tcfg)
+        held = state.params
+    del model
+    wi = held["layers.0.ffn.wi"]
+    expert_bytes = sum(x.numel() * x.element_size() for n, x in held.items()
+                       if n.endswith(("ffn.wi", "ffn.wg", "ffn.wo")))
+    del held
+    it = DataIterator(make_markov_lm(cfg.vocab_size, seed=1), EP_ROWS, EP_SEQ, seed=0,
+                      device="cuda")
+    batches = [next(it) for _ in range(EP_STEPS)]
+    digests, gathered = [], [0]
+    plan_fn, gather_fn = moe.dispatch_plan, tp.gather_model
+
+    def plan_logged(*a, **k):
+        plan = plan_fn(*a, **k)
+        digests.append(moe.plan_digest(plan))
+        return plan
+
+    def gather_counted(x, dim):
+        out = gather_fn(x, dim)
+        gathered[0] += out.numel() * out.element_size()
+        return out
+    zero_counts()
+    losses, aux, times = [], [], []
+    with PlainCalls() as plain, mock.patch.object(moe, "dispatch_plan", plan_logged), \
+            mock.patch.object(tp, "gather_model", gather_counted):
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+            aux.append((float(metrics["aux_load_balance"]), float(metrics["aux_router_z"])))
+    launched = counts()
+    row = {"losses": losses, "aux": aux, "step_ms": [t * 1e3 for t in times],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launched, "plain_calls": plain.calls, "wi_block": list(wi.shape),
+           "expert_gib": expert_bytes / 2**30, "gathered_bytes_a_step": gathered[0] / EP_STEPS,
+           "digests": digests,
+           "batch_sum": sum(int(b["tokens"].sum()) for b in batches)}
+    del state, step, wi, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def ep_rank(rank, world, port):
+    """One of the two ranks that share the card over gloo (spawned by
+    phase_ep): ep_train over the (1, 2) mesh; writes its row to EP_DIR."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    os.environ.pop("LOCAL_RANK", None)
+    device, _ = init_ranks("cuda", share_card=True)
+    row = ep_train(make_mesh(EP_SHAPE, ("data", "model"), "cuda"))
+    row.update(rank=rank, backend=dist.get_backend(), device=str(device))
+    with open(os.path.join(EP_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    dist.destroy_process_group()
+
+
+def ep_kernel_checks():
+    """B1 and its backward at one rank's call in phase 16's training step:
+    24 of dbrx's 48 heads, batch 2, n 1024, r 32, h 128, block 256, f32,
+    against their plain versions (F32_TOL; the gradients within F32_TOL of
+    their max). Not counted as launches. Returns {kernel: max|err|}."""
+    before = counts()
+    cfg = ep_cfg()
+    h, r, b = cfg.resolved_head_dim, cfg.sketch_size, cfg.lt_block_size
+    rnd = seeded(16)
+    ln = lambda x: torch.nn.functional.layer_norm(x, (h,), eps=1e-6)  # noqa: E731
+    heads = cfg.n_heads // EP_SHAPE[1]
+    xs = (rnd(EP_ROWS, heads, EP_SEQ, r, scale=0.5), rnd(EP_ROWS, heads, EP_SEQ, r, scale=0.5),
+          ln(rnd(EP_ROWS, heads, EP_SEQ, h)), ln(rnd(EP_ROWS, heads, EP_SEQ, h)),
+          rnd(EP_ROWS, heads, EP_SEQ, h))
+    kw = dict(degree=cfg.poly_degree, scale=1.0 / h, block_size=b)
+    shape = f"bh {EP_ROWS} x {heads}, n {EP_SEQ}, r {r}, h {h}, b {b}, f32"
+    e1 = err(ops.polysketch_attention(*xs, **kw),
+             ops.polysketch_attention(*xs, impl="torch", **kw))
+    check(f"B1 at a rank's call in dbrx's 1x2 training step: {shape}", e1, F32_TOL)
+    _, e2, _, _ = check_grads(f"B1 backward at a rank's call: {shape}",
+                              ops.polysketch_attention, xs, rnd(EP_ROWS, heads, EP_SEQ, h), **kw)
+    torch.cuda.synchronize()
+    for name, fn in KERNELS.items():   # checking launches do not count
+        fn.launches = before[name]
+    del xs
+    torch.cuda.empty_cache()
+    return {"polysketch_causal": e1, "polysketch_causal_backward": e2}
+
+
+def phase_ep(card):
+    """Phase 16 (see the module docstring). Returns its row."""
+    t_phase = time.perf_counter()
+    cfg = ep_cfg()
+    log(f"phase 16: the MoE family over a device mesh: {EP_ARCH} at its published width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim} "
+        f"({cfg.n_kv_heads} kv), {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+        f"{cfg.moe_top_k}, capacity factor {cfg.capacity_factor}, vocab {cfg.vocab_size}), "
+        f"{cfg.n_layers} of 40 layers, f32, remat {cfg.remat!r}, {EP_STEPS} steps of {EP_ROWS} x "
+        f"{EP_SEQ} Markov tokens at {EP_SHAPE[0]}x{EP_SHAPE[1]} (data, model), each 'model' "
+        f"rank holding and running {cfg.n_experts // EP_SHAPE[1]} experts, against 1x1 on "
+        f"the same weights and batches; two ranks sharing one card over gloo (collectives "
+        f"staged through the host: not a multi-card speed); {card}")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    os.makedirs(EP_DIR)
+    kernel_err = ep_kernel_checks()
+    base = ep_train()
+    log(f"  1x1: losses {base['losses']}, aux (load balance, router z) {base['aux']}; ms a "
+        f"step {[round(t, 1) for t in base['step_ms']]}; peak {base['peak_gib']:.2f} GiB; "
+        f"launches {base['launches']}; plain calls {base['plain_calls']}")
+    t0 = time.perf_counter()
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import _free_port
+    mp.spawn(ep_rank, args=(2, _free_port()), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(EP_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    expected = {k: 0 for k in KERNELS}
+    expected["polysketch_causal"] = (1 if cfg.remat == "none" else 2) * cfg.n_layers * EP_STEPS
+    expected["polysketch_causal_backward"] = cfg.n_layers * EP_STEPS
+    wi_block = [cfg.n_experts // EP_SHAPE[1], cfg.d_model // EP_SHAPE[0], cfg.d_ff]
+    for r in ranks:
+        log(f"  rank {r['rank']} ({r['backend']} on {r['device']}): losses {r['losses']}, aux "
+            f"{r['aux']}; ms a step {[round(t, 1) for t in r['step_ms']]}; peak "
+            f"{r['peak_gib']:.2f} GiB; expert blocks {r['expert_gib']:.2f} GiB (wi "
+            f"{r['wi_block']}); gathered over 'model' {r['gathered_bytes_a_step'] / 2**20:.1f} "
+            f"MiB a step; launches {r['launches']}; plain calls {r['plain_calls']}; "
+            f"{len(r['digests'])} plans")
+        if r["batch_sum"] != base["batch_sum"]:
+            raise AssertionError(f"rank {r['rank']}: other batches than 1x1's")
+        diff = max(abs(a - b) for a, b in zip(r["losses"], base["losses"]))
+        check(f"dbrx 1x2 rank {r['rank']}: losses against 1x1", diff, EP_TOL)
+        diff = max(abs(a - b) for x, y in zip(r["aux"], base["aux"]) for a, b in zip(x, y))
+        check(f"dbrx 1x2 rank {r['rank']}: aux_load_balance and aux_router_z against 1x1",
+              diff, EP_TOL)
+        if r["launches"] != expected or base["launches"] != expected:
+            raise AssertionError(f"rank {r['rank']}: launches {r['launches']} (1x1 "
+                                 f"{base['launches']}), want {expected}: B1 twice a layer a "
+                                 f"step under remat 'full', its backward once")
+        if r["plain_calls"] or base["plain_calls"]:
+            raise AssertionError(f"rank {r['rank']} or 1x1 called a plain version")
+        if r["wi_block"] != wi_block:
+            raise AssertionError(f"rank {r['rank']}: wi block {r['wi_block']}, want {wi_block}")
+    if ranks[0]["digests"] != ranks[1]["digests"] or not ranks[0]["digests"]:
+        raise AssertionError("the two 'model' ranks routed differently")
+    log(f"  the plans' digests equal on both ranks ({len(ranks[0]['digests'])} plans); two "
+        f"ranks: {spawn_s:.1f} s with their start-up")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s ({card}; two ranks sharing one "
+        f"card over host-staged gloo collectives, not a multi-card speed)")
+    for r in ranks:
+        r.pop("digests")
+    base.pop("digests")
+    row = {"kernel_err": kernel_err, "base": base, "ranks": ranks, "card": card}
+    log(json.dumps({"expert_parallel": row}, default=float))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel time at the slice's shape
 # ---------------------------------------------------------------------------
 
@@ -5742,6 +5972,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     tp = phase_tp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = phase_ep(card)
     tp_launches = {
         "polysketch_causal": {
             "serve_1x2": tp["serve_1x2"]["b1_launches"],
@@ -5778,6 +6011,10 @@ def main(argv=None):
             out["tp_launches_a_rank"] = tp_launches[name]
         if name in tp["kernel_err"]:   # phase 15: at a rank's share of the heads
             out["tp_max_abs_err"] = tp["kernel_err"][name]
+        if name in ep["kernel_err"]:   # phase 16: dbrx's experts split over two ranks
+            out["ep_launches_a_rank"] = [r["launches"][name] for r in ep["ranks"]]
+            out["ep_1x1_launches"] = ep["base"]["launches"][name]
+            out["ep_max_abs_err"] = ep["kernel_err"][name]
         if name in dense_launches:   # the dense models at h 128, bf16
             key = "fwd" if name == "polysketch_causal" else "bwd"
             h_ms, h_plain, h_bd = h128_times["bfloat16"][key]

@@ -26,7 +26,7 @@ block, and ``reduce_grad`` turns each rank's gradient of its own rows
 into its block of the mean gradient. The compute splits over "model"
 (``distributed/tensor_parallel.py``): under ``activation_sharding`` each
 "model" rank computes its own heads, mlp columns and (in training) vocab
-rows, and ``shard_act`` gathers the reference's gather points whole when
+rows and experts, and ``shard_act`` gathers the reference's gather points whole when
 the active rules map them to () (serving), or leaves them split for the
 Megatron partial sum (training). The collectives are plain
 ``torch.distributed`` calls on each mesh axis's group (gloo moves CUDA
@@ -260,7 +260,11 @@ def shard_act(x, *logical_names):
     move is at a gather point whose logical name the active rules map to
     () (serving): its dim is gathered whole over "model". Elsewhere (no
     context, one "model" rank, training's partial sums, other names) it is
-    x itself."""
+    x itself. "experts" is no gather point: where the rules split the
+    experts (training), models/moe.py fills and runs each rank's own
+    experts and gathers their outputs whole itself
+    (tensor_parallel.gather_model), so the reference's constraints on the
+    expert buffer ("experts", "batch") are x here."""
     ctx = tp.active()
     if ctx is None or ctx.size == 1:
         return x

@@ -28,9 +28,31 @@ asks this module what the rules say:
   plan whose placement split an untied lm_head by vocab says so when it
   activates the context (``gathers_vocab``), and the logits are gathered
   whole (the reference's ``constrain_logits``).
+- The experts: under rules that keep "experts" on "model" (training)
+  each rank holds E/M whole experts of wi, wg and wo and E/M router
+  columns (``splits("experts", E)``). The router logits are gathered whole
+  over "model" (``gather_model``: forward an all-gather, backward this
+  rank's slice, as everything after it is computed alike on every rank),
+  so every rank routes alike; each runs its own experts, whose outputs are
+  gathered whole into the (E, G * cap, D) buffer the same way before the
+  combine. The MoE block's input goes through ``enter``: its gradient
+  arrives in parts (this rank's experts and router columns).
 
 Outside a context, or on a "model" axis of one rank, every function here
 returns its input.
+
+The batch axes. ``split_rows(mesh, axes)`` says, on the calling thread,
+that a call's token rows are this rank's share of rows split over the
+mesh's `axes` in rank order (the data-parallel ranks of a training
+step). Only the MoE reads it: its routing couples the tokens of one call
+(capacity, the aux losses' means), so it gathers the rows
+(``rows_gather``) or sums its statistics over them (``rows_sum``) to
+compute what one device computes on the whole call.
+
+All of it lives in thread-local state, which ``thread_state`` copies and
+``thread_state_active`` re-activates: a rematerialised block's recompute
+runs where autograd runs the backward, on CUDA a thread of its own
+(``models/transformer._run_block``).
 """
 from __future__ import annotations
 
@@ -41,8 +63,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-# The ROADMAP items a refusal names.
-EXPERTS_ITEM = "ROADMAP A.9 item 2"
+# The ROADMAP item a refusal names.
 REFUSALS_ITEM = "ROADMAP A.9 item 4"
 
 _LOCAL = threading.local()
@@ -113,6 +134,16 @@ def splits(name: str, n: int) -> bool:
     return keeps(name) and n % model_size() == 0
 
 
+def expert_range(n: int) -> tuple[int, int]:
+    """[lo, hi): the experts of `n` this rank holds and runs (all of them
+    unless the active rules split "experts" over "model")."""
+    if not splits("experts", n):
+        return 0, n
+    ctx = active()
+    per = n // ctx.size
+    return ctx.rank * per, (ctx.rank + 1) * per
+
+
 def gathers_vocab(n: int) -> bool:
     """Whether the logits come out as this rank's block of a vocab of `n`
     that the caller gathers whole: serving an lm_head placed by vocab."""
@@ -127,6 +158,33 @@ def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(ctx.size)]
     dist.all_gather(parts, x.contiguous(), group=ctx.group)
     return torch.cat(parts, dim=dim)
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every "model" rank's block of x along `dim`: all-gather forward;
+    backward this rank's slice of the gradient, which every rank holds
+    alike (what follows the gather is computed alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, None
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every "model" rank's block of `x` along `dim`, concatenated in rank
+    order, with a gradient that takes this rank's slice back (training's
+    gathers of the router logits and the expert outputs)."""
+    ctx = active()
+    if ctx is None or ctx.size == 1:
+        return x
+    return _GatherModel.apply(x, dim % x.dim(), ctx.group, ctx.size, ctx.rank)
 
 
 class _Enter(torch.autograd.Function):
@@ -211,16 +269,19 @@ def vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Te
 def check_trainable(cfg, size: int):
     """Raise for what training over a "model" axis of `size` does not do:
     a head count it does not divide (the reference would fall back to
-    splitting head_dim, a contraction inside the attention kernel), the
-    MoE family's experts, the recurrent mixers' "rnn" axis, and the
-    encoder-decoder (its own lookup and logits are not vocab-parallel)."""
+    splitting head_dim, a contraction inside the attention kernel), an
+    expert count it does not divide (the reference would split the
+    experts' "mlp" axis instead), the recurrent mixers' "rnn" axis, and
+    the encoder-decoder (its own lookup and logits are not
+    vocab-parallel)."""
     if size <= 1:
         return
     check_heads(cfg, size)
-    if cfg.ffn == "moe":
+    if cfg.ffn == "moe" and cfg.n_experts % size:
         raise NotImplementedError(
-            f"{cfg.name!r}: training over a 'model' axis of {size} splits the experts, "
-            f"which is not ported ({EXPERTS_ITEM}); use model 1")
+            f"{cfg.name!r}: a 'model' axis of {size} does not divide its {cfg.n_experts} "
+            f"experts; the reference would split the experts' 'mlp' axis instead, which "
+            f"is not ported ({REFUSALS_ITEM}); use a model axis that divides them")
     recurrent = [m for m in cfg.block_pattern if m not in ("attn", "local_attn")]
     if recurrent:
         raise NotImplementedError(
@@ -265,3 +326,123 @@ def sum_over_model(tensors: list[torch.Tensor], group):
     dist.all_reduce(flat, group=group)
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
+
+
+# ---------------------------------------------------------------------------
+# the batch axes: an MoE call's rows split over data-parallel ranks
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Rows:
+    """The mesh axes a call's token rows are split over, major to minor:
+    each one's (process group, size, this rank's index), sizes above 1."""
+    axes: tuple
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for _, s, _ in self.axes:
+            n *= s
+        return n
+
+    @property
+    def index(self) -> int:
+        i = 0
+        for _, s, r in self.axes:
+            i = i * s + r
+        return i
+
+
+def thread_state() -> dict:
+    """A copy of this thread's contexts that the model code reads (the
+    active mesh and rules, the rows' split)."""
+    return dict(vars(_LOCAL))
+
+
+@contextlib.contextmanager
+def thread_state_active(state: dict):
+    """Inside: this thread's contexts are `state` (a thread_state)."""
+    before = thread_state()
+    vars(_LOCAL).clear()
+    vars(_LOCAL).update(state)
+    try:
+        yield
+    finally:
+        vars(_LOCAL).clear()
+        vars(_LOCAL).update(before)
+
+
+def rows() -> Rows | None:
+    """The active split of the rows over the batch axes (None: a call's
+    rows are all here)."""
+    return getattr(_LOCAL, "rows", None)
+
+
+@contextlib.contextmanager
+def split_rows(mesh, axes):
+    """Inside: a call's token rows are this rank's share of the rows split
+    over `mesh`'s `axes` (major to minor) in rank order. Axes of one rank
+    split nothing."""
+    names = list(mesh.mesh_dim_names)
+    held = tuple((mesh.get_group(a), mesh.size(names.index(a)), mesh.get_local_rank(a))
+                 for a in axes if mesh.size(names.index(a)) > 1)
+    before = rows()
+    _LOCAL.rows = Rows(held) if held else None
+    try:
+        yield _LOCAL.rows
+    finally:
+        _LOCAL.rows = before
+
+
+def _sum_rows(x, split: Rows):
+    x = x.contiguous().clone()
+    for group, _, _ in split.axes:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+class _RowsGather(torch.autograd.Function):
+    """Every rank's rows of x, in rank order: all-gather forward (the
+    minor axis first); backward the sum of every rank's gradient, cut to
+    this rank's rows (each rank's loss reads its own rows of what follows)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split, ctx.n = split, x.shape[0]
+        for group, size, _ in reversed(split.axes):
+            parts = [torch.empty_like(x) for _ in range(size)]
+            dist.all_gather(parts, x.contiguous(), group=group)
+            x = torch.cat(parts)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_rows(g, ctx.split).narrow(0, ctx.split.index * ctx.n, ctx.n), None
+
+
+class _RowsSum(torch.autograd.Function):
+    """The sum over the batch axes: all-reduce forward and backward. Every
+    rank's loss holds the sum's term once, and the step takes the mean of
+    the ranks' gradients, so the backward's sum gives each rank the whole
+    term's gradient, and the mean the reference's."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _sum_rows(x, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_rows(g, ctx.split), None
+
+
+def rows_gather(x: torch.Tensor) -> torch.Tensor:
+    """x (N, ...), this rank's rows: every rank's rows along dim 0."""
+    split = rows()
+    return x if split is None else _RowsGather.apply(x, split)
+
+
+def rows_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's `x` over the batch axes."""
+    split = rows()
+    return x if split is None else _RowsSum.apply(x, split)

@@ -53,12 +53,21 @@ pattern, e.g. --set n_layers=9):
 
 The mixture-of-experts models add their router aux losses to the loss and
 log them (aux_load_balance, aux_router_z); dbrx trains one of its 40
-layers on one card (16 bytes a parameter: 57.8 GiB):
+layers on one card (16 bytes a parameter: 57.8 GiB). Over ``--mesh`` a
+"model" axis splits the experts (each rank holds and runs E/M of them,
+and logs its range and block bytes), as the reference's rules do; two
+ranks sharing one card (``--share-card``) hold half of a dbrx layer's
+experts each:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
         --smoke --device cpu --steps 4 --batch 2 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b \
         --draw-on-device --set n_layers=1 --batch 1 --seq 4096 --steps 3
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch dbrx-132b \
+        --smoke --device cpu --mesh 1x2:data,model --steps 3 --batch 4 --seq 32
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch dbrx-132b \
+        --draw-on-device --set n_layers=1 --mesh 1x2:data,model --share-card \
+        --batch 2 --seq 1024 --steps 3
 
 llava-next-mistral-7b trains on tokens only, as the reference's CLI does
 (the image splice trains through ``make_train_step`` with batches that
@@ -77,6 +86,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data import DataIterator, make_markov_lm
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.fault import PreemptionGuard, StragglerDetector
 from repro_torch.launch.mesh import init_ranks, make_mesh
 from repro_torch.models.model_zoo import build_model
@@ -166,6 +176,8 @@ def _train(args, cfg, device, mesh_shape):
         step_fn = make_sharded_train_step(cfg, tcfg)
         if chatty:
             log.info("mesh %s over %d ranks", args.mesh, dist.get_world_size())
+        if cfg.ffn == "moe":
+            log_experts(state, cfg)
     else:
         state = init_train_state(model.lm)
         step_fn = make_train_step(cfg, tcfg)
@@ -219,6 +231,18 @@ def _train(args, cfg, device, mesh_shape):
                  torch.device(dev), dt / max(n, 1), len(straggler.flagged))
         log.info("peak device memory: %s", _peak_memory(dev))
     return state, losses
+
+
+def log_experts(state, cfg):
+    """Log this rank's experts and the bytes of its blocks of the expert
+    weights (wi, wg, wo of every MoE layer)."""
+    _, m, r = tp.model_axis(state.mesh)
+    per = cfg.n_experts // m
+    held = sum(x.numel() * x.element_size() for n, x in state.params.items()
+               if n.endswith(("ffn.wi", "ffn.wg", "ffn.wo")) and x.dim() == 3)
+    log.info("rank %d: experts [%d, %d) of %d, its expert blocks %.1f MiB (f32; AdamW's "
+             "m and v as much again each)", dist.get_rank(), r * per, (r + 1) * per,
+             cfg.n_experts, held / 2**20)
 
 
 def parse_mesh(text: str):

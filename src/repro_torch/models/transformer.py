@@ -43,11 +43,16 @@ hand-written kernels are no products to the dispatcher (they write into
 buffers through ctypes), so both policies run them again in the
 backward, as ``checkpoint_dots`` recomputes a ``pallas_call``. The aux
 losses are outputs of the checkpointed function, so their gradient
-reaches the router through the recomputation.
+reaches the router through the recomputation. The recomputation runs
+where autograd runs the backward (on CUDA a thread of its own), so it
+re-activates the thread-local contexts the forward ran under (the mesh
+and rules, the rows' split: ``tensor_parallel.thread_state``); without
+them a block split over "model" would recompute without its
+collectives.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 import math
 
 import torch
@@ -122,17 +127,28 @@ def _save_products(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+@contextlib.contextmanager
+def _recompute(ctx, state):
+    with ctx, tp.thread_state_active(state):
+        yield
+
+
 def _run_block(remat, block, h, **kw):
-    """block(h, **kw) with the activations kept as `remat` says. The
-    blocks draw no random numbers, so no RNG state is stashed."""
+    """block(h, **kw) with the activations kept as `remat` says, the
+    recomputation under this thread's contexts. The blocks draw no random
+    numbers, so no RNG state is stashed."""
     if remat == "none":
         return block(h, **kw)
-    policy = {}
-    if remat == "dots":
-        policy["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_products)
+    state = tp.thread_state()
+
+    def contexts():
+        if remat == "dots":
+            fwd, rec = create_selective_checkpoint_contexts(_save_products)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _recompute(rec, state)
     return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False,
-                      **policy, **kw)
+                      context_fn=contexts, **kw)
 
 
 class Block(nn.Module):

@@ -19,6 +19,13 @@ never touched. Decode runs all slots in one batched step; free slots
 decode along on stale state (their outputs are never read, and admission
 rewrites the whole slot) until the queue refills them.
 
+The reference's tick maps its decode step over the slots (``jax.vmap``),
+so an MoE layer routes each slot's token as a call of its own, where
+capacity never drops one; the port's tick runs the slots as one batch
+under ``moe.each_row_alone``, which routes them so (a
+batched call would couple them through capacity). ``generate`` batches
+its rows into one call, as the reference's does.
+
 The decode tick has no host sync inside it: the model step, sampling,
 the slot updates and the packing of its tokens (and log-probabilities)
 run on the device, and the tokens reach the host in one copy a tick.
@@ -91,6 +98,7 @@ from repro_torch.core import decode as dec
 from repro_torch.core.state import bucket_chunks
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels import build
+from repro_torch.models import moe
 from repro_torch.serve.plan import ServePlan
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import (SamplingParams, advance_key,
@@ -475,7 +483,7 @@ class ServeEngine:
                                  self.plan.local_snapshot(snapshot), n_tokens)
 
         def decode(tokens, pos, caches):
-            with act():
+            with act(), moe.each_row_alone():
                 return state.decode_step(tokens, pos, caches, inplace=True)
 
         # the entry points count their call signatures, the port's jit

@@ -117,7 +117,9 @@ def make_train_step(cfg, tcfg):
 def _grads(lm, params, loss_fn, batch, mb):
     """The gradient of the mean loss over `batch` (mb consecutive slices,
     their gradients summed and divided by mb), taken out of the
-    parameters' .grad; and the last slice's metrics."""
+    parameters' .grad; and the last slice's metrics. On a data-parallel
+    rank `batch` is `_rows`'s share, whose slice j is this rank's rows of
+    the global microbatch j."""
     for p in params.values():
         p.grad = None
     for i in range(mb):
@@ -135,16 +137,23 @@ def _grads(lm, params, loss_fn, batch, mb):
     return grads, metrics
 
 
-def _rows(batch, index: int, parts: int):
-    """Rows [index * B / parts, (index + 1) * B / parts) of every array
-    of a batch: one data-parallel rank's shard."""
+def _rows(batch, index: int, parts: int, mb: int = 1):
+    """One data-parallel rank's shard of every array of a batch: of each of
+    the mb global microbatches (rows [j B / mb, (j + 1) B / mb), the
+    reference's), the rank's slice of B / (mb parts) rows, in microbatch
+    order, so that `_grads`'s consecutive slices are this rank's shares of
+    the global microbatches. At mb 1, rows [index B / parts, (index + 1) B
+    / parts). A dense model cannot tell the order of its rows; an MoE
+    routes, drops and takes its aux losses' means over one call's rows,
+    which must be the reference's microbatch."""
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % parts:
-            raise ValueError(f"batch of {v.shape[0]} rows does not split over "
-                             f"{parts} data-parallel ranks")
-        step = v.shape[0] // parts
-        out[k] = v[index * step:(index + 1) * step]
+        if v.shape[0] % (parts * mb):
+            raise ValueError(f"batch of {v.shape[0]} rows does not split into {mb} "
+                             f"microbatches over {parts} data-parallel ranks")
+        step = v.shape[0] // (parts * mb)
+        out[k] = v.reshape(mb, parts, step, *v.shape[1:])[:, index].reshape(
+            mb * step, *v.shape[1:])
     return out
 
 
@@ -289,19 +298,26 @@ def make_sharded_train_step(cfg, tcfg):
     "data" only (FSDP) into the LM, so a "model" block stays this rank's:
     wq/wk/wv and the GLU's wi/wg hold its output columns (heads, mlp), wo
     and the GLU's wo its input rows, the embedding table (and an untied
-    lm_head) its vocab rows. Under ``activation_sharding`` with
-    DEFAULT_RULES the model computes on those blocks (Megatron's: each
-    block's output summed over "model", the lookup and the cross-entropy
-    vocab-parallel; distributed/tensor_parallel.py). Each rank takes its
-    rows of the global batch (batch_spec over the mesh's batch axes) and
-    computes the gradient of their mean loss (microbatches as
-    make_train_step); the attention's head-shared parameters' gradients
+    lm_head) its vocab rows, an MoE layer's wi/wg/wo its E/M whole experts
+    and its router their columns (expert parallelism, models/moe.py).
+    Under ``activation_sharding`` with DEFAULT_RULES the model computes on
+    those blocks (Megatron's: each block's output summed over "model", the
+    lookup and the cross-entropy vocab-parallel;
+    distributed/tensor_parallel.py). Each rank takes its rows of the
+    global batch (batch_spec over the mesh's batch axes) and computes the
+    gradient of their mean loss (microbatches as make_train_step); the
+    attention's head-shared parameters' gradients
     are summed over "model" (each rank saw its own heads), the gradients
     are reduced over the batch axes to each rank's blocks of their mean
     (sharding.reduce_grad), clipped by the global norm of the whole
     gradients (sharding.global_sumsq) and stepped by AdamW on the blocks;
-    the LM gives up the gathered storage again. The metrics are averaged over the
-    data-parallel ranks (an MoE's aux losses are each rank's rows' own)."""
+    the LM gives up the gathered storage again. A rank's share of
+    microbatch j is its slice of the global microbatch j (`_rows`). An MoE
+    layer computes on its call's rows over the batch axes
+    (tensor_parallel.split_rows): dispatch groups aligned to the data
+    shards, the aux losses over the whole microbatch (models/moe.py), so
+    its routing, drops and aux metrics are the reference's. The losses are
+    averaged over the ranks; the aux metrics are every rank's alike."""
     loss_fn = make_loss_fn(cfg)
     schedule = linear_warmup_linear_decay(tcfg.peak_lr, tcfg.steps,
                                           tcfg.warmup_frac)
@@ -322,16 +338,16 @@ def make_sharded_train_step(cfg, tcfg):
             dim = mesh.mesh_dim_names.index(a)
             index = index * mesh.size(dim) + mesh.get_local_rank(dim)
             parts *= mesh.size(dim)
-        with shd.activation_sharding(mesh, shd.DEFAULT_RULES):
+        with shd.activation_sharding(mesh, shd.DEFAULT_RULES), tp.split_rows(mesh, axes):
             grads, metrics = _grads(state.lm, named, loss_fn,
-                                    _rows(batch, index, parts), mb)
+                                    _rows(batch, index, parts, mb), mb)
             group, size, _ = tp.model_axis(mesh)
             if size > 1:
                 tp.sum_over_model([grads[n] for n in tp.head_shared_params(state.lm)],
                                   group)
         _release(named)
-        grads = {n: shd.reduce_grad(g, specs[n], mesh, axes, compute)
-                 for n, g in grads.items()}
+        for n in list(grads):   # one gradient and its block at a time
+            grads[n] = shd.reduce_grad(grads.pop(n), specs[n], mesh, axes, compute)
         gnorm = torch.sqrt(shd.global_sumsq(grads, specs, mesh))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=gnorm)
         lr = schedule(state.step)
@@ -339,7 +355,7 @@ def make_sharded_train_step(cfg, tcfg):
                            b2=tcfg.b2, weight_decay=tcfg.weight_decay, cfg=cfg)
         del grads
         # over every rank: a model axis's ranks hold their data rank's values
-        metrics = _mean_metrics(metrics, None)
+        metrics.update(_mean_metrics({k: metrics[k] for k in ("loss", "ce_loss")}, None))
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return ShardedTrainState(state.lm, state.params, opt, state.step + 1, mesh,
                                  specs), metrics
